@@ -1,0 +1,207 @@
+"""Pose/shape refinement engine: the reference's hot loop, eagerly.
+
+Counterpart of sdflabel_tpu/engine/refine.py (reference optimizer.py:13-164).
+Parameters {yaw, trans, scale, latent}; Adam for yaw and for trans, SGD
+for scale and for latent, each in its own parameter group (QUIRKS #7).
+Each iteration: scene / scale, pose from yaw with the Y row flipped, the
+latent renormalized to the unit sphere, the band selection (warm-started
+in the stock config), the exact stage-2 decode with autograd normals, the
+surfel render, the 3D NN loss plus the 2D NOCS loss, and the step behind
+the NaN/zero guard. The JAX ``lax.scan`` becomes a Python loop.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from sdflabel_tpu_torch.engine import losses
+from sdflabel_tpu_torch.ops import geometry, grid as grid_ops
+from sdflabel_tpu_torch.renderer import rasterer as rast_mod
+
+
+@dataclasses.dataclass(frozen=True)
+class RefineConfig:
+    iters: int = 60  # config_refine.ini [optimization] iters
+    weight_2d: float = 0.3  # [losses] 2d_weight
+    weight_3d: float = 0.5  # [losses] 3d_weight
+    lr_yaw: float = 0.01  # optimizer.py:34
+    lr_trans: float = 0.01  # optimizer.py:36
+    lr_scale: float = 0.01  # optimizer.py:37
+    lr_latent: float = 3e-5  # optimizer.py:38
+    surface_capacity: int = 4096
+    surface_threshold: float = 0.03  # grid.py:43
+    # Warm-started band selection: every `warm_refresh` iterations the full
+    # grid is ranked for the `warm_band` smallest |sdf| candidates; between
+    # refreshes the band comes from those candidates only. 0 = exact
+    # full-grid selection each iteration.
+    warm_band: int = 0
+    warm_refresh: int = 10
+    loss3d_threshold: float = 0.2  # optimizer.py:166
+    loss2d_diam: float = 5.0  # optimizer.py:200
+    loss2d_threshold: float = 1.0  # optimizer.py:200
+
+
+class RefineParams(NamedTuple):
+    yaw: torch.Tensor  # (1,)
+    trans: torch.Tensor  # (3,)
+    scale: torch.Tensor  # (1,)
+    latent: torch.Tensor  # (L,)
+
+
+class RefineStepOut(NamedTuple):
+    """Per-iteration history, stacked over iterations."""
+
+    loss: torch.Tensor
+    loss_2d: torch.Tensor
+    loss_3d: torch.Tensor
+    applied: torch.Tensor  # False where the NaN/zero guard skipped the step
+    params: RefineParams  # parameters USED by each iteration (pre-update)
+
+
+def build_render_pose(yaw: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
+    """4x4 render pose: rotation from yaw with its Y row flipped, then the
+    translation, whose y keeps its sign (optimizer.py:87-90)."""
+    rot = geometry.rot_from_yaw(yaw).to(trans.dtype)
+    rot = rot * torch.tensor([1.0, -1.0, 1.0], device=trans.device,
+                             dtype=trans.dtype)[:, None]
+    top = torch.cat([rot, trans.reshape(3, 1)], dim=1)
+    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=trans.device,
+                          dtype=trans.dtype)
+    return torch.cat([top, bottom], dim=0)
+
+
+def _normalize_latent(latent: torch.Tensor) -> torch.Tensor:
+    # F.normalize (optimizer.py:96) with a NaN-free gradient at zero
+    return latent / torch.sqrt(torch.clamp(latent.square().sum(), min=1e-24))
+
+
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: pass device='cpu' to run on the CPU")
+    return device
+
+
+def make_refine_fn(sdf_decoder, cfg: RefineConfig, grid_points: torch.Tensor,
+                   K: torch.Tensor, crop_hw: tuple[int, int],
+                   select_decoder=None, device="cuda"):
+    """Build refine(params0, nocs_target, frustum_pts, frustum_mask,
+    pixel_mask=None) -> (final RefineParams, RefineStepOut) for one crop
+    geometry.
+
+    sdf_decoder(latent, points) -> (N,) sdf, differentiable; select_decoder:
+    optional rank-only decoder for the selection passes (the selection
+    kernel). nocs_target (3, h, w); frustum (M, 3) with its (M,) mask.
+    """
+    device = _device(device)
+    h, w = crop_hw
+    use_warm = cfg.warm_band > 0
+    if use_warm:
+        if cfg.warm_band < cfg.surface_capacity:
+            raise ValueError(f"warm_band {cfg.warm_band} must be >= "
+                             f"surface_capacity {cfg.surface_capacity}")
+        if cfg.warm_refresh < 1:
+            raise ValueError(f"warm_refresh must be >= 1 (got "
+                             f"{cfg.warm_refresh})")
+    grid_points = grid_points.to(device)
+    K = torch.as_tensor(K, dtype=torch.float32).to(device)
+    sel = select_decoder if select_decoder is not None else sdf_decoder
+
+    def iteration(params: RefineParams, nocs_target, frustum_pts,
+                  frustum_mask, pixel_mask, cand_idx):
+        scene = frustum_pts / params.scale.reshape(())
+        pose = build_render_pose(params.yaw, params.trans)
+        latent = _normalize_latent(params.latent)
+        if use_warm:
+            surf = grid_ops.surface_from_candidates(
+                sdf_decoder, latent, grid_points, cand_idx,
+                capacity=cfg.surface_capacity,
+                threshold=cfg.surface_threshold,
+                select_decoder_fn=select_decoder)
+        else:
+            surf, _ = grid_ops.surface_from_decoder(
+                sdf_decoder, latent, grid_points,
+                capacity=cfg.surface_capacity,
+                threshold=cfg.surface_threshold,
+                select_decoder_fn=select_decoder)
+        rendering, points = rast_mod.render(
+            K, (w, h), surf.points, surf.normals, surf.normals, pose,
+            point_mask=surf.mask, rot="dcm", primitives="disc",
+            output_nocs=True)
+        l3d = losses.loss_3d(points.xyz, points.front_mask, scene,
+                             frustum_mask, params.scale,
+                             threshold=cfg.loss3d_threshold)
+        l2d = losses.loss_2d(rendering.color, nocs_target,
+                             diam=cfg.loss2d_diam,
+                             threshold_nocs=cfg.loss2d_threshold,
+                             pixel_mask=pixel_mask)
+        return cfg.weight_3d * l3d + cfg.weight_2d * l2d, l2d, l3d
+
+    def refine(params0: RefineParams, nocs_target, frustum_pts,
+               frustum_mask, pixel_mask=None):
+        params = RefineParams(*(torch.as_tensor(p, dtype=torch.float32)
+                                .to(device).detach().clone()
+                                .requires_grad_(True) for p in params0))
+        nocs_target = torch.as_tensor(nocs_target).to(device)
+        frustum_pts = torch.as_tensor(frustum_pts).to(device)
+        frustum_mask = torch.as_tensor(frustum_mask).to(device).bool()
+        if pixel_mask is None:
+            pixel_mask = torch.ones(h, w, dtype=torch.bool, device=device)
+        pixel_mask = torch.as_tensor(pixel_mask).to(device).bool()
+        adam = torch.optim.Adam([{"params": [params.yaw], "lr": cfg.lr_yaw},
+                                 {"params": [params.trans],
+                                  "lr": cfg.lr_trans}], eps=1e-8)
+        sgd = torch.optim.SGD([{"params": [params.scale],
+                                "lr": cfg.lr_scale},
+                               {"params": [params.latent],
+                                "lr": cfg.lr_latent}], lr=cfg.lr_scale)
+        cand_idx = None
+        hist = []
+        for it in range(cfg.iters):
+            if use_warm and it % cfg.warm_refresh == 0:
+                # selection only: outside the gradient, on the current latent
+                cand_idx = grid_ops.band_candidates(
+                    sel, _normalize_latent(params.latent.detach()),
+                    grid_points, cfg.warm_band)
+            loss, l2d, l3d = iteration(params, nocs_target, frustum_pts,
+                                       frustum_mask, pixel_mask, cand_idx)
+            grads = torch.autograd.grad(loss, list(params), allow_unused=True)
+            used = RefineParams(*(p.detach().clone() for p in params))
+            # NaN / zero-loss guard (optimizer.py:149-151): no step at all,
+            # so neither the parameters nor the optimizer state move
+            ok = bool(torch.isfinite(loss) & (loss != 0.0))
+            if ok:
+                for p, g in zip(params, grads):
+                    g = torch.zeros_like(p) if g is None else g
+                    # a leaf with a non-finite gradient steps on zero: its
+                    # Adam moments decay, as under the JAX guard
+                    p.grad = torch.where(torch.isfinite(g).all(), g,
+                                         torch.zeros_like(g))
+                adam.step()
+                sgd.step()
+            hist.append((loss.detach(), l2d.detach(), l3d.detach(), ok,
+                         used))
+        final = RefineParams(*(p.detach() for p in params))
+        return final, RefineStepOut(
+            loss=torch.stack([x[0] for x in hist]),
+            loss_2d=torch.stack([x[1] for x in hist]),
+            loss_3d=torch.stack([x[2] for x in hist]),
+            applied=torch.tensor([x[3] for x in hist], device=device),
+            params=RefineParams(*(torch.stack([x[4][i] for x in hist])
+                                  for i in range(4))))
+
+    return refine
+
+
+def init_refine_params(yaw: float, trans, scale: float, latent,
+                       device="cpu") -> RefineParams:
+    """Pack initial values; `trans` is already divided by scale
+    (refine_css.py:192-196)."""
+    def t(x, n):
+        return torch.as_tensor(x, dtype=torch.float32,
+                               device=device).reshape(n)
+    return RefineParams(yaw=t(yaw, 1), trans=t(trans, 3), scale=t(scale, 1),
+                        latent=t(latent, -1))

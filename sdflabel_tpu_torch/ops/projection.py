@@ -1,0 +1,71 @@
+"""Point projection world -> camera -> pixel, DCM and quaternion variants.
+
+Counterpart of sdflabel_tpu/ops/projection.py (projection.py:7-199):
+back-face culling gives a boolean ``front_mask`` instead of a dynamic
+masked_select, so shapes stay fixed. All products run in fp32.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+def qrot(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate v (..., 3) by w-first quaternions q (..., 4)
+    (utils_rasterer.py:6-24)."""
+    qvec = q[..., 1:]
+    uv = torch.linalg.cross(qvec, v, dim=-1)
+    uuv = torch.linalg.cross(qvec, uv, dim=-1)
+    return v + 2.0 * (q[..., :1] * uv + uuv)
+
+
+class ProjectedPoints(NamedTuple):
+    points_3d: torch.Tensor  # (N, 3) camera-frame points
+    normals_3d: torch.Tensor  # (N, 3) rotated normals
+    colors_3d: torch.Tensor  # (N, 3) colors (NOCS coords if output_nocs)
+    points_2d: torch.Tensor  # (N, 2) pixel coords, clamped to [-1, res]
+    front_mask: torch.Tensor  # (N,) normal faces the camera
+
+
+def _project_pixels(K, points_cam, resolution_px):
+    res_x, res_y = resolution_px
+    eps = torch.finfo(K.dtype).eps
+    p2h = points_cam @ K.T
+    p2 = p2h[:, :2] / (p2h[:, 2:3] + eps)
+    x = torch.clamp(p2[:, 0:1], -1.0, float(res_x))
+    y = torch.clamp(p2[:, 1:2], -1.0, float(res_y))
+    return torch.cat([x, y], dim=-1)
+
+
+def project_dcm(K, camera_pose, points, normals, colors, resolution_px,
+                output_nocs: bool = True) -> ProjectedPoints:
+    """(4, 4) camera matrix projection (projection.py:7-101); with
+    output_nocs the colors become the x-flipped object coordinates."""
+    rot = camera_pose[:3, :3]
+    points_cam = points @ rot.T + camera_pose[:3, 3]
+    normals_cam = normals @ rot.T
+    if output_nocs:
+        flip = torch.tensor([-1.0, 1.0, 1.0], device=points.device,
+                            dtype=points.dtype)
+        colors = points * flip
+    dot = (normals_cam * points_cam).sum(-1)
+    return ProjectedPoints(points_cam, normals_cam, colors,
+                           _project_pixels(K, points_cam, resolution_px),
+                           dot < 0)
+
+
+def project_quat(K, camera_pose, points, normals, colors, resolution_px,
+                 output_nocs: bool = True) -> ProjectedPoints:
+    """(7,) [qw, qx, qy, qz, tx, ty, tz] pose (projection.py:104-199); the
+    quaternion variant does not x-flip NOCS colors."""
+    q = camera_pose[:4].expand(points.shape[0], 4)
+    points_cam = qrot(q, points) + camera_pose[4:]
+    normals_cam = qrot(q, normals)
+    if output_nocs:
+        colors = points
+    dot = (normals_cam * points_cam).sum(-1)
+    return ProjectedPoints(points_cam, normals_cam, colors,
+                           _project_pixels(K, points_cam, resolution_px),
+                           dot < 0)

@@ -1,0 +1,401 @@
+"""Pose/shape refinement (autolabeling) of single crops: the demo driver.
+
+Counterpart of sdflabel_tpu/pipelines/refine_css.py (reference
+refine_css_demo.py:23-204 and refine_css.py:94-236), for one annotation at
+a time: crop + intrinsics, CSS forward, DeepSDF surface decode, NOCS
+reprojection, RANSAC pose init, azimuth constraint + height re-estimation,
+the refine loop, and the KITTI label. Everything from the CSS forward to
+the label extents runs on `device` (the card by default); the reference's
+host-side numpy steps (reprojection, label math) stay numpy.
+
+Not ported yet, and refused with NotImplementedError: the KITTI driver with
+evaluation, batched crops, visualization, PnP pose init, MaskRCNN labels,
+coarse cells, select_bf16 and the fused stage-2 decode.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+from collections import defaultdict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from sdflabel_tpu_torch import config as cfg_mod
+from sdflabel_tpu_torch.data import kitti as kitti_mod
+from sdflabel_tpu_torch.engine import labels as labels_mod
+from sdflabel_tpu_torch.engine import refine as refine_mod
+from sdflabel_tpu_torch.models import css as css_mod
+from sdflabel_tpu_torch.models import deepsdf
+from sdflabel_tpu_torch.ops import geometry, grid as grid_ops, mlp_cuda
+from sdflabel_tpu_torch.ops import ransac
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def _resize_pass(img: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    img = F.interpolate(img, size=size, mode="bilinear", align_corners=False,
+                        antialias=True)
+    return torch.clamp(torch.floor(img + 0.5), 0, 255)  # back to uint8
+
+
+def transform_bgr_crop(crop_bgr: np.ndarray, device="cpu"):
+    """BGR float crop -> (normalized, plain) (3, 128, 128) float32 tensors
+    (refinement.py:60-84). PIL's bilinear resize antialiases when it
+    shrinks and resamples the width, then the height, through a uint8
+    image; here each pass is F.interpolate(antialias=True) rounded back to
+    uint8 values, which agrees with PIL to one level in 255."""
+    rgb8 = (np.clip(crop_bgr[..., ::-1], 0, 1) * 255).astype(np.uint8)
+    img = torch.as_tensor(np.ascontiguousarray(rgb8)).to(device)
+    img = img.permute(2, 0, 1)[None].float()
+    img = _resize_pass(img, (img.shape[2], 128))
+    arr = _resize_pass(img, (128, 128))[0] / 255.0
+    mean = torch.tensor(IMAGENET_MEAN, device=arr.device)[:, None, None]
+    std = torch.tensor(IMAGENET_STD, device=arr.device)[:, None, None]
+    return (arr - mean) / std, arr
+
+
+def nearest_resize_chw(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
+    """F.interpolate(mode='nearest') for (C, H, W) numpy arrays."""
+    _, h, w = img.shape
+    th, tw = hw
+    ys = (np.arange(th) * h // th).clip(max=h - 1)
+    xs = (np.arange(tw) * w // tw).clip(max=w - 1)
+    return img[:, ys[:, None], xs[None, :]]
+
+
+def _refuse(what: str):
+    raise NotImplementedError(f"{what} is not ported to sdflabel_tpu_torch "
+                              "yet (see ROADMAP.md)")
+
+
+class RefineRuntime:
+    """The models, the selection kernel and the RNGs of one refinement
+    configuration, on `device`."""
+
+    def __init__(self, cfg: cfg_mod.RefineCfg, css_model: css_mod.CSSNet,
+                 dsdf_cfg: deepsdf.DeepSDFConfig, dsdf_params: dict,
+                 rng_seed: int = 1, surface_capacity: int | None = None,
+                 frustum_capacity: int = 8192,
+                 ransac_model_capacity: int = 2048,
+                 ransac_scene_capacity: int = 2048,
+                 ransac_cfg: ransac.RansacConfig | None = None,
+                 device="cuda"):
+        self.device = refine_mod._device(device)
+        if cfg.coarse_cells or cfg.warm_refresh_cells:
+            _refuse("coarse-cell selection")
+        if cfg.select_bf16:
+            _refuse("select_bf16")
+        if cfg.stage2_pallas:
+            _refuse("the fused stage-2 decode")
+        if cfg.pose_estimator not in ("kabsch", "procrustes"):
+            _refuse(f"pose_estimator {cfg.pose_estimator!r}")
+        # fp32 matmuls and convolutions stay fp32 on the card (QUIRKS #16)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.cfg = cfg
+        self.dsdf_cfg = dsdf_cfg
+        # [optimization] precision: float16 maps to bf16 (QUIRKS #16); the
+        # decoder computes in that dtype, the sdf comes back as fp32 for
+        # the isosurface, top-k and everything downstream
+        self.compute_dtype = cfg_mod.precision_dtype(cfg.precision)
+        dsdf_params = deepsdf.cast_params(
+            deepsdf._map_tree(lambda t: t.to(self.device), dsdf_params),
+            self.compute_dtype)
+        self.dsdf_params = dsdf_params
+        base = deepsdf.sdf_fn(dsdf_cfg, dsdf_params)
+        cdt = self.compute_dtype
+
+        def decoder(latent, points):
+            return base(latent.to(cdt), points.to(cdt)).float()
+
+        self.decoder = decoder
+        # the selection kernel, packed after the precision cast as the JAX
+        # runtime packs it; None outside its contract (e.g. widths that are
+        # not multiples of 128)
+        self.select_decoder = (mlp_cuda.select_fn(dsdf_cfg, dsdf_params)
+                               if cfg.select_pallas else None)
+        self.grid_points = grid_ops.generate_point_grid(cfg.grid_density,
+                                                        device=self.device)
+        self.surface_capacity = (surface_capacity if surface_capacity
+                                 is not None
+                                 else min(8192, cfg.grid_density ** 3))
+        self.frustum_capacity = frustum_capacity
+        wb = cfg.warm_band or 0
+        self.warm_band = min(wb, cfg.grid_density ** 3) if wb else 0
+        self.ransac_model_capacity = min(ransac_model_capacity,
+                                         self.surface_capacity)
+        self.ransac_scene_capacity = ransac_scene_capacity
+        self.ransac_cfg = ransac_cfg or ransac.RansacConfig()
+        self.css = css_model.to(self.device).eval()
+        self.reset_rng(rng_seed)
+
+    def reset_rng(self, rng_seed: int = 1):
+        # host RNG for scene / frustum subsampling, owned by the runtime
+        self.np_rng = np.random.RandomState(rng_seed)
+        self.ransac_generator = torch.Generator(
+            device=self.device).manual_seed(rng_seed)
+
+    def ransac_ranks(self, num_valid: int) -> torch.Tensor:
+        """(H, S) hypothesis ranks for one RANSAC call."""
+        return ransac.draw_ranks(num_valid, self.ransac_cfg,
+                                 self.ransac_generator)
+
+    @torch.no_grad()
+    def css_and_surface(self, crop_rgb: torch.Tensor):
+        """(uvw_sm_masked (3,128,128), latent (L,), SurfacePoints)."""
+        out = self.css(crop_rgb[None].to(self.device))
+        latent = out["latent"][0]
+        surf, _ = grid_ops.surface_from_decoder(
+            self.decoder, latent, self.grid_points,
+            capacity=self.surface_capacity)
+        return out["uvw_sm_masked"][0], latent, surf
+
+    def refine_config(self) -> refine_mod.RefineConfig:
+        return refine_mod.RefineConfig(
+            iters=self.cfg.iters, weight_2d=self.cfg.weight_2d,
+            weight_3d=self.cfg.weight_3d,
+            surface_capacity=self.surface_capacity,
+            warm_band=self.warm_band, warm_refresh=self.cfg.warm_refresh)
+
+    def run_refine(self, prep: dict, bucket: int | None = None):
+        """Refine one prepared crop, letterboxed into (h, w) rounded up to
+        `bucket` ([optimization] render_bucket) with a pixel mask, as the
+        JAX runtime does; padded pixels carry no loss. Returns (final
+        RefineParams, history, SurfaceExtents of the final latent)."""
+        if bucket is None:
+            bucket = self.cfg.render_bucket or 1
+        h, w = prep["crop_hw"]
+        bh = -(-h // bucket) * bucket
+        bw = -(-w // bucket) * bucket
+        nocs = np.zeros((3, bh, bw), np.float32)
+        nocs[:, :h, :w] = prep["nocs_target"]
+        pmask = np.zeros((bh, bw), bool)
+        pmask[:h, :w] = True
+        rcfg = self.refine_config()
+        fn = refine_mod.make_refine_fn(
+            self.decoder, rcfg, self.grid_points,
+            torch.as_tensor(prep["intrinsics"]), (bh, bw),
+            select_decoder=self.select_decoder, device=self.device)
+        dev = self.device
+        final, hist = fn(prep["params0"], torch.as_tensor(nocs).to(dev),
+                         torch.as_tensor(prep["frustum"]).to(dev),
+                         torch.as_tensor(prep["fmask"]).to(dev),
+                         torch.as_tensor(pmask).to(dev))
+        ext = labels_mod.surface_extents(
+            self.decoder, self.grid_points, final.latent,
+            capacity=self.surface_capacity,
+            threshold=rcfg.surface_threshold)
+        return final, hist, ext
+
+    def estimate_pose(self, pcd_dsdf, nocs_dsdf, model_mask,
+                      scene_pts: np.ndarray, scene_cls: np.ndarray):
+        """RANSAC pose init (pose.py:8-38) on fixed-capacity subsamples:
+        {'scale', 'rot', 'tra'} or None when no pose is found."""
+        if scene_pts.shape[0] < 5:
+            return None
+        cap = self.ransac_scene_capacity
+        n = min(scene_pts.shape[0], cap)
+        sel = (self.np_rng.choice(scene_pts.shape[0], n, replace=False)
+               if scene_pts.shape[0] > cap else np.arange(scene_pts.shape[0]))
+        sp = np.zeros((cap, 3), np.float32)
+        sc = np.zeros((cap, 3), np.float32)
+        sm = np.zeros(cap, bool)
+        sp[:n] = scene_pts[sel[:n]]
+        sc[:n] = scene_cls[sel[:n]]
+        sm[:n] = True
+        mcap = self.ransac_model_capacity
+        dev = self.device
+        scale_model = 2.0 if self.cfg.pose_estimator == "kabsch" else 1.0
+        pose = ransac.ransac_pose(
+            pcd_dsdf[:mcap], nocs_dsdf[:mcap], model_mask[:mcap],
+            torch.as_tensor(sp).to(dev), torch.as_tensor(sc).to(dev),
+            torch.as_tensor(sm).to(dev), ranks=self.ransac_ranks(n),
+            method=self.cfg.pose_estimator, scale_model=scale_model,
+            cfg=self.ransac_cfg)
+        if int(pose.num_inliers) < self.ransac_cfg.min_inliers:
+            return None  # pose.py:135 "no pose found"
+        return {"scale": float(pose.scale),
+                "rot": pose.rot.double().cpu().numpy(),
+                "tra": pose.tra.double().cpu().numpy()}
+
+
+def setup_runtime(cfgp_or_cfg, rng_seed: int = 1,
+                  device="cuda") -> RefineRuntime:
+    """Load the DeepSDF (.pt + .json) and CSS (flax msgpack) weights the
+    config names and build the runtime on `device`."""
+    cfg = (cfgp_or_cfg if isinstance(cfgp_or_cfg, cfg_mod.RefineCfg)
+           else cfg_mod.RefineCfg.from_ini(cfgp_or_cfg))
+    device = refine_mod._device(device)
+    dsdf_cfg, dsdf_params = deepsdf.load_torch_checkpoint(cfg.deepsdf_path,
+                                                          device=device)
+    css_model = css_mod.load_css(cfg.css_path, width=cfg.css_width,
+                                 latent_size=dsdf_cfg.latent_size,
+                                 device=device)
+    return RefineRuntime(cfg, css_model, dsdf_cfg, dsdf_params, rng_seed,
+                         device=device)
+
+
+def prepare_crop(rt: RefineRuntime, sample: dict, anno: dict):
+    """Crop, CSS, surface, reprojection and pose init for one annotation
+    (refine_css.py:94-196). Returns what the refine loop needs, or None on
+    any of the reference's skip conditions."""
+    cfg = rt.cfg
+    max_crop_area = cfg.rendering_area ** 2
+    l, t, r, b = [int(v) for v in anno["bbox"]]
+    if r <= l + 2 or b <= t + 2:
+        return None
+    crop_bgr = sample["image"][t:b, l:r].copy()
+    crop_dep = sample["depth"][t:b, l:r].copy()
+    crop_size, intrinsics, off_intrinsics = geometry.adjust_intrinsics_crop(
+        sample["orig_cam"], crop_bgr.shape[:2], anno["bbox"], max_crop_area)
+    pcd_crop, _ = geometry.reproject_np(crop_bgr, crop_dep, off_intrinsics)
+
+    crop_rgb, _ = transform_bgr_crop(crop_bgr, device=rt.device)
+    nocs_dev, latent_dev, surf = rt.css_and_surface(crop_rgb)
+    nocs_pred = nocs_dev.cpu().numpy() / 255.0
+    latent_pred = latent_dev.cpu().numpy()
+    surf_pts_np = surf.points.detach().cpu().numpy()
+    surf_mask_np = surf.mask.cpu().numpy()
+
+    nocs_pred_resized = nearest_resize_chw(nocs_pred, crop_dep.shape[:2])
+    nocs_3d_pts, nocs_3d_cls = geometry.reproject_np(
+        nocs_pred_resized, crop_dep[None], off_intrinsics, filter_nocs=True)
+
+    init_pose = rt.estimate_pose(surf.points.detach(), surf.nocs.detach(),
+                                 surf.mask, nocs_3d_pts, nocs_3d_cls)
+    if init_pose is None:
+        print("NO RANSAC POSE FOUND!!!")
+        return None
+    scale, rot, tra = init_pose["scale"], init_pose["rot"], init_pose["tra"]
+
+    # azimuth-only constraint + yaw (refine_css.py:176-178)
+    rot[:, 1] = [0, 1, 0]
+    rot[1, :] = [0, 1, 0]
+    yaw = geometry.roty_in_bev(
+        np.pad(rot @ np.diag([-1.0, 1.0, 1.0]), ((0, 1), (0, 1)))
+    ) + math.pi / 2
+
+    # height re-estimation (refine_css.py:180-189)
+    pcd_np = surf_pts_np[surf_mask_np]
+    world_points = (rot @ (pcd_np * scale).T).T + tra
+    proj_world = geometry.project_np(sample["orig_cam"], world_points)
+    L, T = proj_world[:, 0].min(), proj_world[:, 1].min()
+    R, B = proj_world[:, 0].max(), proj_world[:, 1].max()
+    iou = geometry.compute_iou([l, t, r, b], [L, T, R, B])
+    if iou < 0.7 and len(nocs_3d_pts):
+        print("Restimating height")
+        ymin, ymax = world_points[:, 1].min(), world_points[:, 1].max()
+        tra[1] = nocs_3d_pts[:, 1].min() + (ymax - ymin) / 2
+
+    # [stress] init perturbation: a seeded kick to the RANSAC init
+    if (cfg.stress_init_yaw_deg or cfg.stress_init_trans_m
+            or cfg.stress_init_scale or cfg.stress_init_latent):
+        srng = rt.np_rng
+        yaw = float(yaw) + math.radians(cfg.stress_init_yaw_deg) \
+            * (1.0 if srng.rand() < 0.5 else -1.0)
+        tra = np.asarray(tra, np.float64) \
+            + srng.randn(3) * cfg.stress_init_trans_m
+        scale = np.asarray(scale, np.float64) \
+            * (1.0 + cfg.stress_init_scale
+               * (1.0 if srng.rand() < 0.5 else -1.0))
+        latent_pred = np.asarray(latent_pred) + (
+            srng.randn(*np.shape(latent_pred))
+            * cfg.stress_init_latent).astype(np.float32)
+
+    params0 = refine_mod.init_refine_params(yaw, tra / scale, scale,
+                                            latent_pred, device=rt.device)
+    h, w = int(crop_size[0]), int(crop_size[1])
+    cap = rt.frustum_capacity
+    frustum = np.zeros((cap, 3), np.float32)
+    fmask = np.zeros(cap, bool)
+    n = min(len(pcd_crop), cap)
+    if n > 0:
+        sel = (rt.np_rng.choice(len(pcd_crop), n, replace=False)
+               if len(pcd_crop) > cap else np.arange(len(pcd_crop)))
+        frustum[:n] = pcd_crop[sel[:n]]
+        fmask[:n] = True
+    return {"params0": params0,
+            "intrinsics": np.asarray(intrinsics, np.float32),
+            "crop_hw": (h, w),
+            "nocs_target": nearest_resize_chw(nocs_pred, (h, w)).astype(
+                np.float32),
+            "frustum": frustum, "fmask": fmask, "anno": anno}
+
+
+def finish_label(final: refine_mod.RefineParams,
+                 extents: labels_mod.SurfaceExtents, sample: dict,
+                 anno: dict):
+    """KITTI label from the final parameters (refine_css.py:228-236), or
+    None when the final latent decodes to an empty band (QUIRKS #15)."""
+    if not bool(extents.valid):
+        return None
+    host = [t.detach().double().cpu().numpy() for t in
+            (final.yaw, final.scale, final.trans, extents.mn, extents.mx)]
+    return labels_mod.kitti_label_from_extents(
+        *host, sample["world_to_cam"], anno["bbox"])
+
+
+def refine_annotation(rt: RefineRuntime, sample: dict, anno: dict,
+                      verbose: bool = True):
+    """One annotation end to end: the label dict, or None (skip)."""
+    prep = prepare_crop(rt, sample, anno)
+    if prep is None:
+        return None
+    final, hist, ext = rt.run_refine(prep)
+    if verbose:
+        losses = hist.loss.cpu().numpy()
+        l2d, l3d = hist.loss_2d.cpu().numpy(), hist.loss_3d.cpu().numpy()
+        applied = hist.applied.cpu().numpy()
+        print("REFINE {} iters | loss {:.5f} -> {:.5f} "
+              "(2D {:.5f} -> {:.5f}, 3D {:.5f} -> {:.5f}, applied {}/{})"
+              .format(len(losses), losses[0], losses[-1], l2d[0], l2d[-1],
+                      l3d[0], l3d[-1], int(applied.sum()), len(applied)))
+    return finish_label(final, ext, sample, prep["anno"])
+
+
+def load_demo_sample(root: str = "data/optimization") -> dict:
+    """The bundled demo frame, data/optimization/kitti_sample.npz."""
+    data = np.load(os.path.join(root, "kitti_sample.npz"))
+    sample = {k: data[k] for k in
+              ("image", "depth", "orig_cam", "world_to_cam", "lidar")}
+    meta = json.loads(str(data["annos_json"]))
+    sample["annos"] = meta["annos"]
+    sample["gt"] = meta.get("gt", [])
+    return sample
+
+
+def refine_css_demo(cfgp, sample=None, device="cuda",
+                    rt: RefineRuntime | None = None):
+    """Demo refinement of one stored frame (refine_css_demo.py:23): returns
+    (frame annotations, frame estimations) as dicts of arrays. `rt` reuses
+    a runtime built by setup_runtime."""
+    cfg = (cfgp if isinstance(cfgp, cfg_mod.RefineCfg)
+           else cfg_mod.RefineCfg.from_ini(cfgp))
+    if cfg.label_type != "gt":
+        _refuse(f"label_type {cfg.label_type!r}")
+    if cfg.viz_type and cfg.viz_type != "none":
+        _refuse("visualization")
+    if rt is None:
+        rt = setup_runtime(cfg, device=device)
+    if sample is None:
+        sample = load_demo_sample()
+
+    frame_annos, frame_estimations = defaultdict(list), defaultdict(list)
+    for anno in kitti_mod.get_annos(cfg.diff_annos, sample):
+        for key, value in anno.items():
+            frame_annos[key].append(value)
+        label = refine_annotation(rt, sample, anno)
+        if label is None:
+            continue
+        for key, value in label.items():
+            frame_estimations[key].append(value)
+    for key in ("alpha", "bbox", "dimensions", "location", "rotation_y",
+                "score"):
+        frame_annos[key] = np.asarray(frame_annos[key])
+        frame_estimations[key] = np.asarray(frame_estimations[key])
+    return frame_annos, frame_estimations
