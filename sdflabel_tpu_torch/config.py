@@ -1,8 +1,8 @@
-"""Typed INI config for refinement.
+"""Typed INI configs for refinement and CSS training.
 
-Counterpart of sdflabel_tpu/config.py (RefineCfg and the read_cfg_*
-helpers), kept key for key so that the same INI files drive both
-packages. ``precision`` maps to torch dtypes: 'float16' becomes bfloat16,
+Counterpart of sdflabel_tpu/config.py (RefineCfg, TrainCfg and the
+read_cfg_* helpers), kept key for key so that the same INI files drive
+both packages. ``precision`` maps to torch dtypes: 'float16' becomes bfloat16,
 as the JAX package maps it for the TPU.
 """
 
@@ -140,6 +140,59 @@ class RefineCfg:
             weight_3d=f(cfgp, "losses", "3d_weight", cls.weight_3d),
             labels_out=s(cfgp, "output", "labels", cls.labels_out),
             eval_filter=s(cfgp, "evaluation", "filter", cls.eval_filter),
+        )
+
+
+@dataclasses.dataclass
+class TrainCfg:
+    """configs/config_train.ini, all keys (see sdflabel_tpu.config).
+
+    The port trains in float32 only (other precisions are refused by
+    pipelines/train_css.py) and has one input chain, the device-side form
+    of the JAX package's fast path (data/crops.py), so ``fast_input`` is
+    read and changes nothing. ``fused_ce`` routes the CE towers through
+    kernel 5 on the card; ``direct_ce`` feeds them the raw head logits.
+    """
+
+    data_path: str = "data/db/crops/"
+    css_path: str = "data/nets/css.pt"
+    seed: int = 1  # augmentation / shuffle seed; -1 = unseeded
+    batch_size: int = 13
+    precision: str = "float32"
+    fused_ce: bool = False
+    direct_ce: bool = True
+    fast_input: bool = False
+    epochs: int = 5000000
+    lr: float = 0.001
+    queue_size: int = 10
+    cpu_threads: int = 0
+    analyse_epoch: int = 1
+    plot: bool = True
+    log_dir: str = "log/demo/"
+    log_every: int = 1
+
+    @classmethod
+    def from_ini(cls, cfgp: configparser.ConfigParser) -> "TrainCfg":
+        s, i, f, b = (read_cfg_string, read_cfg_int, read_cfg_float,
+                      read_cfg_bool)
+        return cls(
+            data_path=s(cfgp, "input", "data_path", cls.data_path),
+            css_path=s(cfgp, "input", "css_path", cls.css_path),
+            seed=i(cfgp, "train", "seed", cls.seed),
+            batch_size=i(cfgp, "train", "batch_size", cls.batch_size),
+            precision=s(cfgp, "train", "precision", cls.precision),
+            fused_ce=b(cfgp, "train", "fused_ce", cls.fused_ce),
+            direct_ce=b(cfgp, "train", "direct_ce", cls.direct_ce),
+            fast_input=b(cfgp, "train", "fast_input", cls.fast_input),
+            epochs=i(cfgp, "train", "epochs", cls.epochs),
+            lr=f(cfgp, "train", "lr", cls.lr),
+            queue_size=i(cfgp, "optimization", "queue_size", cls.queue_size),
+            cpu_threads=i(cfgp, "optimization", "cpu_threads",
+                          cls.cpu_threads),
+            analyse_epoch=i(cfgp, "log", "analyse_epoch", cls.analyse_epoch),
+            log_every=i(cfgp, "log", "log_every", cls.log_every),
+            plot=b(cfgp, "log", "plot", cls.plot),
+            log_dir=s(cfgp, "log", "dir", cls.log_dir),
         )
 
 

@@ -1,20 +1,26 @@
 // Fused surfel splat + depth-softmax composite, forward and backward.
 //
 // Replaces sdflabel_tpu/ops/splat_pallas.py::_fwd_call (dense branch:
-// _znorm_kernel, _softmax_kernel) and ::_core_bwd (dense branch:
-// _grads_kernel). Computes, without ever building the (N, P) matrices,
+// _znorm_kernel, _softmax_kernel; binned branch: _znorm_kernel_binned,
+// _softmax_kernel_binned) and ::_core_bwd (dense branch: _grads_kernel;
+// binned branch: _grads_kernel_binned). Computes, without ever building
+// the (N, P) matrices,
 //
 //   img[p, :] = sum_i prob[i, p] * feats[i, :]
 //   prob[:, p] = softmax_i(masked scores) * footprint     (per pixel p)
 //
 // i.e. ops/splat.py::splat_surfel(softclamp=False, add_bg=False) followed
-// by prob.T @ feats. The per-pair arithmetic is the TPU kernel's, operation
-// for operation (built with -fmad=false, so nothing is contracted to fma):
-// the sqrt-free footprint dist^2 = vv - 2 vk z + gg z^2 < diam^2 with
-// mask > 0.5, the guard |n.g| < 0.01 -> nk = FLT_EPSILON, NEG_BIG = -1e30,
+// by prob.T @ feats. The per-pair arithmetic follows the plain version
+// and the reference (primitives.py:215-218), built with -fmad=false so
+// that nothing is contracted to fma: the explicit tangent-plane offset
+// x = v - g z and the footprint test sqrt(x.x) < diam with mask > 0.5,
+// the guard |n.g| < 0.01 -> nk = FLT_EPSILON, NEG_BIG = -1e30,
 // 1 / (zn + eps), and in the backward no gradient at all through a guarded
-// pair. The dense plain version uses the explicit ||v - g z||, so a
-// footprint bit can flip at the disc boundary between the two.
+// pair. The TPU kernel tests the sqrt-free expanded form
+// vv - 2 vk z + gg z^2 < diam^2 instead; at camera distances of 10-20 the
+// terms reach ~400 and their fp32 rounding (~1e-4) is 6% of diam^2, so a
+// pair within ~3% of the disc edge may land on either side of it. The
+// explicit offset keeps that error at ~1e-6 of a 0.04 diameter.
 //
 // Bound on the H100: fp32 operations. Every (point, pixel) pair costs
 // ~25 flops of ray-plane geometry in each of the two forward passes and
@@ -29,6 +35,18 @@
 // At <= 1536 pixels the forward fills only P / 64 blocks of the 132 SMs;
 // splitting points across blocks (and merging the softmax partials) is the
 // first thing to change for speed.
+//
+// Row binning (renders of >= 4096 px, ops/splat_cuda.py::compute_bins):
+// the points arrive sorted by the first bin_px-pixel row block their
+// footprint can touch, and block b may only meet the sorted window
+// [start_b, end_b). The forward runs the dense kernel with each thread
+// block's loop cut to its row block's window (bin_px is a multiple of the
+// 64 pixels of a thread block, so a thread block lies in one row block).
+// The binned backward gives sorted point j exactly the pairs the forward
+// visited: the row blocks [key_j, key_j + smax]. Each thread block stages
+// the pixels of the union of its points' ranges; each thread skips pixels
+// outside its own. The footprint test stays exact per pair, so binning
+// changes only the order of the sums.
 
 #include <cuda_runtime.h>
 #include <cfloat>
@@ -45,53 +63,111 @@ constexpr int BWD_CHUNK = 128;   // pixels per shared-memory chunk
 constexpr int PIX_W = 16;        // packed pixel row, see splat_bwd_kernel
 
 // Ray-plane geometry of point q = [v(3), n(3), mask, pad] against pixel ray
-// g with gg = g.g (splat_pallas.py::_geometry). Returns the footprint bit;
-// z, nk and guard feed the backward.
+// g (splat_pallas.py::_geometry, with the explicit distance of
+// primitives.py:215-218). Returns the footprint bit; z, nk and guard feed
+// the backward.
 __device__ __forceinline__ bool geometry(const float* q, float gx, float gy,
-                                         float gz, float gg, float diam2,
-                                         float& z, float& nk, bool& guard) {
+                                         float gz, float diam, float& z,
+                                         float& nk, bool& guard) {
   const float nv = q[3] * q[0] + q[4] * q[1] + q[5] * q[2];
-  const float vv = q[0] * q[0] + q[1] * q[1] + q[2] * q[2];
   const float nk_raw = q[3] * gx + q[4] * gy + q[5] * gz;
   guard = fabsf(nk_raw) < NK_EPS_THRESHOLD;
   nk = guard ? FLT_EPSILON : nk_raw;
   z = nv / nk;
-  const float vk = q[0] * gx + q[1] * gy + q[2] * gz;
-  const float dist_sq = vv - 2.0f * vk * z + gg * z * z;
-  return dist_sq < diam2 && q[6] > 0.5f;
+  const float x0 = q[0] - gx * z, x1 = q[1] - gy * z, x2 = q[2] - gz * z;
+  return sqrtf(x0 * x0 + x1 * x1 + x2 * x2) < diam && q[6] > 0.5f;
 }
 
-// kg rows (P, 4): [gx, gy, gz, gg].
+// One point's gradient sums over the pixels it meets. add() takes a pixel
+// row [gx, gy, gz, 0, m, d, zn, corr, g_img(8)], where corr = g_img . img
+// is the softmax correction sum_i prob_ip (g_p . f_i).
+struct PointGrads {
+  float dnv_sum = 0.f, dnk_g0 = 0.f, dnk_g1 = 0.f, dnk_g2 = 0.f;
+  float gf[NF] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+
+  __device__ __forceinline__ void add(const float* q, const float* fi,
+                                      const float* r, float diam, float dc) {
+    float z, nk;
+    bool guard;
+    // a pair outside the footprint has prob 0 and adds nothing
+    if (!geometry(q, r[0], r[1], r[2], diam, z, nk, guard)) return;
+    const float d = r[5];
+    const float inv_d = d > 0.f ? 1.f / fmaxf(d, 1e-30f) : 0.f;
+    const float inv_zn = 1.f / (r[6] + FLT_EPSILON);
+    const float x = -z * inv_zn + 1.f;
+    const float s = fmaxf(x, 0.f) * dc;
+    const float prob = expf(s - r[4]) * inv_d;
+    const float* g = r + 8;
+    float u = 0.f;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      u = u + fi[f] * g[f];
+      gf[f] += prob * g[f];
+    }
+    if (x > 0.f && !guard) {
+      const float ds = prob * (u - r[7]);
+      const float dz = -(ds * dc) * inv_zn;
+      const float dnv = dz / nk;
+      const float dnk = -dnv * z;
+      dnv_sum += dnv;
+      dnk_g0 += dnk * r[0];
+      dnk_g1 += dnk * r[1];
+      dnk_g2 += dnk * r[2];
+    }
+  }
+
+  __device__ __forceinline__ void store(const float* q, int i, float* dv,
+                                        float* dn, float* df) const {
+    dv[(size_t)i * 3 + 0] = dnv_sum * q[3];
+    dv[(size_t)i * 3 + 1] = dnv_sum * q[4];
+    dv[(size_t)i * 3 + 2] = dnv_sum * q[5];
+    dn[(size_t)i * 3 + 0] = dnv_sum * q[0] + dnk_g0;
+    dn[(size_t)i * 3 + 1] = dnv_sum * q[1] + dnk_g1;
+    dn[(size_t)i * 3 + 2] = dnv_sum * q[2] + dnk_g2;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) df[(size_t)i * NF + f] = gf[f];
+  }
+};
+
+// kg rows (P, 4): [gx, gy, gz, 0].
 __global__ void __launch_bounds__(FWD_THREADS)
+// win (nb, 2) [start, end) of each row block's sorted point window, or
+// null for the dense sweep over all n points.
 splat_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ feats,
-                 const float* __restrict__ kg, int n, int p, float diam2,
+                 const float* __restrict__ kg, int n, int p,
+                 const int* __restrict__ win, int bin_px, float diam,
                  float dc, float* __restrict__ img, float* __restrict__ m_out,
                  float* __restrict__ d_out, float* __restrict__ zn_out) {
   __shared__ float s_pts[FWD_CHUNK * 8];
   __shared__ float s_feat[FWD_CHUNK * NF];
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = pix < p;
-  float gx = 0.f, gy = 0.f, gz = 0.f, gg = 0.f;
+  int lo = 0, hi = n;
+  if (win != nullptr) {
+    const int b = (blockIdx.x * FWD_THREADS) / bin_px;
+    lo = win[2 * b];
+    hi = win[2 * b + 1];
+  }
+  float gx = 0.f, gy = 0.f, gz = 0.f;
   if (active) {
     gx = kg[pix * 4 + 0];
     gy = kg[pix * 4 + 1];
     gz = kg[pix * 4 + 2];
-    gg = kg[pix * 4 + 3];
   }
   float z, nk;
   bool guard;
 
   // pass 1: per-pixel norm of the footprint depths (primitives.py:229-231)
   float ssq = 0.f;
-  for (int c0 = 0; c0 < n; c0 += FWD_CHUNK) {
-    const int cn = min(FWD_CHUNK, n - c0);
+  for (int c0 = lo; c0 < hi; c0 += FWD_CHUNK) {
+    const int cn = min(FWD_CHUNK, hi - c0);
     __syncthreads();
     for (int i = threadIdx.x; i < cn * 8; i += blockDim.x)
       s_pts[i] = pts[(size_t)c0 * 8 + i];
     __syncthreads();
     if (active) {
       for (int i = 0; i < cn; ++i) {
-        if (geometry(&s_pts[i * 8], gx, gy, gz, gg, diam2, z, nk, guard))
+        if (geometry(&s_pts[i * 8], gx, gy, gz, diam, z, nk, guard))
           ssq += z * z;
       }
     }
@@ -104,8 +180,8 @@ splat_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ feats,
   float acc[NF];
 #pragma unroll
   for (int f = 0; f < NF; ++f) acc[f] = 0.f;
-  for (int c0 = 0; c0 < n; c0 += FWD_CHUNK) {
-    const int cn = min(FWD_CHUNK, n - c0);
+  for (int c0 = lo; c0 < hi; c0 += FWD_CHUNK) {
+    const int cn = min(FWD_CHUNK, hi - c0);
     __syncthreads();
     for (int i = threadIdx.x; i < cn * 8; i += blockDim.x) {
       s_pts[i] = pts[(size_t)c0 * 8 + i];
@@ -114,7 +190,7 @@ splat_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ feats,
     __syncthreads();
     if (!active) continue;
     for (int i = 0; i < cn; ++i) {
-      if (!geometry(&s_pts[i * 8], gx, gy, gz, gg, diam2, z, nk, guard))
+      if (!geometry(&s_pts[i * 8], gx, gy, gz, diam, z, nk, guard))
         continue;
       const float s = fmaxf(-z * inv_zn + 1.f, 0.f) * dc;
       const float* fi = &s_feat[i * NF];
@@ -142,11 +218,10 @@ splat_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ feats,
   }
 }
 
-// pix rows (P, 16): [gx, gy, gz, gg, m, d, zn, corr, g_img(8)], where
-// corr = g_img . img is the softmax correction sum_i prob_ip (g_p . f_i).
+// pix rows (P, 16): see PointGrads.
 __global__ void __launch_bounds__(BWD_THREADS)
 splat_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ feats,
-                 const float* __restrict__ pix, int n, int p, float diam2,
+                 const float* __restrict__ pix, int n, int p, float diam,
                  float dc, float* __restrict__ dv, float* __restrict__ dn,
                  float* __restrict__ df) {
   __shared__ float s_pix[BWD_CHUNK * PIX_W];
@@ -157,12 +232,7 @@ splat_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ feats,
   for (int k = 0; k < 8; ++k) q[k] = active ? pts[(size_t)i * 8 + k] : 0.f;
 #pragma unroll
   for (int f = 0; f < NF; ++f) fi[f] = active ? feats[(size_t)i * NF + f] : 0.f;
-  float dnv_sum = 0.f, dnk_g0 = 0.f, dnk_g1 = 0.f, dnk_g2 = 0.f;
-  float gf[NF];
-#pragma unroll
-  for (int f = 0; f < NF; ++f) gf[f] = 0.f;
-  float z, nk;
-  bool guard;
+  PointGrads acc;
 
   for (int c0 = 0; c0 < p; c0 += BWD_CHUNK) {
     const int cn = min(BWD_CHUNK, p - c0);
@@ -171,45 +241,62 @@ splat_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ feats,
       s_pix[k] = pix[(size_t)c0 * PIX_W + k];
     __syncthreads();
     if (!active) continue;
-    for (int j = 0; j < cn; ++j) {
-      const float* r = &s_pix[j * PIX_W];
-      // a pair outside the footprint has prob 0 and adds nothing
-      if (!geometry(q, r[0], r[1], r[2], r[3], diam2, z, nk, guard)) continue;
-      const float d = r[5];
-      const float inv_d = d > 0.f ? 1.f / fmaxf(d, 1e-30f) : 0.f;
-      const float inv_zn = 1.f / (r[6] + FLT_EPSILON);
-      const float x = -z * inv_zn + 1.f;
-      const float s = fmaxf(x, 0.f) * dc;
-      const float prob = expf(s - r[4]) * inv_d;
-      const float* g = r + 8;
-      float u = 0.f;
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        u = u + fi[f] * g[f];
-        gf[f] += prob * g[f];
-      }
-      if (x > 0.f && !guard) {
-        const float ds = prob * (u - r[7]);
-        const float dz = -(ds * dc) * inv_zn;
-        const float dnv = dz / nk;
-        const float dnk = -dnv * z;
-        dnv_sum += dnv;
-        dnk_g0 += dnk * r[0];
-        dnk_g1 += dnk * r[1];
-        dnk_g2 += dnk * r[2];
-      }
-    }
+    for (int j = 0; j < cn; ++j) acc.add(q, fi, &s_pix[j * PIX_W], diam, dc);
   }
-  if (active) {
-    dv[(size_t)i * 3 + 0] = dnv_sum * q[3];
-    dv[(size_t)i * 3 + 1] = dnv_sum * q[4];
-    dv[(size_t)i * 3 + 2] = dnv_sum * q[5];
-    dn[(size_t)i * 3 + 0] = dnv_sum * q[0] + dnk_g0;
-    dn[(size_t)i * 3 + 1] = dnv_sum * q[1] + dnk_g1;
-    dn[(size_t)i * 3 + 2] = dnv_sum * q[2] + dnk_g2;
-#pragma unroll
-    for (int f = 0; f < NF; ++f) df[(size_t)i * NF + f] = gf[f];
+  if (active) acc.store(q, i, dv, dn, df);
+}
+
+// Binned backward over points sorted as the binned forward saw them. key
+// (n,) is each sorted point's first row block (nb: touches none); smax
+// points at the widest span. Outputs are in sorted order.
+__global__ void __launch_bounds__(BWD_THREADS)
+splat_bwd_binned_kernel(const float* __restrict__ pts,
+                        const float* __restrict__ feats,
+                        const float* __restrict__ pix,
+                        const int* __restrict__ key,
+                        const int* __restrict__ smax, int n, int p,
+                        int bin_px, float diam, float dc,
+                        float* __restrict__ dv, float* __restrict__ dn,
+                        float* __restrict__ df) {
+  __shared__ float s_pix[BWD_CHUNK * PIX_W];
+  __shared__ int s_lo, s_hi;
+  const int nb = (p + bin_px - 1) / bin_px;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = i < n;
+  int b_lo = nb, b_hi = -1;  // this point's row blocks, empty by default
+  if (active && key[i] < nb) {
+    b_lo = key[i];
+    b_hi = min(key[i] + *smax, nb - 1);
   }
+  if (threadIdx.x == 0) {
+    s_lo = nb;
+    s_hi = -1;
+  }
+  __syncthreads();
+  if (b_hi >= 0) {
+    atomicMin(&s_lo, b_lo);
+    atomicMax(&s_hi, b_hi);
+  }
+  __syncthreads();
+  const int p_lo = s_lo * bin_px, p_hi = min((s_hi + 1) * bin_px, p);
+  const int q_lo = b_lo * bin_px, q_hi = (b_hi + 1) * bin_px;
+  float q[8], fi[NF];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) q[k] = active ? pts[(size_t)i * 8 + k] : 0.f;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) fi[f] = active ? feats[(size_t)i * NF + f] : 0.f;
+  PointGrads acc;
+
+  for (int c0 = p_lo; c0 < p_hi; c0 += BWD_CHUNK) {
+    const int cn = min(BWD_CHUNK, p_hi - c0);
+    __syncthreads();
+    for (int k = threadIdx.x; k < cn * PIX_W; k += blockDim.x)
+      s_pix[k] = pix[(size_t)c0 * PIX_W + k];
+    __syncthreads();
+    const int j0 = max(q_lo - c0, 0), j1 = min(q_hi - c0, cn);
+    for (int j = j0; j < j1; ++j) acc.add(q, fi, &s_pix[j * PIX_W], diam, dc);
+  }
+  if (active) acc.store(q, i, dv, dn, df);
 }
 
 }  // namespace
@@ -220,28 +307,61 @@ const char* sdl_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// pts (n, 8) [v, n, mask, 0], feats (n, 8), kg (p, 4) [g, g.g] float32 ->
+// pts (n, 8) [v, n, mask, 0], feats (n, 8), kg (p, 4) [g, 0] float32 ->
 // img (p, 8), m, d, zn (p,) float32.
 int splat_fwd(const void* pts, const void* feats, const void* kg, int n, int p,
-              float diam2, float depth_constant, void* img, void* m, void* d,
+              float diam, float depth_constant, void* img, void* m, void* d,
               void* zn, void* stream) {
   if (p <= 0) return 0;
   const int blocks = (p + FWD_THREADS - 1) / FWD_THREADS;
   splat_fwd_kernel<<<blocks, FWD_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)pts, (const float*)feats, (const float*)kg, n, p, diam2,
-      depth_constant, (float*)img, (float*)m, (float*)d, (float*)zn);
+      (const float*)pts, (const float*)feats, (const float*)kg, n, p, nullptr,
+      0, diam, depth_constant, (float*)img, (float*)m, (float*)d, (float*)zn);
+  return (int)cudaGetLastError();
+}
+
+// As splat_fwd over points sorted by row block; win (nb, 2) int32 holds
+// each row block's [start, end) in the sorted points, bin_px % 64 == 0.
+int splat_fwd_binned(const void* pts, const void* feats, const void* kg, int n,
+                     int p, const void* win, int bin_px, float diam,
+                     float depth_constant, void* img, void* m, void* d,
+                     void* zn, void* stream) {
+  if (p <= 0) return 0;
+  if (bin_px <= 0 || bin_px % FWD_THREADS != 0)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (p + FWD_THREADS - 1) / FWD_THREADS;
+  splat_fwd_kernel<<<blocks, FWD_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)pts, (const float*)feats, (const float*)kg, n, p,
+      (const int*)win, bin_px, diam, depth_constant, (float*)img, (float*)m,
+      (float*)d, (float*)zn);
   return (int)cudaGetLastError();
 }
 
 // pts, feats as above; pix (p, 16) -> dv (n, 3), dn (n, 3), df (n, 8).
 int splat_bwd(const void* pts, const void* feats, const void* pix, int n,
-              int p, float diam2, float depth_constant, void* dv, void* dn,
+              int p, float diam, float depth_constant, void* dv, void* dn,
               void* df, void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + BWD_THREADS - 1) / BWD_THREADS;
   splat_bwd_kernel<<<blocks, BWD_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)pts, (const float*)feats, (const float*)pix, n, p, diam2,
+      (const float*)pts, (const float*)feats, (const float*)pix, n, p, diam,
       depth_constant, (float*)dv, (float*)dn, (float*)df);
+  return (int)cudaGetLastError();
+}
+
+// Sorted pts, feats as splat_fwd_binned; key (n,) int32 sorted first row
+// blocks, smax (1,) int32 -> dv, dn, df in sorted order.
+int splat_bwd_binned(const void* pts, const void* feats, const void* pix,
+                     const void* key, const void* smax, int n, int p,
+                     int bin_px, float diam, float depth_constant, void* dv,
+                     void* dn, void* df, void* stream) {
+  if (n <= 0) return 0;
+  if (bin_px <= 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + BWD_THREADS - 1) / BWD_THREADS;
+  splat_bwd_binned_kernel<<<blocks, BWD_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)pts, (const float*)feats, (const float*)pix,
+      (const int*)key, (const int*)smax, n, p, bin_px, diam, depth_constant,
+      (float*)dv, (float*)dn, (float*)df);
   return (int)cudaGetLastError();
 }
 

@@ -1,15 +1,17 @@
 """CSS network: ResNet18 encoder + 4 UNet decoder heads + spherical latent.
 
 Counterpart of sdflabel_tpu/models/css.py (reference networks/resnet_css.py
-and unet_parts.py), eval mode only. Tensors are NCHW throughout, as the
-JAX module's inputs and outputs are. BatchNorm uses the running statistics
-with torch semantics (eps 1e-5) in fp32. ``layer4`` is never called in the
-reference forward (QUIRKS #12) and does not exist here.
+and unet_parts.py). Tensors are NCHW throughout, as the JAX module's inputs
+and outputs are. BatchNorm runs in fp32 with flax's formulas: in eval mode
+(the default) on the running statistics, in train mode (``model.train()``,
+the JAX module's ``use_running_average=False``) on the batch statistics,
+which it also folds into the running ones. ``layer4`` is never called in
+the reference forward (QUIRKS #12) and does not exist here.
 
 Module and parameter names follow the flax variable tree (``conv1``,
 ``layer2_0``, ``up3_mask``, ``out_lat``, ...), so that
 :func:`state_from_flax` maps the JAX package's checkpoints one leaf at a
-time: HWIO kernels become OIHW.
+time: HWIO kernels become OIHW; :func:`state_to_flax` maps them back.
 """
 
 from __future__ import annotations
@@ -57,19 +59,37 @@ def project_vecs_onto_sphere(vectors: torch.Tensor,
 
 
 class TorchBatchNorm(nn.Module):
-    """Eval-mode BatchNorm with the flax formula
-    (x - mean) * (rsqrt(var + eps) * scale) + bias, in fp32."""
+    """flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5) on fp32 input:
+    (x - mean) * (rsqrt(var + eps) * scale) + bias.
+
+    Train mode normalizes with the batch mean and the biased batch
+    variance E[x^2] - E[x]^2 clipped at 0 (flax's use_fast_variance), and
+    sets running = 0.9 running + (1 - 0.9) batch with that same variance;
+    torch.nn.BatchNorm2d would keep the unbiased one. Gradients flow
+    through the batch statistics, as in flax."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, features: int):
         super().__init__()
-        self.register_buffer("scale", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x):
-        mul = torch.rsqrt(self.var + 1e-5) * self.scale
-        return ((x.float() - self.mean[:, None, None]) * mul[:, None, None]
+        x = x.float()
+        if self.training:
+            mean = x.mean((0, 2, 3))
+            var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + 1e-5) * self.scale
+        return ((x - mean[:, None, None]) * mul[:, None, None]
                 + self.bias[:, None, None])
 
 
@@ -147,10 +167,12 @@ class Up(nn.Module):
 
 
 class CSSNet(nn.Module):
-    """ResNet18-FPN CSS network (resnet_css.py:104-262), eval mode.
+    """ResNet18-FPN CSS network (resnet_css.py:104-262), built in eval mode.
 
     ``width`` scales every channel count (64 is the reference); the
-    256 bins per NOCS channel never scale. Input (B, 3, 128, 128)."""
+    256 bins per NOCS channel never scale. Input (B, 3, 128, 128). The
+    weights start at zero: :func:`init_params` draws flax's initial ones,
+    :func:`state_from_flax` carries trained ones across."""
 
     HEADS = (("u", 256), ("v", 256), ("w", 256), ("mask", 2))
 
@@ -177,7 +199,12 @@ class CSSNet(nn.Module):
             setattr(self, f"out_{name}", Conv(wd, out_ch, 1, bias=True))
         self.eval()
 
-    def forward(self, x):
+    def forward(self, x, decode: bool = True):
+        """Outputs as the JAX module's: the head logits ``u_raw``,
+        ``v_raw``, ``w_raw``, ``mask`` and the ``latent``; with `decode`
+        also their log-softmax ``u``, ``v``, ``w`` and the expected-colour
+        decode ``uvw_sm``, ``uvw_sm_masked``, ``mask_sm`` (training on raw
+        logits needs none of them)."""
         x1 = torch.relu(self.bn1(self.conv1(x)))
         x2 = F.max_pool2d(x1, 3, 2, 1)
         x3 = self.layer1_1(self.layer1_0(x2))
@@ -193,10 +220,12 @@ class CSSNet(nn.Module):
             h = getattr(self, f"up4_{name}")(h, x)
             return getattr(self, f"out_{name}")(h)
 
-        u = torch.log_softmax(head("u"), dim=1)
-        v = torch.log_softmax(head("v"), dim=1)
-        w = torch.log_softmax(head("w"), dim=1)
-        mask = head("mask")
+        u_raw, v_raw, w_raw, mask = (head(n) for n in ("u", "v", "w", "mask"))
+        out = {"u_raw": u_raw, "v_raw": v_raw, "w_raw": w_raw, "mask": mask,
+               "latent": latent}
+        if not decode:
+            return out
+        u, v, w = (torch.log_softmax(t, dim=1) for t in (u_raw, v_raw, w_raw))
         colors = torch.arange(256, device=x.device, dtype=x.dtype)
 
         def softmax_ftz(logits):
@@ -217,9 +246,43 @@ class CSSNet(nn.Module):
         mask_sm = (prob_mask * torch.arange(2, device=x.device, dtype=x.dtype)
                    [:, None, None]).sum(1, keepdim=True)
         hard_mask = torch.argmax(mask, dim=1, keepdim=True).to(x.dtype)
-        return {"u": u, "v": v, "w": w, "uvw_sm": uvw_sm,
-                "uvw_sm_masked": uvw_sm * hard_mask, "mask": mask,
-                "mask_sm": mask_sm, "latent": latent}
+        out.update(u=u, v=v, w=w, uvw_sm=uvw_sm,
+                   uvw_sm_masked=uvw_sm * hard_mask, mask_sm=mask_sm)
+        return out
+
+
+FROZEN_PREFIXES = ("conv1", "bn1", "layer1_0", "layer1_1")
+# resnet_css.py:156-158 freezes conv1, bn1 and layer1
+
+
+def trainable_mask(model: CSSNet) -> dict[str, bool]:
+    """Parameter name -> False for the frozen early layers."""
+    return {name: name.split(".")[0] not in FROZEN_PREFIXES
+            for name, _ in model.named_parameters()}
+
+
+def init_params(model: CSSNet, generator: torch.Generator) -> CSSNet:
+    """flax's initial weights, drawn from `generator`: conv kernels
+    lecun_normal (normal with std 1/sqrt(fan_in) / 0.8796..., truncated at
+    two of its deviations), biases 0, BatchNorm scale 1, bias 0, mean 0,
+    var 1. The draws are not flax's: the same seed gives other numbers."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, Conv):
+                fan_in = mod.weight[0].numel()
+                std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+                w = torch.empty(mod.weight.shape)
+                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+                mod.weight.copy_(w)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, TorchBatchNorm):
+                mod.scale.fill_(1.0)
+                mod.bias.zero_()
+                mod.mean.zero_()
+                mod.var.fill_(1.0)
+    return model
 
 
 def state_from_flax(variables: dict) -> dict:
@@ -232,22 +295,56 @@ def state_from_flax(variables: dict) -> dict:
             name = prefix + k
             if k == "BatchNorm_0":  # TorchBatchNorm's inner flax module
                 bn = prefix[:-1]
-                state[bn + ".scale"] = torch.as_tensor(v["scale"])
-                state[bn + ".bias"] = torch.as_tensor(v["bias"])
-                state[bn + ".mean"] = torch.as_tensor(stats[k]["mean"])
-                state[bn + ".var"] = torch.as_tensor(stats[k]["var"])
+                for key, tree in (("scale", v), ("bias", v),
+                                  ("mean", stats[k]), ("var", stats[k])):
+                    state[f"{bn}.{key}"] = _tensor(tree[key])
             elif "kernel" in v:
-                kernel = np.asarray(v["kernel"], np.float32)
-                state[name + ".weight"] = torch.as_tensor(
-                    np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
+                state[name + ".weight"] = _tensor(
+                    np.asarray(v["kernel"]).transpose(3, 2, 0, 1))
                 if "bias" in v:
-                    state[name + ".bias"] = torch.as_tensor(
-                        np.asarray(v["bias"], np.float32))
+                    state[name + ".bias"] = _tensor(v["bias"])
             else:
                 walk(v, stats.get(k, {}), name + ".")
 
     walk(variables["params"], variables["batch_stats"], "")
-    return {k: t.float() for k, t in state.items()}
+    return state
+
+
+def _tensor(leaf) -> torch.Tensor:
+    """A float32 tensor with its own copy of a (possibly read-only) numpy
+    leaf."""
+    return torch.from_numpy(np.array(leaf, np.float32, order="C"))
+
+
+def state_to_flax(model: CSSNet) -> dict:
+    """The reverse of :func:`state_from_flax`: {'params', 'batch_stats'}
+    with numpy float32 leaves in the flax layout (OIHW kernels become
+    HWIO)."""
+    params: dict = {}
+    stats: dict = {}
+
+    def node(tree, path):
+        for k in path:
+            tree = tree.setdefault(k, {})
+        return tree
+
+    def arr(t):
+        return t.detach().cpu().float().numpy().copy()
+
+    for name, mod in model.named_modules():
+        path = name.split(".") if name else []
+        if isinstance(mod, TorchBatchNorm):
+            node(params, path)["BatchNorm_0"] = {"scale": arr(mod.scale),
+                                                 "bias": arr(mod.bias)}
+            node(stats, path)["BatchNorm_0"] = {"mean": arr(mod.mean),
+                                                "var": arr(mod.var)}
+        elif isinstance(mod, Conv):
+            leaf = node(params, path)
+            leaf["kernel"] = np.ascontiguousarray(
+                arr(mod.weight).transpose(2, 3, 1, 0))
+            if mod.bias is not None:
+                leaf["bias"] = arr(mod.bias)
+    return {"params": params, "batch_stats": stats}
 
 
 def params_from_jax(variables: dict, width: int, latent_size: int = 3,

@@ -31,7 +31,7 @@ _COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  # no a*b+c -> fma contraction: the kernels repeat the plain
                  # versions' separately rounded products and sums
                  "-fmad=false"]
-SOURCES = ("splat", "nn", "select_mlp")
+SOURCES = ("splat", "nn", "select_mlp", "ce")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,7 +1,8 @@
 """Differentiable point-splat rasterizer, 'disc' primitive.
 
-Counterpart of sdflabel_tpu/renderer/rasterer.py::render for the path the
-refinement loop takes: 'disc' surfels without a background. Per-point
+Counterpart of sdflabel_tpu/renderer/rasterer.py::render for the paths the
+refinement loop and the crop generator take: 'disc' surfels without a
+background. Per-point
 features [color(3) | 1 | z | normal(3)] composite in one call of kernel 1
 (ops/splat_cuda.py), which takes its plain version on CPU tensors.
 """
@@ -44,22 +45,15 @@ class RenderedPoints(NamedTuple):
     front_mask: torch.Tensor  # (N,) valid and facing the camera
 
 
-def render(K: torch.Tensor, resolution_px: tuple[int, int],
-           coords: torch.Tensor, normals: torch.Tensor, colors: torch.Tensor,
-           camera_pose: torch.Tensor, point_mask: torch.Tensor | None = None,
-           rot: str = "quat", primitives: str = "disc",
-           output_nocs: bool = False, use_bg: bool = False,
-           bg: torch.Tensor | None = None
-           ) -> tuple[Rendering, RenderedPoints]:
-    """Render a point set (rasterer.py:49-155). Only the 'disc' primitive
-    without a background is ported; other arguments raise."""
-    if primitives != "disc":
-        raise NotImplementedError(f"primitive {primitives!r} is not ported")
-    if use_bg or bg is not None:
-        raise NotImplementedError("background compositing is not ported")
+def splat_inputs(K: torch.Tensor, resolution_px: tuple[int, int],
+                 coords: torch.Tensor, normals: torch.Tensor,
+                 colors: torch.Tensor, camera_pose: torch.Tensor,
+                 rot: str = "quat", output_nocs: bool = False):
+    """The projection and what :func:`render` composites: (projected
+    points, (N, 8) features [color(3) | 1 | z | normal(3)], (P, 3) pixel
+    rays)."""
     res_x, res_y = resolution_px
     dev = coords.device
-    dtype = coords.dtype
     if rot == "dcm":
         proj = project_dcm(K, camera_pose, coords, normals, colors,
                            resolution_px, output_nocs=output_nocs)
@@ -71,10 +65,36 @@ def render(K: torch.Tensor, resolution_px: tuple[int, int],
     v3d, nrm, clr = proj.points_3d, proj.normals_3d, proj.colors_3d
     n = v3d.shape[0]
     colors_ext = (clr + 1.0) / 2.0 if output_nocs else clr
-    feats = torch.cat([colors_ext, torch.ones(n, 1, device=dev, dtype=dtype),
-                       v3d[:, 2:3], (nrm + 1.0) / 2.0], dim=-1)  # (N, 8)
+    feats = torch.cat([colors_ext,
+                       torch.ones(n, 1, device=dev, dtype=coords.dtype),
+                       v3d[:, 2:3], (nrm + 1.0) / 2.0], dim=-1)
     kinv_grid = splat_ops.kinv_pixel_rays(
         K, splat_ops.pixel_grid(res_x, res_y, device=dev))
+    return proj, feats, kinv_grid
+
+
+def render(K: torch.Tensor, resolution_px: tuple[int, int],
+           coords: torch.Tensor, normals: torch.Tensor, colors: torch.Tensor,
+           camera_pose: torch.Tensor, point_mask: torch.Tensor | None = None,
+           rot: str = "quat", primitives: str = "disc",
+           output_nocs: bool = False, use_bg: bool = False,
+           bg: torch.Tensor | None = None
+           ) -> tuple[Rendering, RenderedPoints]:
+    """Render a point set (rasterer.py:49-155). Only the 'disc' primitive
+    without a background is ported; other arguments raise. Renders of
+    4096 pixels and more take the row-binned splat kernels
+    (ops/splat_cuda.py::bin_policy), smaller ones the dense ones."""
+    if primitives != "disc":
+        raise NotImplementedError(f"primitive {primitives!r} is not ported")
+    if use_bg or bg is not None:
+        raise NotImplementedError("background compositing is not ported")
+    res_x, res_y = resolution_px
+    dev = coords.device
+    proj, feats, kinv_grid = splat_inputs(K, resolution_px, coords, normals,
+                                          colors, camera_pose, rot,
+                                          output_nocs)
+    v3d, nrm, clr = proj.points_3d, proj.normals_3d, proj.colors_3d
+    n = v3d.shape[0]
     img = splat_cuda.surfel_composite(v3d, nrm, feats, kinv_grid,
                                       point_mask=point_mask, diam=0.04)
     img = img.T.reshape(8, res_y, res_x)

@@ -6,13 +6,20 @@ with the card and without JAX, run them as
       -o addopts="" -p no:cacheprovider
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from sdflabel_tpu_torch.engine import refine
 from sdflabel_tpu_torch.models import deepsdf
-from sdflabel_tpu_torch.ops import knn, mlp_cuda, nn_cuda, splat, splat_cuda
+from sdflabel_tpu_torch.ops import (ce_cuda, grid, knn, mlp_cuda, nn_cuda,
+                                    splat, splat_cuda)
+from sdflabel_tpu_torch.renderer import rasterer
 from sdflabel_tpu_torch.renderer.rasterer import calibration_matrix
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +110,120 @@ def test_select_mlp_matches_plain(dev, width, n):
     err = (out_k - out_p).abs()
     assert err.max() < 1e-3 and err.median() < 1e-5, (err.max(),
                                                        err.median())
+
+
+@pytest.mark.parametrize("res,n", [((64, 64), 3000), ((200, 100), 2000),
+                                   ((128, 128), 4096)])
+def test_binned_splat_matches_windowed_plain(dev, res, n):
+    # same tolerance as the dense kernel: boundary bits may flip between
+    # the expanded and the explicit distance; sums run in sorted order
+    pts, nrm, feats, mask, kg = _splat_scene(dev, n=n, res=res)
+    pts[:3, 2] = torch.tensor([-3.0, 0.0, 0.02], device=dev)  # degenerate
+    assert splat_cuda.bin_policy(kg.shape[0]) == 512
+    fwd0 = splat_cuda.SPLAT_FWD_BINNED.launches
+    bwd0 = splat_cuda.SPLAT_BWD_BINNED.launches
+    args = [t.clone().requires_grad_(True) for t in (pts, nrm, feats)]
+    img_k = splat_cuda.surfel_composite(*args, kg, mask)
+    g = torch.randn_like(img_k)
+    gk = torch.autograd.grad((img_k * g).sum(), args)
+    args_p = [t.clone().requires_grad_(True) for t in (pts, nrm, feats)]
+    img_p = splat_cuda.surfel_composite_windowed(*args_p, kg, mask)
+    gp = torch.autograd.grad((img_p * g).sum(), args_p)
+    torch.cuda.synchronize()
+    assert splat_cuda.SPLAT_FWD_BINNED.launches == fwd0 + 1
+    assert splat_cuda.SPLAT_BWD_BINNED.launches == bwd0 + 1
+    err = (img_k - img_p).abs().max(-1).values
+    assert (err < 2e-4).float().mean() >= 0.995, err.max()
+    for a, b in zip(gk, gp):
+        scale = b.abs().max().clamp(min=1e-6)
+        close = ((a - b).abs().max(-1).values / scale) < 1e-3
+        assert close.float().mean() >= 0.99
+
+
+def test_binned_splat_matches_dense_kernel(dev):
+    # both kernels take the same expanded footprint test: only the order
+    # of the sums differs (fp32 reassociation)
+    pts, nrm, feats, mask, kg = _splat_scene(dev, n=4096, res=(128, 128))
+    args = [t.clone().requires_grad_(True) for t in (pts, nrm, feats)]
+    img_b = splat_cuda.surfel_composite(*args, kg, mask, bin_px=512)
+    g = torch.randn_like(img_b)
+    gb = torch.autograd.grad((img_b * g).sum(), args)
+    img_d = splat_cuda.surfel_composite(*args, kg, mask, bin_px=0)
+    gd = torch.autograd.grad((img_d * g).sum(), args)
+    torch.cuda.synchronize()
+    assert (img_b - img_d).abs().max() < 2e-5
+    for a, b in zip(gb, gd):
+        scale = b.abs().max().clamp(min=1e-6)
+        assert ((a - b).abs() / scale).max() < 2e-4
+
+
+@pytest.mark.parametrize("c", [2, 256])
+def test_ce_matches_plain(dev, c):
+    # fp32 sums in other orders: loss to 1e-5 relative, gradient to 1e-5
+    # relative plus 1e-6 of its largest element
+    gen = torch.Generator().manual_seed(c)
+    x = (torch.randn(3, c, 40, 56, generator=gen) * 3).to(dev)
+    t = torch.randint(0, c, (3, 40, 56), generator=gen).to(dev)
+    f0, b0 = ce_cuda.CE_FWD.launches, ce_cuda.CE_BWD.launches
+    xk = x.clone().requires_grad_(True)
+    lk = ce_cuda.fused_cross_entropy(xk, t)
+    (gk,) = torch.autograd.grad(lk * 2.5, xk)
+    xp = x.clone().requires_grad_(True)
+    lp = ce_cuda.cross_entropy_with_internal_softmax(xp, t)
+    (gp,) = torch.autograd.grad(lp * 2.5, xp)
+    torch.cuda.synchronize()
+    assert ce_cuda.CE_FWD.launches == f0 + 1
+    assert ce_cuda.CE_BWD.launches == b0 + 1
+    assert abs(lk.item() - lp.item()) <= 1e-5 * abs(lp.item())
+    assert torch.allclose(gk, gp, rtol=1e-5,
+                          atol=1e-6 * float(gp.abs().max()))
+
+
+def _decoded_scene(dev, px, dist=18.0):
+    """The quality DeepSDF's 4096-surfel surface seen from `dist`, filling
+    80% of a px x px crop: silhouette pairs at the distance where the
+    sqrt-free expanded footprint test loses ~6% of diam^2 to rounding."""
+    cfg, params = deepsdf.load_torch_checkpoint(
+        os.path.join(REPO, "data", "quality_nets", "deepsdf_quality.pt"),
+        device=dev)
+    focal = 0.8 * px * dist / 2.2
+    K = torch.tensor([[focal, 0.0, px / 2], [0.0, focal, px / 2],
+                      [0.0, 0.0, 1.0]], device=dev)
+    with torch.no_grad():
+        surf, _ = grid.surface_from_decoder(
+            deepsdf.sdf_fn(cfg, params),
+            torch.tensor([0.6, -0.48, 0.64], device=dev),
+            grid.generate_point_grid(40, device=dev), capacity=4096)
+        pose = refine.build_render_pose(torch.tensor([0.7], device=dev),
+                                        torch.tensor([0.0, 1.0, dist],
+                                                     device=dev))
+        proj, feats, kg = rasterer.splat_inputs(
+            K, (px, px), surf.points, surf.normals, surf.normals, pose,
+            rot="dcm", output_nocs=True)
+    return proj.points_3d, proj.normals_3d, feats, surf.mask, kg
+
+
+@pytest.mark.parametrize("px,counter", [(32, "SPLAT_FWD"),
+                                        (128, "SPLAT_FWD_BINNED")])
+def test_splat_on_a_decoded_surface_matches_plain(dev, px, counter):
+    # the dense tolerance: footprint bits flip only within fp32 rounding
+    # of the disc edge, so >= 99.5% of pixels within 2e-4 and >= 99% of
+    # gradient rows within 1e-3 of the largest gradient
+    v, nrm, feats, mask, kg = _decoded_scene(dev, px)
+    launches = getattr(splat_cuda, counter).launches
+    args = [t.clone().requires_grad_(True) for t in (v, nrm, feats)]
+    img_k = splat_cuda.surfel_composite(*args, kg, mask)
+    g = torch.randn_like(img_k)
+    gk = torch.autograd.grad((img_k * g).sum(), args)
+    args_p = [t.clone().requires_grad_(True) for t in (v, nrm, feats)]
+    img_p = splat.surfel_composite_dense(*args_p, kg, mask)
+    gp = torch.autograd.grad((img_p * g).sum(), args_p)
+    torch.cuda.synchronize()
+    assert getattr(splat_cuda, counter).launches == launches + 1
+    assert img_p[:, 3].sum().item() > 50  # the car covers pixels
+    err = (img_k - img_p).abs().max(-1).values
+    assert (err < 2e-4).float().mean() >= 0.995, err.max()
+    for a, b in zip(gk, gp):
+        scale = b.abs().max().clamp(min=1e-6)
+        close = ((a - b).abs().max(-1).values / scale) < 1e-3
+        assert close.float().mean() >= 0.99
