@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Six phases; any failure exits non-zero and no phase's error is caught.
+Seven phases; any failure exits non-zero and no phase's error is caught.
 
 1. Build the port's CUDA kernels from ``sdflabel_tpu_torch/csrc`` (one
    nvcc per source, started together) and print the card's name and
@@ -18,10 +18,11 @@ Six phases; any failure exits non-zero and no phase's error is caught.
    configs/config_refine.ini settings (60 iterations, float16 -> bf16,
    warm band 8192 refreshed every 10, the selection kernel, grid 40)
    through the reference 8x512 DeepSDF architecture (latent_in 4,
-   weight-norm, latent 3) with seeded random weights; then (4b) phase 3's
-   crop prepared and refined at ``rendering_area = 96``, whose renders of
-   >= 4096 pixels take the row-binned splat kernels, forward and
-   backward.
+   weight-norm, latent 3) with seeded random weights; (4c) the same crop
+   and runtime with ``stage2_pallas = True``, whose stage-2 decode and its
+   backward take kernels 4a and 4b; then (4b) phase 3's crop prepared and
+   refined at ``rendering_area = 96``, whose renders of >= 4096 pixels
+   take the row-binned splat kernels, forward and backward.
 5. Crops: ``make_crops`` renders 26 crops of 128x128 px (grid 40,
    capacity 4096) from data/quality_nets/deepsdf_quality.pt, each through
    the row-binned splat kernel.
@@ -31,19 +32,27 @@ Six phases; any failure exits non-zero and no phase's error is caught.
    goes through the CE kernels, no CPU operator runs in the step, the
    written css.msgpack reloads to the same network, and 3 steps on one
    fixed batch lower its loss.
+7. The KITTI driver: ``tools/quality_suite.py`` builds the first 24 frames
+   of the v2 quality suite (``--quality-frames 72``: all of it) through
+   the binned splat kernel; ``refine_css`` labels them as ``main.py
+   --refine`` does (the settings of scripts/run_quality_benchmark.py, 60
+   iterations, float16, the stock warm band, the committed quality nets),
+   and ``evaluate_dump.evaluate`` scores the dumps: KITTI and nuScenes AP
+   per difficulty.
 
 Each kernel's launches are counted on the path that runs it (set to 0
 just before the path, read just after): the dense splat, NN and selection
-kernels in phase 4, the binned backward in 4b, the binned forward in 5 and
-the CE kernels in 6. The line before the last is a JSON ``kernels``
+kernels in phase 4, the stage-2 kernels in 4c, the binned backward in 4b,
+the binned forward in 5 and the CE kernels in 6. The line before the last is a JSON ``kernels``
 record; the last line is ``{"ok": true, "device": {...}}``. Without a card
 the script exits 2 and prints no result. ``--profile DIR`` adds one more
 full-width crop and two train steps under torch.profiler: device time by
 kernel group, the device's busy share of the wall time, and
 DIR/profile.json and DIR/profile_train.json with every kernel; then the
-train step timed with cuDNN's autotuner on. ``--rehearse-cpu`` runs phases 3 to 6 on the CPU at a tiny size
-with the kernels' plain versions, then exits 3 without a result: a dry
-run of the control flow for machines without a card.
+train step timed with cuDNN's autotuner on. ``--rehearse-cpu`` runs phases
+3 to 7 on the CPU at a tiny size (2 iterations, 2 suite frames) with the
+kernels' plain versions, then exits 3 without a result: a dry run of the
+control flow for machines without a card.
 """
 
 from __future__ import annotations
@@ -72,12 +81,14 @@ from sdflabel_tpu_torch.engine import refine as refine_mod  # noqa: E402
 from sdflabel_tpu_torch.models import css as css_mod  # noqa: E402
 from sdflabel_tpu_torch.models import deepsdf  # noqa: E402
 from sdflabel_tpu_torch.ops import (  # noqa: E402
-    _cuda, ce_cuda, grid as grid_ops, knn, mlp_cuda, nn_cuda, splat,
-    splat_cuda)
+    _cuda, ce_cuda, grid as grid_ops, knn, mlp2_cuda, mlp_cuda, nn_cuda,
+    splat, splat_cuda)
+from sdflabel_tpu_torch.pipelines import evaluate_dump  # noqa: E402
 from sdflabel_tpu_torch.pipelines import make_crops as crops_pipe  # noqa: E402
 from sdflabel_tpu_torch.pipelines import refine_css as pipe  # noqa: E402
 from sdflabel_tpu_torch.pipelines import train_css as train_pipe  # noqa: E402
 from sdflabel_tpu_torch.renderer import rasterer  # noqa: E402
+from sdflabel_tpu_torch.tools import quality_suite  # noqa: E402
 from sdflabel_tpu_torch.utils import png  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
@@ -104,12 +115,19 @@ KERNELS = {  # wrapper counter, source, the TPU kernel it replaces
                "sdflabel_tpu/ops/ce_pallas.py:54"),
     "ce_bwd": (ce_cuda.CE_BWD, "sdflabel_tpu_torch/csrc/ce.cu",
                "sdflabel_tpu/ops/ce_pallas.py:79"),
+    "stage2_fwd": (mlp2_cuda.STAGE2_FWD,
+                   "sdflabel_tpu_torch/csrc/stage2_mlp.cu",
+                   "sdflabel_tpu/ops/mlp2_pallas.py:174"),
+    "stage2_bwd": (mlp2_cuda.STAGE2_BWD,
+                   "sdflabel_tpu_torch/csrc/stage2_mlp.cu",
+                   "sdflabel_tpu/ops/mlp2_pallas.py:197"),
 }
 # the path whose run gives each kernel's launches
 PATHS = {"splat_fwd": "full_width", "splat_bwd": "full_width",
          "nn": "full_width", "select_mlp": "full_width",
          "splat_bwd_binned": "binned_refine", "splat_fwd_binned": "crops",
-         "ce_fwd": "train", "ce_bwd": "train"}
+         "ce_fwd": "train", "ce_bwd": "train",
+         "stage2_fwd": "full_width_stage2", "stage2_bwd": "full_width_stage2"}
 QUALITY_DSDF = os.path.join(ROOT, "data", "quality_nets",
                             "deepsdf_quality.pt")
 
@@ -318,6 +336,103 @@ def check_select(dev) -> dict:
                 plain_ms=time_ms(lambda: mlp_cuda.emulate_select_mlp(
                     packed, lat, pts)),
                 bound_ms=b[0], bound_by=b[1], library_ms=time_ms(chain))
+
+
+def check_stage2(dev) -> list[dict]:
+    """Kernels 4a and 4b on K = 8192 seeded points in [-1, 1]^3 through the
+    8x512 decoder, cast to bf16 and packed, against the plain version
+    (ops/mlp2_cuda.py::stage2_plain and its autograd), with the tolerance
+    of mlp2_cuda.stage2_agreement."""
+    cfg, params = decoder_8x512(dev)
+    packed = mlp_cuda.pack_select_mlp(
+        cfg, deepsdf.cast_params(params, torch.bfloat16))
+    assert packed is not None
+    n, H, nh = 8192, packed.width, packed.n_hidden
+    rng = np.random.RandomState(6)
+    pts = torch.as_tensor(rng.uniform(-1, 1, (n, 3)).astype(np.float32),
+                          device=dev)
+    ct = torch.as_tensor(rng.randn(n).astype(np.float32), device=dev)
+    lat = torch.tensor([0.6, -0.48, 0.64], device=dev)
+    cvec = mlp_cuda._cvec(packed, lat).contiguous()
+    out = mlp2_cuda.stage2_fwd(packed, cvec, pts)
+    dcvec, dpts = mlp2_cuda.stage2_bwd(packed, cvec, pts, ct)
+    cv = cvec.clone().requires_grad_(True)
+    p = pts.clone().requires_grad_(True)
+    sdf = mlp2_cuda.stage2_plain(packed, cv, p)
+    (g,) = torch.autograd.grad(sdf.sum(), p, retain_graph=True)
+    dcv_p, dp_p = torch.autograd.grad(sdf, (cv, p), ct, retain_graph=True)
+    torch.cuda.synchronize()
+    # the yardstick of the tolerance: the plain version summed in fp64
+    cv64 = cvec.clone().requires_grad_(True)
+    p64 = pts.clone().requires_grad_(True)
+    sdf64 = mlp2_cuda.stage2_plain(packed, cv64, p64, torch.float64)
+    (g64,) = torch.autograd.grad(sdf64.sum(), p64, retain_graph=True)
+    dcv64, dp64 = torch.autograd.grad(sdf64, (cv64, p64), ct)
+
+    def agreement(s, n, dp, dcv, s_ref, n_ref, dp_ref, dcv_ref):
+        return mlp2_cuda.stage2_agreement(s, s_ref, (
+            ("normals", n, n_ref), ("d_points", dp, dp_ref),
+            ("d_cvec", dcv.reshape(-1, 1), dcv_ref.reshape(-1, 1))))
+
+    shares, medians = agreement(out[:, 0], out[:, 1:], dpts, dcvec,
+                                sdf.detach(), g, dp_p, dcv_p)
+    spread = agreement(sdf.detach(), g, dp_p, dcv_p, sdf64.detach(), g64,
+                       dp64, dcv64)
+    sdf_err = float((out[:, 0] - sdf.detach()).abs().max())
+    print(f"stage2: sdf max_abs_err {sdf_err:.3g} (need < 1e-3); shares "
+          f"within tolerance {shares} (need >= 0.995 for the sdf, 0.98 "
+          f"else); medians {medians} (need <= 1e-6 for the sdf, 1e-4 else); "
+          f"the plain version summed in fp32 against fp64: sdf max "
+          f"{float((sdf - sdf64).abs().max()):.3g}, shares {spread[0]}, "
+          f"medians {spread[1]}")
+    assert sdf_err < 1e-3 and shares["sdf"] >= 0.995
+    assert medians.pop("sdf") <= 1e-6 and max(medians.values()) <= 1e-4
+    assert min(shares.values()) >= 0.98
+    rel = {k: float((a - b).abs().max() / b.abs().max()) for k, a, b in (
+        ("normals", out[:, 1:], g), ("d_points", dpts, dp_p),
+        ("d_cvec", dcvec, dcv_p))}
+    fwd_err = max(sdf_err, float((out[:, 1:] - g).abs().max()))
+    bwd_err = max(float((dpts - dp_p).abs().max()),
+                  float((dcvec - dcv_p).abs().max()))
+
+    # work of one launch (mlp2_pallas.py:189): two chains of nh H x H
+    # products, 4 * K * (nh * H^2 + 8 * H) flops; bytes: points, stack,
+    # outputs (4b also reads the cotangent and writes d_cvec)
+    flops = 4 * n * (nh * H * H + 8 * H)
+    fwd_b = bound(n * 12 + nh * H * H * 2 + n * 16, flops, BF16_TENSOR_FLOPS)
+    bwd_b = bound(n * 16 + nh * H * H * 2 + n * 12 + (nh + 1) * H * 4, flops,
+                  BF16_TENSOR_FLOPS)
+    # yardstick: the same products as bf16 torch.matmul chains, nh forward
+    # and nh transposed for 4a, twice that for 4b
+    h0 = torch.relu(torch.randn(n, H, device=dev)).to(torch.bfloat16)
+    wt = [packed.ws[j].t() for j in range(nh)]
+
+    def chain(times):
+        h = h0
+        for _ in range(times):
+            for j in range(nh):
+                h = torch.relu(h @ packed.ws[j])
+            for j in reversed(range(nh)):
+                h = h @ wt[j]
+        return h
+
+    def plain_fwd():
+        return mlp2_cuda.emulate_stage2(packed, lat, pts)
+
+    def plain_bwd():
+        return torch.autograd.grad(sdf, (cv, p), ct, retain_graph=True)
+
+    return [
+        dict(name="stage2_fwd", max_abs_err=fwd_err,
+             ms=time_ms(lambda: mlp2_cuda.stage2_fwd(packed, cvec, pts)),
+             plain_ms=time_ms(plain_fwd), bound_ms=fwd_b[0],
+             bound_by=fwd_b[1], library_ms=time_ms(lambda: chain(1)),
+             max_rel_err=rel, shares=shares, plain_fp64_shares=spread[0]),
+        dict(name="stage2_bwd", max_abs_err=bwd_err,
+             ms=time_ms(lambda: mlp2_cuda.stage2_bwd(packed, cvec, pts, ct)),
+             plain_ms=time_ms(plain_bwd), bound_ms=bwd_b[0],
+             bound_by=bwd_b[1], library_ms=time_ms(lambda: chain(2))),
+    ]
 
 
 def crop_scene(dev):
@@ -612,7 +727,52 @@ def full_width_phase(dev, rt_demo, sample, prep, iters: int | None = None):
         # 32x32 crops stay on the dense kernels
         assert launched["splat_fwd_binned"] == launched["splat_bwd_binned"] \
             == 0
-    return rt, launched, dict(wall_s=wall, iters=stock.iters)
+        assert launched["stage2_fwd"] == launched["stage2_bwd"] == 0
+    return rt, launched, dict(wall_s=wall, iters=stock.iters,
+                              loss0=float(loss[0]),
+                              location=np.asarray(label["location"]).tolist())
+
+
+def full_width_stage2_phase(dev, rt512, prep, sample, full: dict):
+    """Phase 4's crop and runtime settings with stage2_pallas = True: each
+    iteration's stage-2 decode is one launch of kernel 4a and its backward
+    one of 4b."""
+    cfg = dataclasses.replace(rt512.cfg, stage2_pallas=True)
+    rt = pipe.RefineRuntime(cfg, rt512.css, rt512.dsdf_cfg,
+                            rt512.dsdf_params, device=dev)
+    print(f"full width, stage 2: route {rt.stage2_route}")
+    assert rt.stage2_route == "kernel"
+    reset_counts()
+    t0 = time.perf_counter()
+    final, hist, ext = rt.run_refine(prep)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    label = pipe.finish_label(final, ext, sample, prep["anno"])
+    loss = hist.loss.cpu().numpy()
+    applied = hist.applied.cpu().numpy()
+    iters = cfg.iters
+    assert np.isfinite(loss[applied]).all() and applied.any()
+    assert label is not None and np.isfinite(label["location"]).all()
+    # the same first iteration as phase 4 but for stage 2's numerics (fp32
+    # activations between layers in place of the bf16 decoder's)
+    loss0_rel = abs(float(loss[0]) - full["loss0"]) / abs(full["loss0"])
+    dist = float(np.linalg.norm(np.asarray(label["location"])
+                                - np.asarray(full["location"])))
+    print(f"full width, stage 2: {iters} iterations, {wall:.3f} s wall, "
+          f"{wall / iters * 1e3:.3f} ms/iteration (phase 4: "
+          f"{full['wall_s'] / full['iters'] * 1e3:.3f}), first loss "
+          f"{loss[0]:.6f} vs {full['loss0']:.6f} (relative {loss0_rel:.3g}, "
+          f"need <= 5e-3), label {dist:.4f} m from phase 4's, launches "
+          f"{launched}")
+    assert loss0_rel <= 5e-3
+    if dev.type == "cuda":
+        # one 4a per iteration; one 4b per iteration's backward
+        assert launched["stage2_fwd"] == launched["stage2_bwd"] == iters
+        assert launched["splat_fwd"] == launched["splat_bwd"] == iters
+    return launched, dict(wall_s=wall, iters=iters, loss0=float(loss[0]),
+                          loss0_rel=loss0_rel, label_dist_m=dist)
 
 
 def binned_refine_phase(dev, rt_demo, sample, anno, iters: int = 10):
@@ -780,6 +940,99 @@ def train_phase(dev, crops_dir, log_dir, width: int = 64, batch: int = 13,
         fixed_batch_step_ms=fixed_ms)
 
 
+# ---------------------------------------------------------------- phase 7
+
+QUALITY_NETS = os.path.join(ROOT, "data", "quality_nets")
+
+
+def quality_cfgp(suite: str, labels: str, iters: int = 60):
+    """scripts/run_quality_benchmark.py::build_cfgp's settings, with the
+    stock warm band and both MLP kernels asked for."""
+    import configparser
+
+    cfgp = configparser.ConfigParser()
+    cfgp.read_dict({
+        "input": {"kitti_path": suite,
+                  "css_path": os.path.join(QUALITY_NETS,
+                                           "css_quality_v2.msgpack"),
+                  "css_width": str(quality_suite.CSS_WIDTH),
+                  "deepsdf_path": os.path.join(QUALITY_NETS,
+                                               "deepsdf_quality.pt"),
+                  "label_type": "gt", "diff_annos": "hard",
+                  "grid_density": "40", "rendering_area": "32"},
+        "optimization": {"iters": str(iters), "pose_estimator": "kabsch",
+                         "precision": "float16", "warm_band": "8192",
+                         "warm_refresh": "10", "select_pallas": "True",
+                         "stage2_pallas": "True"},
+        "visualization": {"viz_type": "none"},
+        "losses": {"2d_weight": "0.3", "3d_weight": "0.5"},
+        "output": {"labels": labels}})
+    return cfgp
+
+
+def kitti_phase(dev, out_dir, n_frames: int = 24, iters: int = 60):
+    """Build the suite, run the driver over it, evaluate the dumps."""
+    suite = os.path.join(out_dir, "quality_suite")
+    reset_counts()
+    t0 = time.perf_counter()
+    meta = quality_suite.build_suite(suite, n_frames, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    built = counts()
+    print(f"suite: {meta['frames']} frames, {meta['objects']} cars, tiers "
+          f"{meta['difficulty_tiers']}, built in {build_s:.3f} s "
+          f"({build_s / n_frames:.3f} s/frame), launches {built}")
+    assert meta["frames"] == n_frames
+    if dev.type == "cuda":
+        assert built["splat_fwd_binned"] > 0
+
+    labels = os.path.join(out_dir, "labels")
+    cfgp = quality_cfgp(suite, labels, iters)
+    route = pipe.setup_runtime(cfgp, device=dev).stage2_route
+    reset_counts()
+    t0 = time.perf_counter()
+    annos, ests = pipe.refine_css(cfgp, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    dumps = sorted(f for f in os.listdir(labels) if f.endswith(".pkl"))
+    n_gt = sum(len(a["location"]) for a in annos.values())
+    n_est = sum(len(e["location"]) for e in ests.values())
+    print(f"driver: stage 2 {route} (the 3x96 quality decoder is outside "
+          f"the packer), {len(dumps)} dumps, {n_gt} crops, {n_est} labels, "
+          f"{wall:.3f} s wall (in-process evaluation included), "
+          f"{wall / max(n_gt, 1):.3f} s/crop, {n_frames / wall:.4f} "
+          f"frames/s, launches {launched}")
+    assert len(dumps) == n_frames == len(annos)
+    assert n_est >= 0.9 * n_gt
+    if dev.type == "cuda":
+        assert launched["splat_fwd"] > 0 and launched["nn"] > 0
+
+    t0 = time.perf_counter()
+    results = evaluate_dump.evaluate(cfgp, (0, 1, 2), device=dev)
+    eval_s = time.perf_counter() - t0
+    names = ("easy", "moderate", "hard")
+
+    def per_diff(arr):
+        a = np.asarray(arr)
+        return {names[d]: [float(v) for v in a[0, d]] for d in range(3)}
+
+    ap = {"kitti_3d_ap": per_diff(results[0]["Box3DAP"]),
+          "bev_ap": per_diff(results[0]["BevAP"]),
+          "aos_iou": per_diff(results[0]["AosAP_iou"]),
+          "nuscenes_3d_ap": per_diff(results[1]["Box3DAP_Nu"])}
+    print(f"evaluation: {eval_s:.3f} s; AP per difficulty (at the two "
+          f"thresholds) {json.dumps(ap)}")
+    return launched, dict(frames=n_frames, cars=meta["objects"],
+                          tiers=meta["difficulty_tiers"], build_s=build_s,
+                          driver_s=wall, crops=n_gt, labels=n_est,
+                          s_per_crop=wall / max(n_gt, 1),
+                          frames_per_s=n_frames / wall, eval_s=eval_s,
+                          stage2_route=route, **ap)
+
+
 # ------------------------------------------------------- --profile (option)
 
 def _kernel_group(name: str) -> str:
@@ -879,26 +1132,51 @@ def profile_all(out_dir: str, rt512, prep, state, fixed, summary) -> None:
           f"{summary['train']['steady_ms_per_step']:.3f} ms)")
 
 
-def run_paths(dev, out_dir: str, small: bool = False):
-    """Phases 3 to 6; `small` cuts them to a CPU rehearsal's size. Returns
-    what --profile drives again, the launches of each path and its
-    summary."""
+def run_paths(dev, out_dir: str, small: bool = False,
+              quality_frames: int = 24):
+    """Phases 3 to 7, each timed; `small` cuts them to a CPU rehearsal's
+    size. Returns what --profile drives again, the launches of each path
+    and its summary."""
     tiny = dict(iters=2) if small else {}
+    seconds = {}
+    t0 = time.perf_counter()
     rt, sample, prep, demo = demo_phase(dev, **tiny)
+    seconds["3"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     rt512, full_launched, full = full_width_phase(dev, rt, sample, prep,
                                                   **tiny)
+    seconds["4"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stage2_launched, stage2 = full_width_stage2_phase(dev, rt512, prep,
+                                                      sample, full)
+    seconds["4c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     binned_launched, binned = binned_refine_phase(
         dev, rt, sample, prep["anno"], iters=1 if small else 10)
+    seconds["4b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     crops_dir, crops_launched, crops = crops_phase(
         dev, out_dir, **(dict(n_crops=4, grid=16, capacity=512) if small
                          else {}))
+    seconds["5"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     state, fixed, train_launched, train = train_phase(
         dev, crops_dir, os.path.join(out_dir, "log"),
         **(dict(width=8, batch=2, epochs=1) if small else {}))
+    seconds["6"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kitti_launched, kitti = kitti_phase(
+        dev, out_dir, **(dict(n_frames=2, iters=2) if small
+                         else dict(n_frames=quality_frames)))
+    seconds["7"] = time.perf_counter() - t0
+    print(f"phase seconds: {json.dumps(seconds)}")
     launched = {"full_width": full_launched, "binned_refine": binned_launched,
-                "crops": crops_launched, "train": train_launched}
+                "crops": crops_launched, "train": train_launched,
+                "full_width_stage2": stage2_launched, "kitti": kitti_launched}
     summary = {"demo_crop": demo, "full_width_crop": full,
-               "binned_refine": binned, "crops": crops, "train": train}
+               "full_width_stage2": stage2, "binned_refine": binned,
+               "crops": crops, "train": train, "kitti_driver": kitti,
+               "phase_seconds": seconds}
     handles = dict(rt512=rt512, prep=prep, state=state, fixed=fixed)
     return handles, launched, summary
 
@@ -906,6 +1184,9 @@ def run_paths(dev, out_dir: str, small: bool = False):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse-cpu", action="store_true")
+    ap.add_argument("--quality-frames", type=int, default=24,
+                    help="frames of the v2 quality suite phase 7 builds and "
+                         "labels (72: all of them)")
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile the full-width crop and two train "
                          "steps; write DIR/profile.json and "
@@ -932,10 +1213,13 @@ def main() -> int:
     card = gpu_line()
     print(f"card: {card}")
 
+    t0 = time.perf_counter()
     rows = (check_splat(dev) + [check_nn(dev), check_select(dev)]
-            + check_splat_binned(dev) + check_ce(dev))
+            + check_splat_binned(dev) + check_ce(dev) + check_stage2(dev))
+    print(f"phase 2: {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as out_dir:
-        handles, launched, summary = run_paths(dev, out_dir)
+        handles, launched, summary = run_paths(
+            dev, out_dir, quality_frames=args.quality_frames)
     missing = [k for k, path in PATHS.items() if launched[path][k] == 0]
     assert not missing, f"kernels not launched on their path: {missing}"
     if args.profile:

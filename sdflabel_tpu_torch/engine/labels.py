@@ -67,3 +67,31 @@ def kitti_label_from_extents(yaw, scale, trans, mn, mx, p_wc: np.ndarray,
     label["alpha"] = geometry.alpha_in_bev(global_t, label["rotation_y"])
     label["score"] = 1
     return label
+
+
+def get_kitti_label(sdf_decoder, grid_points, latent, scale, trans, yaw,
+                    p_wc: np.ndarray, bbox, capacity: int = 4096):
+    """(label dict, scaled surface points, cam_T 4x4), decoding the surface
+    at `latent` on the grid's device (refinement.py:501-562): the
+    host-driven label that the quality suite's ground truth uses. The label
+    is None when the band is empty (QUIRKS #15)."""
+    yaw_f = float(np.asarray(yaw).reshape(-1)[0])
+    scale_f = float(np.asarray(scale).reshape(-1)[0])
+    trans_np = np.asarray(trans, np.float64).reshape(3)
+    cam_t = np.eye(4)
+    cam_t[:3, :3] = geometry.rot_from_yaw_np(yaw_f) @ np.diag([1.0, -1.0, 1.0])
+    cam_t[:3, 3] = trans_np * scale_f
+    with torch.no_grad():
+        surf, _ = grid_ops.surface_from_decoder(
+            sdf_decoder, torch.as_tensor(np.asarray(latent, np.float32),
+                                         device=grid_points.device).reshape(
+                                             -1), grid_points,
+            capacity=capacity)
+    pts = surf.points.detach().cpu().numpy()[surf.mask.cpu().numpy()]
+    if len(pts) == 0:
+        return None, None, cam_t
+    scaled_points = pts * scale_f
+    label = kitti_label_from_extents(
+        yaw_f, 1.0, trans_np * scale_f, scaled_points.min(0),
+        scaled_points.max(0), p_wc, bbox)
+    return label, scaled_points, cam_t

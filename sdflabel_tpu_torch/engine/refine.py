@@ -87,14 +87,16 @@ def _device(device) -> torch.device:
 
 def make_refine_fn(sdf_decoder, cfg: RefineConfig, grid_points: torch.Tensor,
                    K: torch.Tensor, crop_hw: tuple[int, int],
-                   select_decoder=None, device="cuda"):
+                   select_decoder=None, stage2_fn=None, device="cuda"):
     """Build refine(params0, nocs_target, frustum_pts, frustum_mask,
     pixel_mask=None) -> (final RefineParams, RefineStepOut) for one crop
     geometry.
 
     sdf_decoder(latent, points) -> (N,) sdf, differentiable; select_decoder:
     optional rank-only decoder for the selection passes (the selection
-    kernel). nocs_target (3, h, w); frustum (M, 3) with its (M,) mask.
+    kernel); stage2_fn: optional fused stage-2 decode and normals
+    (ops/mlp2_cuda.py). nocs_target (3, h, w); frustum (M, 3) with its
+    (M,) mask.
     """
     device = _device(device)
     h, w = crop_hw
@@ -120,13 +122,13 @@ def make_refine_fn(sdf_decoder, cfg: RefineConfig, grid_points: torch.Tensor,
                 sdf_decoder, latent, grid_points, cand_idx,
                 capacity=cfg.surface_capacity,
                 threshold=cfg.surface_threshold,
-                select_decoder_fn=select_decoder)
+                select_decoder_fn=select_decoder, stage2_fn=stage2_fn)
         else:
             surf, _ = grid_ops.surface_from_decoder(
                 sdf_decoder, latent, grid_points,
                 capacity=cfg.surface_capacity,
                 threshold=cfg.surface_threshold,
-                select_decoder_fn=select_decoder)
+                select_decoder_fn=select_decoder, stage2_fn=stage2_fn)
         rendering, points = rast_mod.render(
             K, (w, h), surf.points, surf.normals, surf.normals, pose,
             point_mask=surf.mask, rot="dcm", primitives="disc",

@@ -31,7 +31,7 @@ _COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  # no a*b+c -> fma contraction: the kernels repeat the plain
                  # versions' separately rounded products and sums
                  "-fmad=false"]
-SOURCES = ("splat", "nn", "select_mlp", "ce")
+SOURCES = ("splat", "nn", "select_mlp", "ce", "stage2_mlp")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -94,6 +94,15 @@ def _load(name: str) -> ctypes.CDLL:
     with _LOCK:
         _LIBS[name] = lib
     return lib
+
+
+def query(lib: str, symbol: str, *args: int) -> int:
+    """Call an exported ``int symbol(int, ...)`` that launches nothing
+    (a tile-size query), building the library first if needed."""
+    fn = getattr(_load(lib), symbol)
+    fn.argtypes = [ctypes.c_int] * len(args)
+    fn.restype = ctypes.c_int
+    return fn(*args)
 
 
 class CudaKernel:

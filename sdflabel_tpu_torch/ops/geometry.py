@@ -75,6 +75,38 @@ def project_np(K: np.ndarray, p3d: np.ndarray) -> np.ndarray:
     return (p2h[:, :2] / p2h[:, 2:3]).astype(np.float32)
 
 
+def unproject_np(K: np.ndarray, p2d: np.ndarray) -> np.ndarray:
+    """Pixel -> unit-depth ray (refinement.py:475-477 without cv2)."""
+    ones = np.ones((p2d.shape[0], 1), dtype=np.float64)
+    homo = np.concatenate([p2d.astype(np.float64), ones], axis=1)
+    return (homo @ np.linalg.inv(K).T).astype(np.float32)
+
+
+def build_view_frustum(K: np.ndarray, l, t, r, b) -> np.ndarray:
+    """The 4 inward frustum plane normals (refinement.py:480-498)."""
+    corners = np.asarray([(l, t), (r - 1, t), (r - 1, b - 1), (l, b - 1)],
+                         dtype=np.float32)
+    rays = unproject_np(K, corners)
+    rays /= np.linalg.norm(rays, axis=1)[:, None]
+    return np.stack((np.cross(rays[0], rays[1]), np.cross(rays[1], rays[2]),
+                     np.cross(rays[2], rays[3]), np.cross(rays[3], rays[0])))
+
+
+def compute_depth_map(lidar: np.ndarray, cam: np.ndarray, w: int,
+                      h: int) -> np.ndarray:
+    """LIDAR depth map without a z-buffer: the last point written to a
+    pixel wins (refinement.py:87-105, vectorised)."""
+    frustum = build_view_frustum(cam, 0, 0, w, h)
+    xyz = lidar[np.logical_and.reduce(frustum @ lidar.T > 0, axis=0)]
+    depth = np.zeros((h, w), dtype=np.float32)
+    if len(xyz) == 0:
+        return depth
+    uv = project_np(cam, xyz).astype(np.int32)
+    ok = (uv[:, 0] >= 0) & (uv[:, 0] < w) & (uv[:, 1] >= 0) & (uv[:, 1] < h)
+    depth[uv[ok, 1], uv[ok, 0]] = xyz[ok, 2]
+    return depth
+
+
 def reproject_np(color: np.ndarray, depth: np.ndarray, K: np.ndarray,
                  filter_nocs: bool = False) -> tuple[np.ndarray, np.ndarray]:
     """Depth map -> colored 3D points of the nonzero-depth pixels

@@ -78,16 +78,23 @@ def _select(sel_fn, latent, points, k) -> torch.Tensor:
     return torch.topk(-sdf.abs(), k).indices
 
 
-def _stage2_surface(decoder_fn, latent, pts_sel, threshold) -> SurfacePoints:
+def _stage2_surface(decoder_fn, latent, pts_sel, threshold,
+                    stage2_fn=None) -> SurfacePoints:
     """Exact differentiable decode at the selected points: the SDF keeps
     its graph to the latent; the normals are d sdf / d p from autograd,
     detached (optimizer.py:107; QUIRKS #5). retain_graph keeps the SDF's
-    graph alive for the loss backward."""
+    graph alive for the loss backward. `stage2_fn(latent, points) -> (sdf,
+    raw normals)`, e.g. the fused kernels of ops/mlp2_cuda.py, replaces
+    the decode and the autograd normals."""
     pts_sel = pts_sel.detach()
-    with torch.enable_grad():
-        p = pts_sel.clone().requires_grad_(True)
-        sdf = decoder_fn(latent, p).reshape(-1)
-        (grads,) = torch.autograd.grad(sdf.sum(), p, retain_graph=True)
+    if stage2_fn is not None:
+        sdf, grads = stage2_fn(latent, pts_sel)
+        sdf = sdf.reshape(-1)
+    else:
+        with torch.enable_grad():
+            p = pts_sel.clone().requires_grad_(True)
+            sdf = decoder_fn(latent, p).reshape(-1)
+            (grads,) = torch.autograd.grad(sdf.sum(), p, retain_graph=True)
     normals_unit = _unit(grads.detach())
     projected = pts_sel - sdf[:, None] * normals_unit
     return SurfacePoints(points=projected, nocs=(projected + 1.0) / 2.0,
@@ -96,25 +103,27 @@ def _stage2_surface(decoder_fn, latent, pts_sel, threshold) -> SurfacePoints:
 
 def surface_from_decoder(decoder_fn, latent: torch.Tensor,
                          points: torch.Tensor, capacity: int,
-                         threshold: float = 0.03, select_decoder_fn=None
+                         threshold: float = 0.03, select_decoder_fn=None,
+                         stage2_fn=None
                          ) -> tuple[SurfacePoints, torch.Tensor]:
     """Two-stage decode: stage 1 ranks the whole grid without gradients
     (through `select_decoder_fn` when given, e.g. the selection kernel),
-    stage 2 decodes the `capacity` selected points exactly. Returns
-    (surface, stage-1 sdf of the grid)."""
+    stage 2 decodes the `capacity` selected points exactly (through
+    `stage2_fn` when given). Returns (surface, stage-1 sdf of the grid)."""
     sel_fn = select_decoder_fn if select_decoder_fn is not None \
         else decoder_fn
     with torch.no_grad():
         sdf_all = sel_fn(latent.detach(), points).reshape(-1).float()
     idx = torch.topk(-sdf_all.abs(), capacity).indices
-    return _stage2_surface(decoder_fn, latent, points[idx], threshold), \
-        sdf_all
+    return _stage2_surface(decoder_fn, latent, points[idx], threshold,
+                           stage2_fn), sdf_all
 
 
 def surface_from_candidates(decoder_fn, latent: torch.Tensor,
                             points: torch.Tensor, cand_idx: torch.Tensor,
                             capacity: int, threshold: float = 0.03,
-                            select_decoder_fn=None) -> SurfacePoints:
+                            select_decoder_fn=None,
+                            stage2_fn=None) -> SurfacePoints:
     """Two-stage decode restricted to a candidate set (the warm band).
     With exactly `capacity` candidates all are kept and stage 1 is
     skipped: the surface is a set and stage 2 computes the mask."""
@@ -125,7 +134,8 @@ def surface_from_candidates(decoder_fn, latent: torch.Tensor,
         sel_fn = select_decoder_fn if select_decoder_fn is not None \
             else decoder_fn
         pts_sel = pts_cand[_select(sel_fn, latent, pts_cand, capacity)]
-    return _stage2_surface(decoder_fn, latent, pts_sel, threshold)
+    return _stage2_surface(decoder_fn, latent, pts_sel, threshold,
+                           stage2_fn)
 
 
 def band_candidates(decoder_fn, latent: torch.Tensor, points: torch.Tensor,

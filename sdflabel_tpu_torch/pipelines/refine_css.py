@@ -1,16 +1,20 @@
-"""Pose/shape refinement (autolabeling) of single crops: the demo driver.
+"""Pose/shape refinement (autolabeling): the KITTI driver and the demo.
 
 Counterpart of sdflabel_tpu/pipelines/refine_css.py (reference
-refine_css_demo.py:23-204 and refine_css.py:94-236), for one annotation at
-a time: crop + intrinsics, CSS forward, DeepSDF surface decode, NOCS
-reprojection, RANSAC pose init, azimuth constraint + height re-estimation,
-the refine loop, and the KITTI label. Everything from the CSS forward to
-the label extents runs on `device` (the card by default); the reference's
-host-side numpy steps (reprojection, label math) stay numpy.
+refine_css.py:26-263 and refine_css_demo.py:23-204). Per annotation: crop
++ intrinsics (the MaskRCNN instance mask multiplies the crop), CSS
+forward, DeepSDF surface decode, NOCS reprojection, RANSAC pose init,
+azimuth constraint + height re-estimation, the refine loop, and the KITTI
+label. ``refine_css`` runs that over the frames of a KITTI tree, one crop
+after another as the reference's loop does, dumps one ``<frame>.pkl`` per
+frame and evaluates the labels (KITTI and nuScenes AP). Everything from the
+CSS forward to the label extents runs on `device` (the card by default);
+the reference's host-side numpy steps (reprojection, label math) stay
+numpy.
 
-Not ported yet, and refused with NotImplementedError: the KITTI driver with
-evaluation, batched crops, visualization, PnP pose init, MaskRCNN labels,
-coarse cells, select_bf16 and the fused stage-2 decode.
+Not ported yet, and refused with NotImplementedError: batched crops
+(``refine_css(batched=True)``), visualization, PnP pose init, coarse cells
+and select_bf16.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ from __future__ import annotations
 import json
 import math
 import os
-from collections import defaultdict
+import pickle
+from collections import OrderedDict, defaultdict
 
 import numpy as np
 import torch
@@ -30,7 +35,8 @@ from sdflabel_tpu_torch.engine import labels as labels_mod
 from sdflabel_tpu_torch.engine import refine as refine_mod
 from sdflabel_tpu_torch.models import css as css_mod
 from sdflabel_tpu_torch.models import deepsdf
-from sdflabel_tpu_torch.ops import geometry, grid as grid_ops, mlp_cuda
+from sdflabel_tpu_torch.ops import geometry, grid as grid_ops, mlp2_cuda
+from sdflabel_tpu_torch.ops import mlp_cuda
 from sdflabel_tpu_torch.ops import ransac
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -90,8 +96,6 @@ class RefineRuntime:
             _refuse("coarse-cell selection")
         if cfg.select_bf16:
             _refuse("select_bf16")
-        if cfg.stage2_pallas:
-            _refuse("the fused stage-2 decode")
         if cfg.pose_estimator not in ("kabsch", "procrustes"):
             _refuse(f"pose_estimator {cfg.pose_estimator!r}")
         # fp32 matmuls and convolutions stay fp32 on the card (QUIRKS #16)
@@ -119,6 +123,11 @@ class RefineRuntime:
         # not multiples of 128)
         self.select_decoder = (mlp_cuda.select_fn(dsdf_cfg, dsdf_params)
                                if cfg.select_pallas else None)
+        # the fused stage-2 decode (kernels 4a, 4b), packed the same way;
+        # outside the packer's contract stage 2 stays plain, as in JAX
+        self.stage2_fn = (mlp2_cuda.stage2_fn(dsdf_cfg, dsdf_params)
+                          if cfg.stage2_pallas else None)
+        self.stage2_route = "plain" if self.stage2_fn is None else "kernel"
         self.grid_points = grid_ops.generate_point_grid(cfg.grid_density,
                                                         device=self.device)
         self.surface_capacity = (surface_capacity if surface_capacity
@@ -180,7 +189,8 @@ class RefineRuntime:
         fn = refine_mod.make_refine_fn(
             self.decoder, rcfg, self.grid_points,
             torch.as_tensor(prep["intrinsics"]), (bh, bw),
-            select_decoder=self.select_decoder, device=self.device)
+            select_decoder=self.select_decoder, stage2_fn=self.stage2_fn,
+            device=self.device)
         dev = self.device
         final, hist = fn(prep["params0"], torch.as_tensor(nocs).to(dev),
                          torch.as_tensor(prep["frustum"]).to(dev),
@@ -240,10 +250,13 @@ def setup_runtime(cfgp_or_cfg, rng_seed: int = 1,
                          device=device)
 
 
-def prepare_crop(rt: RefineRuntime, sample: dict, anno: dict):
+def prepare_crop(rt: RefineRuntime, sample: dict, anno: dict, maskrcnn=None,
+                 bbox_max_id=None):
     """Crop, CSS, surface, reprojection and pose init for one annotation
-    (refine_css.py:94-196). Returns what the refine loop needs, or None on
-    any of the reference's skip conditions."""
+    (refine_css.py:94-196). With label_type maskrcnn, instance
+    `bbox_max_id` of the `maskrcnn` labels masks the crop. Returns what the
+    refine loop needs, or None on any of the reference's skip
+    conditions."""
     cfg = rt.cfg
     max_crop_area = cfg.rendering_area ** 2
     l, t, r, b = [int(v) for v in anno["bbox"]]
@@ -254,6 +267,9 @@ def prepare_crop(rt: RefineRuntime, sample: dict, anno: dict):
     crop_size, intrinsics, off_intrinsics = geometry.adjust_intrinsics_crop(
         sample["orig_cam"], crop_bgr.shape[:2], anno["bbox"], max_crop_area)
     pcd_crop, _ = geometry.reproject_np(crop_bgr, crop_dep, off_intrinsics)
+    if cfg.label_type == "maskrcnn" and maskrcnn is not None:
+        mask = np.asarray(maskrcnn["masks"][bbox_max_id], np.float32)
+        crop_bgr = crop_bgr * mask[..., None]
 
     crop_rgb, _ = transform_bgr_crop(crop_bgr, device=rt.device)
     nocs_dev, latent_dev, surf = rt.css_and_surface(crop_rgb)
@@ -341,9 +357,9 @@ def finish_label(final: refine_mod.RefineParams,
 
 
 def refine_annotation(rt: RefineRuntime, sample: dict, anno: dict,
-                      verbose: bool = True):
+                      maskrcnn=None, bbox_max_id=None, verbose: bool = True):
     """One annotation end to end: the label dict, or None (skip)."""
-    prep = prepare_crop(rt, sample, anno)
+    prep = prepare_crop(rt, sample, anno, maskrcnn, bbox_max_id)
     if prep is None:
         return None
     final, hist, ext = rt.run_refine(prep)
@@ -358,6 +374,106 @@ def refine_annotation(rt: RefineRuntime, sample: dict, anno: dict,
     return finish_label(final, ext, sample, prep["anno"])
 
 
+def _fuse_maskrcnn(anno, maskrcnn_labels, min_iou=0.5):
+    """(box, index) of the MaskRCNN box of largest IoU with the annotation,
+    or (None, None) below `min_iou` (refine_css.py:100-114)."""
+    ious = [geometry.get_iou(np.asarray(bbox, np.float64), anno["bbox"])
+            for bbox in np.asarray(maskrcnn_labels["bboxes"])]
+    bbox_max_id = int(np.argmax(ious))
+    if ious[bbox_max_id] < min_iou:
+        return None, None
+    bbox = np.asarray(maskrcnn_labels["bboxes"][bbox_max_id]).astype(int)
+    return bbox, bbox_max_id
+
+
+def _stack_frame(frame_annos, frame_estimations):
+    for key in ("alpha", "bbox", "dimensions", "location", "rotation_y",
+                "score"):
+        frame_annos[key] = np.asarray(frame_annos[key])
+        frame_estimations[key] = np.asarray(frame_estimations[key])
+
+
+def refine_css(cfgp, subset_frames=None, batched=False, device="cuda"):
+    """The KITTI autolabeling driver (refine_css.py:26): every frame of
+    ``[input] kitti_path`` with a car, one annotation after another; one
+    ``<frame>.pkl`` of [annotations, estimations] per frame in
+    ``[output] labels`` (a frame whose dump exists is skipped), then the
+    KITTI and nuScenes evaluation of this run's frames. Returns
+    (annotations, estimations), each an OrderedDict by frame index."""
+    if batched:
+        _refuse("refine_css(batched=True), the batched crops")
+    np.random.seed(1)
+    cfg = (cfgp if isinstance(cfgp, cfg_mod.RefineCfg)
+           else cfg_mod.RefineCfg.from_ini(cfgp))
+    if cfg.viz_type and cfg.viz_type != "none":
+        _refuse("visualization")
+    rt = setup_runtime(cfg, device=device)
+    kitti = kitti_mod.KITTI3D(path=cfg.kitti_path)
+    total_annotations, total_estimations = OrderedDict(), OrderedDict()
+    os.makedirs(cfg.labels_out, exist_ok=True)
+    if subset_frames is None:
+        subset_frames = range(len(kitti))
+
+    def dump_path(idx):
+        return os.path.join(cfg.labels_out, f"{idx}.pkl")
+
+    for frame_idx, sample in kitti_mod.prefetch_frames(
+            kitti, subset_frames,
+            skip_fn=lambda i: os.path.exists(dump_path(i))):
+        print("Frame", frame_idx)
+        if sample is None or os.path.exists(dump_path(frame_idx)):
+            print("file exists already!")
+            continue
+        if not [a for a in sample.get("gt", []) if a["name"] == "Car"]:
+            continue
+        maskrcnn_labels = None
+        if cfg.label_type != "gt":
+            mpath = os.path.join(cfg.maskrcnn_labels_path,
+                                 f"{frame_idx}.lbl")
+            if not os.path.exists(mpath):
+                print("Skip frame")
+                continue
+            maskrcnn_labels = torch.load(mpath, map_location="cpu",
+                                         weights_only=False)
+
+        frame_annos, frame_estimations = defaultdict(list), defaultdict(list)
+        for anno in kitti_mod.get_annos(cfg.diff_annos, sample):
+            for key, value in anno.items():
+                frame_annos[key].append(value)
+            bbox_max_id = None
+            if cfg.label_type != "gt":
+                bbox, bbox_max_id = _fuse_maskrcnn(anno, maskrcnn_labels)
+                if bbox is None:
+                    print("Skip frame!")
+                    continue
+                anno = dict(anno, bbox=bbox)
+            label = refine_annotation(rt, sample, anno, maskrcnn_labels,
+                                      bbox_max_id)
+            if label is None:  # no pose, or an empty band (QUIRKS #15)
+                continue
+            for key, value in label.items():
+                frame_estimations[key].append(value)
+        if not frame_annos:
+            continue
+        _stack_frame(frame_annos, frame_estimations)
+        with open(dump_path(frame_idx), "wb") as f:
+            pickle.dump([frame_annos, frame_estimations], f)
+        total_annotations[frame_idx] = frame_annos
+        total_estimations[frame_idx] = frame_estimations
+
+    if not total_annotations:
+        print("No frames processed (all outputs exist); skipping eval.")
+        return total_annotations, total_estimations
+    # the in-process evaluation backfills empty predictions (the reference
+    # does so only in evaluate_dump.py:37-44)
+    from sdflabel_tpu_torch.pipelines import evaluate_dump
+
+    evaluate_dump.evaluate_annotations(
+        total_annotations.values(), total_estimations.values(),
+        cfg.eval_filter, difficulties=(0,), device=rt.device)
+    return total_annotations, total_estimations
+
+
 def load_demo_sample(root: str = "data/optimization") -> dict:
     """The bundled demo frame, data/optimization/kitti_sample.npz."""
     data = np.load(os.path.join(root, "kitti_sample.npz"))
@@ -369,33 +485,47 @@ def load_demo_sample(root: str = "data/optimization") -> dict:
     return sample
 
 
+def load_demo_maskrcnn(root: str = "data/optimization") -> dict:
+    """The bundled demo MaskRCNN labels, data/optimization/maskrcnn.npz:
+    `bboxes` (N, 4) and one crop-shaped mask `mask_i` per instance."""
+    data = np.load(os.path.join(root, "maskrcnn.npz"))
+    bboxes = data["bboxes"]
+    return {"bboxes": bboxes,
+            "masks": [data[f"mask_{i}"] for i in range(len(bboxes))]}
+
+
 def refine_css_demo(cfgp, sample=None, device="cuda",
-                    rt: RefineRuntime | None = None):
+                    rt: RefineRuntime | None = None, maskrcnn=None):
     """Demo refinement of one stored frame (refine_css_demo.py:23): returns
     (frame annotations, frame estimations) as dicts of arrays. `rt` reuses
-    a runtime built by setup_runtime."""
+    a runtime built by setup_runtime. A label_type other than gt takes the
+    MaskRCNN box of largest IoU for each annotation (no 0.5 threshold,
+    unlike the driver), from `maskrcnn` or the bundled labels, and
+    label_type maskrcnn also masks the crop with its instance mask."""
+    np.random.seed(1)
     cfg = (cfgp if isinstance(cfgp, cfg_mod.RefineCfg)
            else cfg_mod.RefineCfg.from_ini(cfgp))
-    if cfg.label_type != "gt":
-        _refuse(f"label_type {cfg.label_type!r}")
     if cfg.viz_type and cfg.viz_type != "none":
         _refuse("visualization")
     if rt is None:
         rt = setup_runtime(cfg, device=device)
     if sample is None:
         sample = load_demo_sample()
+    if cfg.label_type != "gt" and maskrcnn is None:
+        maskrcnn = load_demo_maskrcnn()
 
     frame_annos, frame_estimations = defaultdict(list), defaultdict(list)
     for anno in kitti_mod.get_annos(cfg.diff_annos, sample):
         for key, value in anno.items():
             frame_annos[key].append(value)
-        label = refine_annotation(rt, sample, anno)
+        bbox_max_id = None
+        if cfg.label_type != "gt":
+            bbox, bbox_max_id = _fuse_maskrcnn(anno, maskrcnn, min_iou=0.0)
+            anno = dict(anno, bbox=bbox)
+        label = refine_annotation(rt, sample, anno, maskrcnn, bbox_max_id)
         if label is None:
             continue
         for key, value in label.items():
             frame_estimations[key].append(value)
-    for key in ("alpha", "bbox", "dimensions", "location", "rotation_y",
-                "score"):
-        frame_annos[key] = np.asarray(frame_annos[key])
-        frame_estimations[key] = np.asarray(frame_estimations[key])
+    _stack_frame(frame_annos, frame_estimations)
     return frame_annos, frame_estimations

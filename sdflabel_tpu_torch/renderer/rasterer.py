@@ -78,12 +78,14 @@ def render(K: torch.Tensor, resolution_px: tuple[int, int],
            camera_pose: torch.Tensor, point_mask: torch.Tensor | None = None,
            rot: str = "quat", primitives: str = "disc",
            output_nocs: bool = False, use_bg: bool = False,
-           bg: torch.Tensor | None = None
+           bg: torch.Tensor | None = None, bin_px: int | None = None
            ) -> tuple[Rendering, RenderedPoints]:
     """Render a point set (rasterer.py:49-155). Only the 'disc' primitive
     without a background is ported; other arguments raise. Renders of
     4096 pixels and more take the row-binned splat kernels
-    (ops/splat_cuda.py::bin_policy), smaller ones the dense ones."""
+    (ops/splat_cuda.py::bin_policy), smaller ones the dense ones; `bin_px`
+    is passed to surfel_composite (on the CPU, 512 takes the windowed
+    plain version, which a large canvas needs)."""
     if primitives != "disc":
         raise NotImplementedError(f"primitive {primitives!r} is not ported")
     if use_bg or bg is not None:
@@ -96,7 +98,8 @@ def render(K: torch.Tensor, resolution_px: tuple[int, int],
     v3d, nrm, clr = proj.points_3d, proj.normals_3d, proj.colors_3d
     n = v3d.shape[0]
     img = splat_cuda.surfel_composite(v3d, nrm, feats, kinv_grid,
-                                      point_mask=point_mask, diam=0.04)
+                                      point_mask=point_mask, diam=0.04,
+                                      bin_px=bin_px)
     img = img.T.reshape(8, res_y, res_x)
     rendering = Rendering(color=torch.clamp(img[0:3], max=1.0),
                           mask=torch.clamp(img[3:4], max=1.0),

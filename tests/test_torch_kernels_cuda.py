@@ -14,8 +14,8 @@ import torch
 
 from sdflabel_tpu_torch.engine import refine
 from sdflabel_tpu_torch.models import deepsdf
-from sdflabel_tpu_torch.ops import (ce_cuda, grid, knn, mlp_cuda, nn_cuda,
-                                    splat, splat_cuda)
+from sdflabel_tpu_torch.ops import (ce_cuda, grid, knn, mlp2_cuda, mlp_cuda,
+                                    nn_cuda, splat, splat_cuda)
 from sdflabel_tpu_torch.renderer import rasterer
 from sdflabel_tpu_torch.renderer.rasterer import calibration_matrix
 
@@ -227,3 +227,61 @@ def test_splat_on_a_decoded_surface_matches_plain(dev, px, counter):
         scale = b.abs().max().clamp(min=1e-6)
         close = ((a - b).abs().max(-1).values / scale) < 1e-3
         assert close.float().mean() >= 0.99
+
+
+@pytest.mark.parametrize("width,n", [(128, 1000), (512, 8192)])
+def test_stage2_matches_plain(dev, width, n):
+    # kernels 4a and 4b against the plain version: shares within the
+    # tolerances of tests/test_mlp2_pallas.py and medians
+    # (mlp2_cuda.stage2_agreement says why), the sdf's maximum as the
+    # selection kernel's
+    cfg = deepsdf.DeepSDFConfig(
+        latent_size=3, dims=(width,) * 8, norm_layers=tuple(range(8)),
+        latent_in=(4,), weight_norm=True)
+    gen = torch.Generator().manual_seed(1)
+    params = deepsdf.init_params(cfg, gen, device=dev)
+    packed = mlp_cuda.pack_select_mlp(cfg, deepsdf.cast_params(
+        params, torch.bfloat16))
+    pts = (torch.rand(n, 3, generator=gen) * 2 - 1).to(dev)
+    ct = torch.randn(n, generator=gen).to(dev)
+    lat = torch.tensor([0.3, -0.5, 0.8], device=dev)
+    cvec = mlp_cuda._cvec(packed, lat)
+    f0 = mlp2_cuda.STAGE2_FWD.launches
+    b0 = mlp2_cuda.STAGE2_BWD.launches
+    out = mlp2_cuda.stage2_fwd(packed, cvec, pts)
+    dcvec, dpts = mlp2_cuda.stage2_bwd(packed, cvec, pts, ct)
+    cv = cvec.clone().requires_grad_(True)
+    p = pts.clone().requires_grad_(True)
+    sdf = mlp2_cuda.stage2_plain(packed, cv, p)
+    (g,) = torch.autograd.grad(sdf.sum(), p, retain_graph=True)
+    dcv_p, dp_p = torch.autograd.grad(sdf, (cv, p), ct)
+    torch.cuda.synchronize()
+    assert mlp2_cuda.STAGE2_FWD.launches == f0 + 1
+    assert mlp2_cuda.STAGE2_BWD.launches == b0 + 1
+    shares, medians = mlp2_cuda.stage2_agreement(out[:, 0], sdf.detach(), (
+        ("normals", out[:, 1:], g), ("d_points", dpts, dp_p),
+        ("d_cvec", dcvec.reshape(-1, 1), dcv_p.reshape(-1, 1))))
+    assert (out[:, 0] - sdf).abs().max() < 1e-3 and shares["sdf"] >= 0.995
+    assert medians.pop("sdf") <= 1e-6 and max(medians.values()) <= 1e-4
+    assert min(shares.values()) >= 0.98, shares
+
+
+def test_stage2_autograd_reaches_latent_and_points(dev):
+    cfg = deepsdf.DeepSDFConfig(
+        latent_size=3, dims=(128,) * 6, norm_layers=tuple(range(6)),
+        latent_in=(3,), weight_norm=True, xyz_in_all=False)
+    params = deepsdf.init_params(cfg, torch.Generator().manual_seed(2),
+                                 device=dev)
+    fn = mlp2_cuda.stage2_fn(cfg, params)
+    pts = (torch.rand(700, 3, generator=torch.Generator().manual_seed(3))
+           * 2 - 1).to(dev).requires_grad_(True)
+    lat = torch.tensor([0.7, -0.2, 0.4], device=dev, requires_grad=True)
+    w = torch.randn(700, generator=torch.Generator().manual_seed(4)).to(dev)
+    sdf, g = fn(lat, pts)
+    assert not g.requires_grad
+    gl, gp = torch.autograd.grad((w * sdf).sum(), (lat, pts))
+    sdf_p, _ = mlp2_cuda.emulate_stage2(
+        mlp_cuda.pack_select_mlp(cfg, params), lat, pts)
+    gl_p, gp_p = torch.autograd.grad((w * sdf_p).sum(), (lat, pts))
+    for got, want in ((gl, gl_p), (gp, gp_p)):
+        assert ((got - want).abs().max() / want.abs().max()) < 5e-3

@@ -1,6 +1,6 @@
 """sdflabel_tpu_torch and chip_smoke.py import nothing of JAX, flax, optax,
-msgpack, PIL, cv2 or sdflabel_tpu: every module imports in a process where
-those are blocked."""
+msgpack, PIL, cv2, sdflabel_tpu or scripts/: every module imports in a
+process where those are blocked."""
 
 import os
 import subprocess
@@ -8,7 +8,8 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "cv2",
-           "sdflabel_tpu")
+           "sdflabel_tpu", "scripts", "make_quality_suite",
+           "run_quality_benchmark")
 
 _SCRIPT = f"""
 import importlib, pkgutil, sys
@@ -24,8 +25,22 @@ import chip_smoke
 loaded = [m for m in sys.modules
           if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None]
 assert not loaded, loaded
-print(len(names))
+print(" ".join(names))
 """
+# the modules of each slice, so that a module that stops being found fails
+EXPECTED = tuple("sdflabel_tpu_torch." + m for m in (
+    "ops.mlp2_cuda",
+    "ops.rotated_iou",
+    "eval.constants",
+    "eval.native",
+    "eval.detection3d",
+    "pipelines.evaluate_dump",
+    "tools.quality_suite",
+    "main",
+    "data.kitti",
+    "ops.splat_cuda",
+    "pipelines.train_css",
+))
 
 
 def test_port_imports_without_jax():
@@ -33,7 +48,8 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+    names = out.stdout.strip().splitlines()[-1].split()
+    assert len(names) >= 30 and set(EXPECTED) <= set(names), names
 
 
 def test_chip_smoke_refuses_without_a_card():
