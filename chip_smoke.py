@@ -5,11 +5,16 @@
 Seven phases; any failure exits non-zero and no phase's error is caught.
 
 1. Build the port's CUDA kernels from ``sdflabel_tpu_torch/csrc`` (one
-   nvcc per source, started together) and print the card's name and
-   power limit.
+   nvcc per source, started together), print the registers, spills and
+   shared memory of the wgmma kernels, and the card's name and power
+   limit.
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, and time kernel, plain version and (where one
-   exists) a PyTorch library call with CUDA events.
+   exists) a PyTorch library call with CUDA events. The selection kernel
+   and kernel 4a also give the design that ran, its cluster size, its
+   roofline share and its ratio to the bf16 matmul chain of the same run;
+   their wmma designs (wider layers) are checked against the same plain
+   versions and timed beside them.
 3. The demo driver: ``refine_css_demo`` on the bundled data/optimization
    assets with configs/config_demo.ini (viz off); the labels must land on
    the ground-truth annotation, the splat and NN kernels must have run,
@@ -48,8 +53,10 @@ record; the last line is ``{"ok": true, "device": {...}}``. Without a card
 the script exits 2 and prints no result. ``--profile DIR`` adds one more
 full-width crop and two train steps under torch.profiler: device time by
 kernel group, the device's busy share of the wall time, and
-DIR/profile.json and DIR/profile_train.json with every kernel; then the
-train step timed with cuDNN's autotuner on. ``--rehearse-cpu`` runs phases
+DIR/profile.json and DIR/profile_train.json with every kernel; the same
+crop once more with the selection kernel's wmma design, and phase 4c's
+crop with each of kernel 4a's designs, for comparison; then the train step
+timed with cuDNN's autotuner on. ``--rehearse-cpu`` runs phases
 3 to 7 on the CPU at a tiny size (2 iterations, 2 suite frames) with the
 kernels' plain versions, then exits 3 without a result: a dry run of the
 control flow for machines without a card.
@@ -62,6 +69,7 @@ import collections
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -146,6 +154,35 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def ptxas_report(logs: dict) -> list[str]:
+    """Registers, spills and stack of each wgmma kernel from nvcc's
+    -Xptxas=-v log, with the dynamic shared memory its launcher asks for
+    at the 8x512 decoder's width."""
+    smem = {"select": _cuda.query("select_mlp", "select_mlp_wgmma_smem",
+                                  512),
+            "stage2": _cuda.query("stage2_mlp", "stage2_fwd_wgmma_smem",
+                                  512, 7)}
+    lines, name = [], None
+    for log in logs.values():
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                m = re.search(r"(select|stage2_fwd)_wgmma_kernelILi(\d+)E",
+                              line)
+                name = m and f"{m.group(1)}_wgmma_kernel<{m.group(2)}>"
+            elif name and "spill" in line:
+                spill = line.strip()
+            elif name and "Used" in line:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                key = "select" if name.startswith("select") else "stage2"
+                extra = (f", {smem[key]} bytes of dynamic shared memory at "
+                         f"H = 512" if name.endswith("<512>") else "")
+                lines.append(f"ptxas: {name}: {regs} registers at launch "
+                             f"(setmaxnreg then gives the consumers 232), "
+                             f"{spill}{extra}")
+                name = None
+    return lines
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -330,12 +367,49 @@ def check_select(dev) -> dict:
             h = torch.relu(h @ packed.ws[j])
         return h
 
-    return dict(name="select_mlp", max_abs_err=float(err.max()),
-                ms=time_ms(lambda: mlp_cuda.select_mlp_apply(packed, lat,
-                                                             pts)),
-                plain_ms=time_ms(lambda: mlp_cuda.emulate_select_mlp(
-                    packed, lat, pts)),
-                bound_ms=b[0], bound_by=b[1], library_ms=time_ms(chain))
+    design = mlp_cuda.select_design(packed)
+    assert design == "wgmma"
+    cvec = mlp_cuda._cvec(packed, lat).contiguous()
+    out = torch.empty(n, device=dev)
+
+    def wmma():  # the first design (wider layers) at the same shapes
+        mlp_cuda.SELECT_MLP_WMMA(
+            _cuda.ptr(pts), _cuda.ptr(packed.ws), _cuda.ptr(packed.wx),
+            _cuda.ptr(cvec), _cuda.ptr(packed.wlast), _cuda.ptr(packed.scal),
+            n, H, nh, int(packed.use_tanh), _cuda.ptr(out), _cuda.stream(pts))
+
+    wmma()
+    torch.cuda.synchronize()
+    wmma_err = (out - out_p).abs()
+    print(f"select_mlp, wmma design: max_abs_err {float(wmma_err.max()):.3g} "
+          f"(need < 1e-3), median {float(wmma_err.median()):.3g} "
+          f"(need < 1e-5)")
+    assert float(wmma_err.max()) < 1e-3 and float(wmma_err.median()) < 1e-5
+    # the kernel's launch (as stage2_fwd below), the latent absorbed
+    row = dict(name="select_mlp", max_abs_err=float(err.max()),
+               ms=time_ms(lambda: mlp_cuda.select_fwd(packed, cvec, pts)),
+               plain_ms=time_ms(lambda: mlp_cuda.emulate_select_mlp(
+                   packed, lat, pts)),
+               bound_ms=b[0], bound_by=b[1], library_ms=time_ms(chain))
+    return design_report(row, design, time_ms(wmma), float(wmma_err.max()))
+
+
+def design_report(row: dict, design: str, wmma_ms: float,
+                  wmma_err: float) -> dict:
+    """Add to a wgmma kernel's phase-2 row: the design and cluster size
+    that ran, its roofline share and ratio to the chain, and the wmma
+    design's time and max_abs_err at the same shapes."""
+    row.update(design=design, cluster=mlp_cuda.CLUSTER,
+               roofline_share=row["bound_ms"] / row["ms"],
+               chain_ratio=row["ms"] / row["library_ms"],
+               wmma_ms=wmma_ms, wmma_max_abs_err=wmma_err)
+    print(f"{row['name']}: design {design}, cluster {row['cluster']}, "
+          f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}), roofline share "
+          f"{100 * row['roofline_share']:.1f}%, {row['chain_ratio']:.3f}x "
+          f"the bf16 matmul chain ({row['library_ms']:.4f} ms); the wmma "
+          f"design {wmma_ms:.4f} ms")
+    return row
 
 
 def check_stage2(dev) -> list[dict]:
@@ -422,12 +496,39 @@ def check_stage2(dev) -> list[dict]:
     def plain_bwd():
         return torch.autograd.grad(sdf, (cv, p), ct, retain_graph=True)
 
-    return [
+    design = mlp2_cuda.stage2_fwd_design(packed)
+    assert design == "wgmma"
+    out4 = torch.empty(n, 4, device=dev)
+
+    def wmma():  # the first design (wider layers, 4b's) at the same shapes
+        mlp2_cuda.STAGE2_FWD_WMMA(
+            _cuda.ptr(pts), _cuda.ptr(packed.ws), _cuda.ptr(packed.wx),
+            _cuda.ptr(cvec), _cuda.ptr(packed.wlast), _cuda.ptr(packed.scal),
+            n, H, nh, int(packed.use_tanh), _cuda.ptr(out4),
+            _cuda.stream(pts))
+
+    wmma()
+    torch.cuda.synchronize()
+    w_shares, w_medians = mlp2_cuda.stage2_agreement(
+        out4[:, 0], sdf.detach(), (("normals", out4[:, 1:], g),))
+    w_sdf_err = float((out4[:, 0] - sdf.detach()).abs().max())
+    print(f"stage2_fwd, wmma design: sdf max_abs_err {w_sdf_err:.3g} (need "
+          f"< 1e-3); shares {w_shares}, medians {w_medians}, the same "
+          f"limits")
+    assert w_sdf_err < 1e-3 and w_shares["sdf"] >= 0.995
+    assert w_medians["sdf"] <= 1e-6 and w_medians["normals"] <= 1e-4
+    assert w_shares["normals"] >= 0.98
+    fwd_row = design_report(
         dict(name="stage2_fwd", max_abs_err=fwd_err,
              ms=time_ms(lambda: mlp2_cuda.stage2_fwd(packed, cvec, pts)),
              plain_ms=time_ms(plain_fwd), bound_ms=fwd_b[0],
              bound_by=fwd_b[1], library_ms=time_ms(lambda: chain(1)),
              max_rel_err=rel, shares=shares, plain_fp64_shares=spread[0]),
+        design, time_ms(wmma),
+        max(w_sdf_err, float((out4[:, 1:] - g).abs().max())))
+    fwd_row["wmma_shares"] = w_shares
+    return [
+        fwd_row,
         dict(name="stage2_bwd", max_abs_err=bwd_err,
              ms=time_ms(lambda: mlp2_cuda.stage2_bwd(packed, cvec, pts, ct)),
              plain_ms=time_ms(plain_bwd), bound_ms=bwd_b[0],
@@ -722,6 +823,7 @@ def full_width_phase(dev, rt_demo, sample, prep, iters: int | None = None):
     if dev.type == "cuda":
         refreshes = -(-stock.iters // stock.warm_refresh)
         assert launched["select_mlp"] == refreshes
+        assert mlp_cuda.SELECT_MLP_WGMMA.launches == refreshes
         assert launched["splat_fwd"] == launched["splat_bwd"] == stock.iters
         assert launched["nn"] >= stock.iters
         # 32x32 crops stay on the dense kernels
@@ -768,11 +870,13 @@ def full_width_stage2_phase(dev, rt512, prep, sample, full: dict):
           f"{launched}")
     assert loss0_rel <= 5e-3
     if dev.type == "cuda":
-        # one 4a per iteration; one 4b per iteration's backward
+        # one 4a per iteration, all of the wgmma design; one 4b per
+        # iteration's backward
         assert launched["stage2_fwd"] == launched["stage2_bwd"] == iters
+        assert mlp2_cuda.STAGE2_FWD_WGMMA.launches == iters
         assert launched["splat_fwd"] == launched["splat_bwd"] == iters
-    return launched, dict(wall_s=wall, iters=iters, loss0=float(loss[0]),
-                          loss0_rel=loss0_rel, label_dist_m=dist)
+    return rt, launched, dict(wall_s=wall, iters=iters, loss0=float(loss[0]),
+                              loss0_rel=loss0_rel, label_dist_m=dist)
 
 
 def binned_refine_phase(dev, rt_demo, sample, anno, iters: int = 10):
@@ -1036,15 +1140,21 @@ def kitti_phase(dev, out_dir, n_frames: int = 24, iters: int = 60):
 # ------------------------------------------------------- --profile (option)
 
 def _kernel_group(name: str) -> str:
+    # the port's kernels first; a CUTLASS- or CuTe-built kernel of the
+    # port would be named here, and cuBLAS's name a gemm
     for key, group in (("splat_fwd_kernel", "splat_fwd"),
                        ("splat_bwd_kernel", "splat_bwd"),
                        ("nn_kernel", "nn"), ("select_mlp_kernel", "select_mlp"),
+                       ("select_wgmma_kernel", "select_mlp"),
+                       ("stage2_fwd_wgmma_kernel", "stage2_fwd"),
+                       ("stage2_kernel", "stage2"),
+                       ("dcvec_reduce_kernel", "dcvec_reduce"),
                        ("ce_fwd_kernel", "ce_fwd"), ("ce_bwd_kernel", "ce_bwd"),
                        ("fprop", "convolution"), ("dgrad", "convolution"),
                        ("wgrad", "convolution"), ("conv", "convolution"),
                        ("cudnn", "convolution"),
                        ("gemm", "matmul"), ("xmma", "matmul"),
-                       ("cutlass", "matmul"), ("nvjet", "matmul"),
+                       ("nvjet", "matmul"),
                        ("index", "indexing"), ("topk", "top-k"),
                        ("sort", "top-k"), ("radix", "top-k"),
                        ("reduce", "reductions"), ("Memcpy", "copies"),
@@ -1100,13 +1210,46 @@ def profile_phase(label: str, run, wall_unprofiled: float, units: int,
                   indent=1)
 
 
-def profile_all(out_dir: str, rt512, prep, state, fixed, summary) -> None:
+def profile_design(rt, prep, module, chooser: str | None, label: str,
+                   path: str) -> None:
+    """Profile one more crop of `rt`, with `module.chooser` (a wrapper's
+    design choice) forced to the wmma design when it is given."""
+    saved = module and getattr(module, chooser)
+    if module:
+        setattr(module, chooser, lambda packed: "wmma")
+    try:
+        rt.run_refine(prep)  # warm-up
+        t0 = time.perf_counter()
+        rt.run_refine(prep)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        profile_phase(label, lambda: rt.run_refine(prep), wall, rt.cfg.iters,
+                      "iteration", path)
+    finally:
+        if module:
+            setattr(module, chooser, saved)
+
+
+def profile_all(out_dir: str, rt512, rt_stage2, prep, state, fixed,
+                summary) -> None:
     """--profile: the full-width crop and two train steps on one fixed
-    batch under the profiler; then the same steps timed with cuDNN's
-    autotuner on (set for this measurement only; the port leaves it off)."""
+    batch under the profiler, and the crop again with the wmma selection
+    design and through phase 4c's stage-2 kernels with each 4a design; then
+    the same steps timed with cuDNN's autotuner on (set for this
+    measurement only; the port leaves it off)."""
     profile_phase("full-width crop", lambda: rt512.run_refine(prep),
                   summary["full_width_crop"]["wall_s"], rt512.cfg.iters,
                   "iteration", os.path.join(out_dir, "profile.json"))
+    # the same crop with the selection kernel's first (wmma) design, then
+    # phase 4c's crop with each of kernel 4a's designs
+    profile_design(rt512, prep, mlp_cuda, "select_design",
+                   "full-width crop, wmma select",
+                   os.path.join(out_dir, "profile_wmma_select.json"))
+    profile_design(rt_stage2, prep, None, None, "4c crop (wgmma 4a)",
+                   os.path.join(out_dir, "profile_4c.json"))
+    profile_design(rt_stage2, prep, mlp2_cuda, "stage2_fwd_design",
+                   "4c crop, wmma 4a",
+                   os.path.join(out_dir, "profile_4c_wmma.json"))
     step = css_train.make_train_step(fused_ce=True, direct_ce=True)
 
     def two_steps():
@@ -1147,8 +1290,8 @@ def run_paths(dev, out_dir: str, small: bool = False,
                                                   **tiny)
     seconds["4"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    stage2_launched, stage2 = full_width_stage2_phase(dev, rt512, prep,
-                                                      sample, full)
+    rt_stage2, stage2_launched, stage2 = full_width_stage2_phase(
+        dev, rt512, prep, sample, full)
     seconds["4c"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     binned_launched, binned = binned_refine_phase(
@@ -1177,7 +1320,8 @@ def run_paths(dev, out_dir: str, small: bool = False,
                "full_width_stage2": stage2, "binned_refine": binned,
                "crops": crops, "train": train, "kitti_driver": kitti,
                "phase_seconds": seconds}
-    handles = dict(rt512=rt512, prep=prep, state=state, fixed=fixed)
+    handles = dict(rt512=rt512, rt_stage2=rt_stage2, prep=prep, state=state,
+                   fixed=fixed)
     return handles, launched, summary
 
 
@@ -1210,6 +1354,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         print(f"--- nvcc {name}\n{log.strip()}")
+    for line in ptxas_report(logs):
+        print(line)
     card = gpu_line()
     print(f"card: {card}")
 

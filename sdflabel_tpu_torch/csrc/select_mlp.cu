@@ -10,17 +10,26 @@
 //
 // Bound on the H100: bf16 tensor-core operations, 2 * nh * H * H per point
 // (235 GFLOP for 64000 points through the 8x512 decoder); bytes are the
-// points, the 3.7 MB weight stack and the output. Design: the weight stack
-// does not fit in a block's 227 KB of shared memory, so each block keeps
-// one tile of R points on chip across all layers (bf16 activations plus an
-// fp32 accumulator tile) and streams each layer's weights from L2 into
-// nvcuda::wmma bf16 fragments with fp32 accumulation. The epilogue (bias,
-// latent, xyz, ReLU) runs from the accumulator tile; the last layer's
-// H -> 1 product is a warp reduction per point. No wgmma or TMA yet.
+// points, the 3.7 MB weight stack and the output. Two designs, chosen by
+// width:
+// - H in {128, 256, 384, 512} (the reference 8x512 decoder):
+//   select_wgmma_kernel, the Hopper design of mlp_wgmma.cuh -- wgmma with
+//   register accumulators on pre-packed weight slices that a cluster of
+//   CTAs shares through bulk-copy multicast, so each weight byte read from
+//   L2 feeds 64 * cluster points and the ring keeps slices in flight across
+//   layers.
+// - wider layers (multiples of 128 up to the packer's 2304): the first
+//   design, kept as it was: each block keeps one tile of R points on chip
+//   across all layers (bf16 activations plus an fp32 accumulator tile) and
+//   streams each layer's weights from L2 into nvcuda::wmma fragments; the
+//   epilogue runs from the accumulator tile; the last layer's H -> 1
+//   product is a warp reduction per point.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
+
+#include "mlp_wgmma.cuh"
 
 using namespace nvcuda;
 
@@ -144,6 +153,33 @@ int launch(const void* xyz, const void* ws, const void* wx, const void* cvec,
   return (int)cudaGetLastError();
 }
 
+constexpr int SELECT_STAGES = 4;
+
+template <int H>
+__global__ void __launch_bounds__(mlpw::THREADS, 1)
+select_wgmma_kernel(const float* __restrict__ xyz,
+                    const __nv_bfloat16* __restrict__ tiles,
+                    const float* __restrict__ wx,
+                    const float* __restrict__ cvec,
+                    const float* __restrict__ wlast,
+                    const float* __restrict__ scal, int n, int nh,
+                    int use_tanh, float* __restrict__ out) {
+  mlpw::mlp_body<H, SELECT_STAGES, false>(xyz, tiles, nullptr, wx, cvec,
+                                          wlast, scal, n, nh, use_tanh, out);
+}
+
+template <int H>
+int launch_wgmma(const void* xyz, const void* tiles, const void* wx,
+                 const void* cvec, const void* wlast, const void* scal,
+                 int n, int nh, int use_tanh, int cluster, void* out,
+                 cudaStream_t stream) {
+  return mlpw::launch_clustered(
+      select_wgmma_kernel<H>, mlpw::smem_bytes<H, SELECT_STAGES, false>(nh),
+      n, cluster, stream, (const float*)xyz, (const __nv_bfloat16*)tiles,
+      (const float*)wx, (const float*)cvec, (const float*)wlast,
+      (const float*)scal, n, nh, use_tanh, (float*)out);
+}
+
 }  // namespace
 
 extern "C" {
@@ -161,8 +197,9 @@ int select_mlp_tile(int H) {
   return 0;
 }
 
-// xyz (n, 3) f32; ws (nh, H, H) bf16 [in, out]; wx (nh+1, 4, H) f32;
-// cvec (nh+1, H) f32; wlast (H,) f32; scal (4,) f32 -> out (n,) f32.
+// The wmma design. xyz (n, 3) f32; ws (nh, H, H) bf16 [in, out]; wx
+// (nh+1, 4, H) f32; cvec (nh+1, H) f32; wlast (H,) f32; scal (4,) f32 ->
+// out (n,) f32.
 int select_mlp(const void* xyz, const void* ws, const void* wx,
                const void* cvec, const void* wlast, const void* scal, int n,
                int H, int nh, int use_tanh, void* out, void* stream) {
@@ -181,6 +218,45 @@ int select_mlp(const void* xyz, const void* ws, const void* wx,
                        out, s);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// 1 when width H takes the wgmma design (select_mlp_wgmma), else 0 (the
+// wmma design, select_mlp).
+int select_mlp_wgmma_fits(int H) {
+  return mlpw::width_ok(H) &&
+         mlpw::Smem(H, SELECT_STAGES, 0).total <= mlpw::SMEM_LIMIT;
+}
+
+// Dynamic shared memory of the wgmma design at width H, in bytes.
+int select_mlp_wgmma_smem(int H) {
+  return (int)mlpw::Smem(H, SELECT_STAGES, 0).total;
+}
+
+// The wgmma design. xyz (n, 3) f32; tiles (nh, H / 32, 32 * H) bf16, the
+// packed slices of ops/mlp_cuda.py tile_stack; wx, cvec, wlast, scal as
+// select_mlp; cluster CTAs (1..4) share each slice -> out (n,) f32.
+int select_mlp_wgmma(const void* xyz, const void* tiles, const void* wx,
+                     const void* cvec, const void* wlast, const void* scal,
+                     int n, int H, int nh, int use_tanh, int cluster,
+                     void* out, void* stream) {
+  if (n <= 0) return 0;
+  if (nh < 1 || !select_mlp_wgmma_fits(H))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (H) {
+    case 128:
+      return launch_wgmma<128>(xyz, tiles, wx, cvec, wlast, scal, n, nh,
+                               use_tanh, cluster, out, s);
+    case 256:
+      return launch_wgmma<256>(xyz, tiles, wx, cvec, wlast, scal, n, nh,
+                               use_tanh, cluster, out, s);
+    case 384:
+      return launch_wgmma<384>(xyz, tiles, wx, cvec, wlast, scal, n, nh,
+                               use_tanh, cluster, out, s);
+    default:
+      return launch_wgmma<512>(xyz, tiles, wx, cvec, wlast, scal, n, nh,
+                               use_tanh, cluster, out, s);
   }
 }
 

@@ -16,22 +16,33 @@
 // Bound on the H100: bf16 tensor-core operations, two chains of nh H x H
 // products per point (4 * K * nh * H^2 flops: 60 GFLOP for 8192 points
 // through the 8x512 decoder, 0.061 ms); bytes are the points, the 3.7 MB
-// weight stack and the outputs. Design: the TPU kernel keeps every layer's
-// activations in an (nh+1, 512, H) fp32 scratch (8 MB at 512 points); a
-// block here has 227 KB of shared memory. The reverse sweep needs only
-// each activation's ReLU sign, so a block of R points keeps one bit per
-// (layer, point, unit) -- 32 KB at R = 64, nh = 7, H = 512 -- plus the
-// current layer as an fp32 tile and its bf16 copy. The products stream
-// each layer's weights from L2 into nvcuda::wmma bf16 fragments with fp32
-// accumulation; the backward's dh = bf16(d_pre) @ ws_j^T reads the same
-// [in, out] stack as a column-major operand, with no transposed copy.
-// d_cvec: each block writes its (nh+1, H) column sums, and a second kernel
-// adds the blocks' partials in block order: no atomics, the same result
-// every run. No wgmma or TMA yet.
+// weight stack and the outputs.
+//
+// Kernel 4a at H in {128, 256, 384, 512}, when its sign bits fit:
+// stage2_fwd_wgmma_kernel, the Hopper design of mlp_wgmma.cuh (wgmma with
+// register accumulators on pre-packed slices that a cluster shares through
+// bulk-copy multicast; the reverse sweep streams a second, transposed
+// packed stack through the same ring; one ReLU sign bit per activation in
+// shared memory). At 8192 points a launch is 128 CTAs, one wave.
+//
+// Kernel 4b, and 4a at wider layers, keep the first design
+// (stage2_kernel): the TPU kernel keeps every layer's activations in an
+// (nh+1, 512, H) fp32 scratch (8 MB at 512 points); a block here has 227 KB
+// of shared memory. The reverse sweep needs only each activation's ReLU
+// sign, so a block of R points keeps one bit per (layer, point, unit) --
+// 32 KB at R = 64, nh = 7, H = 512 -- plus the current layer as an fp32
+// tile and its bf16 copy. The products stream each layer's weights from L2
+// into nvcuda::wmma bf16 fragments with fp32 accumulation; the backward's
+// dh = bf16(d_pre) @ ws_j^T reads the same [in, out] stack as a
+// column-major operand, with no transposed copy. d_cvec: each block writes
+// its (nh+1, H) column sums, and a second kernel adds the blocks' partials
+// in block order: no atomics, the same result every run.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
+
+#include "mlp_wgmma.cuh"
 
 #include <type_traits>
 
@@ -296,6 +307,35 @@ int dispatch(int R, const void* xyz, const void* ws, const void* wx,
   }
 }
 
+constexpr int STAGE2_STAGES = 3;
+
+template <int H>
+__global__ void __launch_bounds__(mlpw::THREADS, 1)
+stage2_fwd_wgmma_kernel(const float* __restrict__ xyz,
+                        const __nv_bfloat16* __restrict__ tiles,
+                        const __nv_bfloat16* __restrict__ tiles_t,
+                        const float* __restrict__ wx,
+                        const float* __restrict__ cvec,
+                        const float* __restrict__ wlast,
+                        const float* __restrict__ scal, int n, int nh,
+                        int use_tanh, float* __restrict__ out) {
+  mlpw::mlp_body<H, STAGE2_STAGES, true>(xyz, tiles, tiles_t, wx, cvec,
+                                         wlast, scal, n, nh, use_tanh, out);
+}
+
+template <int H>
+int launch_wgmma(const void* xyz, const void* tiles, const void* tiles_t,
+                 const void* wx, const void* cvec, const void* wlast,
+                 const void* scal, int n, int nh, int use_tanh, int cluster,
+                 void* out, cudaStream_t stream) {
+  return mlpw::launch_clustered(
+      stage2_fwd_wgmma_kernel<H>,
+      mlpw::smem_bytes<H, STAGE2_STAGES, true>(nh), n, cluster, stream,
+      (const float*)xyz, (const __nv_bfloat16*)tiles,
+      (const __nv_bfloat16*)tiles_t, (const float*)wx, (const float*)cvec,
+      (const float*)wlast, (const float*)scal, n, nh, use_tanh, (float*)out);
+}
+
 }  // namespace
 
 extern "C" {
@@ -312,8 +352,9 @@ int stage2_tile(int H, int nh) {
   return 0;
 }
 
-// Kernel 4a. xyz (n, 3) f32; ws (nh, H, H) bf16 [in, out]; wx (nh+1, 4, H)
-// f32; cvec (nh+1, H) f32; wlast (H,) f32; scal (4,) f32 -> out (n, 4) f32.
+// Kernel 4a, the wmma design. xyz (n, 3) f32; ws (nh, H, H) bf16 [in,
+// out]; wx (nh+1, 4, H) f32; cvec (nh+1, H) f32; wlast (H,) f32; scal (4,)
+// f32 -> out (n, 4) f32.
 int stage2_fwd(const void* xyz, const void* ws, const void* wx,
                const void* cvec, const void* wlast, const void* scal, int n,
                int H, int nh, int use_tanh, void* out, void* stream) {
@@ -342,6 +383,46 @@ int stage2_bwd(const void* xyz, const void* ws, const void* wx,
   dcvec_reduce_kernel<<<(size + THREADS - 1) / THREADS, THREADS, 0, s>>>(
       (const float*)partial, blocks, size, (float*)dcvec);
   return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of 4a's wgmma design at width H and nh hidden
+// products, in bytes.
+int stage2_fwd_wgmma_smem(int H, int nh) {
+  return (int)mlpw::Smem(H, STAGE2_STAGES, nh + 1).total;
+}
+
+// 1 when 4a at width H and nh hidden products takes the wgmma design
+// (stage2_fwd_wgmma), else 0 (stage2_fwd).
+int stage2_fwd_wgmma_fits(int H, int nh) {
+  return mlpw::width_ok(H) && nh >= 1 &&
+         (size_t)stage2_fwd_wgmma_smem(H, nh) <= mlpw::SMEM_LIMIT;
+}
+
+// Kernel 4a, the wgmma design. As stage2_fwd, with tiles and tiles_t (nh,
+// H / 32, 32 * H) bf16 in place of ws: the packed slices of ws_j and of
+// ws_j^T (ops/mlp_cuda.py tile_stack); cluster CTAs (1..4) share each
+// slice.
+int stage2_fwd_wgmma(const void* xyz, const void* tiles, const void* tiles_t,
+                     const void* wx, const void* cvec, const void* wlast,
+                     const void* scal, int n, int H, int nh, int use_tanh,
+                     int cluster, void* out, void* stream) {
+  if (n <= 0) return 0;
+  if (!stage2_fwd_wgmma_fits(H, nh)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (H) {
+    case 128:
+      return launch_wgmma<128>(xyz, tiles, tiles_t, wx, cvec, wlast, scal, n,
+                               nh, use_tanh, cluster, out, s);
+    case 256:
+      return launch_wgmma<256>(xyz, tiles, tiles_t, wx, cvec, wlast, scal, n,
+                               nh, use_tanh, cluster, out, s);
+    case 384:
+      return launch_wgmma<384>(xyz, tiles, tiles_t, wx, cvec, wlast, scal, n,
+                               nh, use_tanh, cluster, out, s);
+    default:
+      return launch_wgmma<512>(xyz, tiles, tiles_t, wx, cvec, wlast, scal, n,
+                               nh, use_tanh, cluster, out, s);
+  }
 }
 
 }  // extern "C"

@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. ``build_all`` compiles
 every source that has no up-to-date library with one ``nvcc`` process per
 source, all started together, into ``csrc/build/lib<name>-<hash>.so``; the
-hash covers the source text and the flags, so an edited source rebuilds.
+hash covers the source text, every local header it includes (``#include
+"..."``, followed transitively) and the flags, so an edited source or
+header rebuilds every library that uses it.
 Libraries load with ctypes; every pointer and the stream pass as
 ``c_void_p``. Each exported launcher returns ``cudaGetLastError()`` and
 :class:`CudaKernel` raises on anything but 0.
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,9 +48,29 @@ def _nvcc() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _source_files(path: str, seen: list[str]) -> list[str]:
+    """`path`, then each local header it includes that exists beside it,
+    depth first, each once."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    for inc in _LOCAL_INCLUDE.findall(text):
+        header = os.path.join(os.path.dirname(path), inc.decode())
+        if os.path.exists(header):
+            _source_files(os.path.normpath(header), seen)
+    return seen
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_COMMON_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_COMMON_FLAGS).encode())
+    for path in _source_files(os.path.join(CSRC, name + ".cu"), []):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -131,6 +154,23 @@ class CudaKernel:
             msg = _load(self.lib).sdl_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
         self.launches += 1
+
+
+class KernelGroup:
+    """One kernel's launch count over the designs that compute it: the sum
+    of theirs. Setting it (to 0) sets each design's count."""
+
+    def __init__(self, **designs: CudaKernel):
+        self.designs = designs
+
+    @property
+    def launches(self) -> int:
+        return sum(k.launches for k in self.designs.values())
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        for k in self.designs.values():
+            k.launches = value
 
 
 P = ctypes.c_void_p

@@ -8,6 +8,10 @@ and the loss backward in one launch of kernel 4b, which recomputes the
 forward (csrc/stage2_mlp.cu; its source note says what bounds it). It
 packs the decoder as the selection kernel does (``mlp_cuda.
 pack_select_mlp``) and returns None outside that packer's contract.
+Kernel 4a has two designs, chosen by shape (``stage2_fwd_design``): the
+wgmma design of csrc/mlp_wgmma.cuh for H <= 512 when its sign bits fit in
+shared memory, else the wmma design that 4b keeps; each counts its own
+launches and ``STAGE2_FWD`` counts both.
 
 Numerics: bf16 operands and fp32 accumulation in the hidden products, fp32
 activations between layers (the plain bf16 decoder path stores bf16, so
@@ -24,15 +28,20 @@ cotangent is ignored, as the engine detaches the normals.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from sdflabel_tpu_torch.models import deepsdf
 from sdflabel_tpu_torch.ops import _cuda
-from sdflabel_tpu_torch.ops.mlp_cuda import (PackedSelectMLP, _cvec,
-                                             pack_select_mlp)
+from sdflabel_tpu_torch.ops.mlp_cuda import (CLUSTER, KS, PackedSelectMLP,
+                                             _cvec, pack_select_mlp)
 
-STAGE2_FWD = _cuda.CudaKernel("stage2_mlp", "stage2_fwd", [_cuda.P] * 6 + [
-    _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.P, _cuda.P])
+STAGE2_FWD_WMMA = _cuda.CudaKernel("stage2_mlp", "stage2_fwd", [
+    _cuda.P] * 6 + [_cuda.I] * 4 + [_cuda.P, _cuda.P])
+STAGE2_FWD_WGMMA = _cuda.CudaKernel("stage2_mlp", "stage2_fwd_wgmma", [
+    _cuda.P] * 7 + [_cuda.I] * 5 + [_cuda.P, _cuda.P])
+STAGE2_FWD = _cuda.KernelGroup(wgmma=STAGE2_FWD_WGMMA, wmma=STAGE2_FWD_WMMA)
 STAGE2_BWD = _cuda.CudaKernel("stage2_mlp", "stage2_bwd", [_cuda.P] * 7 + [
     _cuda.I, _cuda.I, _cuda.I, _cuda.I] + [_cuda.P] * 4)
 
@@ -111,17 +120,41 @@ def _check(packed: PackedSelectMLP, cvec: torch.Tensor, xyz: torch.Tensor):
     _cuda.check("scal", packed.scal, torch.float32, (1, 4), dev)
 
 
+@functools.lru_cache(maxsize=None)
+def _wgmma_fits(H: int, nh: int) -> bool:
+    return bool(_cuda.query("stage2_mlp", "stage2_fwd_wgmma_fits", H, nh))
+
+
+def stage2_fwd_design(packed: PackedSelectMLP) -> str:
+    """Kernel 4a's design for `packed`'s shape: "wgmma" or "wmma". Asks
+    the library (built on first use)."""
+    if packed.ws_tiles is not None and _wgmma_fits(packed.width,
+                                                   packed.n_hidden):
+        return "wgmma"
+    return "wmma"
+
+
 def stage2_fwd(packed: PackedSelectMLP, cvec: torch.Tensor,
                xyz: torch.Tensor) -> torch.Tensor:
-    """Kernel 4a: (N, 3) points -> (N, 4) [sdf, raw normal]."""
+    """Kernel 4a: (N, 3) points -> (N, 4) [sdf, raw normal]; the wgmma
+    design shares each weight slice among CLUSTER CTAs."""
     _check(packed, cvec, xyz)
+    H, nh = packed.width, packed.n_hidden
     out = torch.empty(xyz.shape[0], 4, device=xyz.device,
                       dtype=torch.float32)
-    STAGE2_FWD(_cuda.ptr(xyz), _cuda.ptr(packed.ws), _cuda.ptr(packed.wx),
-               _cuda.ptr(cvec), _cuda.ptr(packed.wlast),
-               _cuda.ptr(packed.scal), xyz.shape[0], packed.width,
-               packed.n_hidden, int(packed.use_tanh), _cuda.ptr(out),
-               _cuda.stream(xyz))
+    args = (_cuda.ptr(packed.wx), _cuda.ptr(cvec), _cuda.ptr(packed.wlast),
+            _cuda.ptr(packed.scal), xyz.shape[0], H, nh,
+            int(packed.use_tanh))
+    if stage2_fwd_design(packed) == "wgmma":
+        for name in ("ws_tiles", "ws_tiles_t"):
+            _cuda.check(name, getattr(packed, name), torch.bfloat16,
+                        (nh, H // KS, KS * H), xyz.device)
+        STAGE2_FWD_WGMMA(_cuda.ptr(xyz), _cuda.ptr(packed.ws_tiles),
+                         _cuda.ptr(packed.ws_tiles_t), *args, CLUSTER,
+                         _cuda.ptr(out), _cuda.stream(xyz))
+    else:
+        STAGE2_FWD_WMMA(_cuda.ptr(xyz), _cuda.ptr(packed.ws), *args,
+                        _cuda.ptr(out), _cuda.stream(xyz))
     return out
 
 

@@ -4,7 +4,11 @@ Counterpart of sdflabel_tpu/ops/mlp_pallas.py. ``pack_select_mlp`` folds a
 DeepSDF decoder into the kernel's layout under the same rules as the JAX
 packer (None for LayerNorm nets, widths that are not multiples of 128,
 latent re-injection at the first or last layer, ...). The kernel lives in
-csrc/select_mlp.cu; its source note says what bounds it on the H100.
+csrc/select_mlp.cu; its source note says what bounds it on the H100. Two
+designs compute it, chosen by width: the wgmma design (csrc/mlp_wgmma.cuh)
+for H <= 512, which reads the stack as pre-packed slices (``tile_stack``),
+and the first, wmma design for wider layers. Each counts its own launches;
+``SELECT_MLP`` counts both.
 
 Selection only ranks |sdf|: every selected point is decoded again exactly
 in stage 2, so the kernel runs under ``torch.no_grad`` and has no VJP.
@@ -12,6 +16,7 @@ in stage 2, so the kernel runs under ``torch.no_grad`` and has no VJP.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -24,9 +29,19 @@ _MAX_WEIGHT_BYTES = 12 * 1024 * 1024  # the JAX packer's VMEM budget
 # Widest hidden layer whose 16-point activation tile (bf16 + fp32
 # accumulator) fits in a block's shared memory (select_mlp_tile).
 _MAX_WIDTH = 2304
+# Widest layer of the wgmma design: H / 2 columns per warpgroup, the widest
+# wgmma N (csrc/mlp_wgmma.cuh).
+WGMMA_MAX_WIDTH = 512
+KS = 32  # K rows of one packed slice: one 64-byte swizzle row of bf16
+# CTAs that share each weight slice: 2 was the fastest of 1, 2 and 4 on
+# the H100 for kernels 3 and 4a (scripts/mlp_wgmma_ablation.py, PERF.md)
+CLUSTER = 2
 
-SELECT_MLP = _cuda.CudaKernel("select_mlp", "select_mlp", [_cuda.P] * 6 + [
-    _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.P, _cuda.P])
+SELECT_MLP_WMMA = _cuda.CudaKernel("select_mlp", "select_mlp", [
+    _cuda.P] * 6 + [_cuda.I] * 4 + [_cuda.P, _cuda.P])
+SELECT_MLP_WGMMA = _cuda.CudaKernel("select_mlp", "select_mlp_wgmma", [
+    _cuda.P] * 6 + [_cuda.I] * 5 + [_cuda.P, _cuda.P])
+SELECT_MLP = _cuda.KernelGroup(wgmma=SELECT_MLP_WGMMA, wmma=SELECT_MLP_WMMA)
 
 
 class PackedSelectMLP(NamedTuple):
@@ -34,6 +49,9 @@ class PackedSelectMLP(NamedTuple):
 
     ws (nh, H, H) bf16 [in, out]; wx (nh+1, 4, H), wlat (nh+1, L, H),
     bias (nh+1, H), wlast (1, H), scal (1, 4) float32; zero-padded.
+    ws_tiles and ws_tiles_t (nh, H / KS, KS * H) bf16: ``tile_stack`` of
+    ws_j^T and of ws_j, the wgmma design's forward and reverse operands;
+    None above WGMMA_MAX_WIDTH. The plain versions read ws.
     """
 
     ws: torch.Tensor
@@ -45,6 +63,33 @@ class PackedSelectMLP(NamedTuple):
     width: int
     n_hidden: int
     use_tanh: bool
+    ws_tiles: torch.Tensor | None = None
+    ws_tiles_t: torch.Tensor | None = None
+
+
+def _chunk_source(n_rows: int, device) -> torch.Tensor:
+    """(N, KS/8): the 16-byte chunk of row n that image chunk c holds,
+    c ^ ((n >> 1) & 3): the 64-byte swizzle of a shared-memory address
+    (chunk bits 4-5 XOR bits 7-8)."""
+    n = torch.arange(n_rows, device=device)[:, None]
+    c = torch.arange(KS // 8, device=device)[None, :]
+    return c ^ ((n >> 1) & 3)
+
+
+def tile_stack(mats: torch.Tensor) -> torch.Tensor:
+    """(L, N, K) -> (L, K / KS, N * KS), the same dtype.
+
+    Row n of mats[l] holds the K inputs of output n (B^T of the product
+    A @ B). Slice s of the result is the shared-memory image that wgmma
+    reads as its K-major B operand with the 64-byte swizzle: rows n of
+    KS = 32 values (64 bytes) at n * 64 bytes, the 16-byte chunks of each
+    row permuted by ``_chunk_source``. One slice is one contiguous block,
+    so the kernel's ring takes it with a single bulk copy."""
+    L, N, K = mats.shape
+    x = mats.reshape(L, N, K // KS, KS // 8, 8).permute(0, 2, 1, 3, 4)
+    rows = torch.arange(N, device=mats.device)[:, None]
+    x = x[:, :, rows, _chunk_source(N, mats.device), :]
+    return x.reshape(L, K // KS, N * KS).contiguous()
 
 
 def pack_select_mlp(cfg: deepsdf.DeepSDFConfig,
@@ -120,10 +165,15 @@ def pack_select_mlp(cfg: deepsdf.DeepSDFConfig,
     def dev(a, dtype=torch.float32):
         return torch.as_tensor(a).to(device=device, dtype=dtype).contiguous()
 
+    ws_b = dev(ws, torch.bfloat16)
+    tiles = tiles_t = None
+    if H <= WGMMA_MAX_WIDTH:
+        tiles = tile_stack(ws_b.transpose(1, 2))
+        tiles_t = tile_stack(ws_b)
     return PackedSelectMLP(
-        ws=dev(ws, torch.bfloat16), wx=dev(wx), wlat=dev(wlat),
-        bias=dev(bias), wlast=dev(wlast), scal=dev(scal), width=H,
-        n_hidden=nh, use_tanh=bool(cfg.use_tanh))
+        ws=ws_b, wx=dev(wx), wlat=dev(wlat), bias=dev(bias),
+        wlast=dev(wlast), scal=dev(scal), width=H, n_hidden=nh,
+        use_tanh=bool(cfg.use_tanh), ws_tiles=tiles, ws_tiles_t=tiles_t)
 
 
 def _cvec(packed: PackedSelectMLP, latent: torch.Tensor) -> torch.Tensor:
@@ -164,16 +214,26 @@ def emulate_select_mlp(packed: PackedSelectMLP, latent: torch.Tensor,
     return s[:, 0]
 
 
-def select_mlp_apply(packed: PackedSelectMLP, latent: torch.Tensor,
-                     points: torch.Tensor) -> torch.Tensor:
-    """(N, 3) points -> (N,) float32 sdf ranks. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
-    if points.device.type == "cpu":
-        return emulate_select_mlp(packed, latent, points)
-    dev = points.device
+@functools.lru_cache(maxsize=None)
+def _wgmma_fits(H: int) -> bool:
+    return bool(_cuda.query("select_mlp", "select_mlp_wgmma_fits", H))
+
+
+def select_design(packed: PackedSelectMLP) -> str:
+    """The kernel design that computes `packed`'s width: "wgmma" or
+    "wmma". Asks the library (built on first use)."""
+    if packed.ws_tiles is not None and _wgmma_fits(packed.width):
+        return "wgmma"
+    return "wmma"
+
+
+def select_fwd(packed: PackedSelectMLP, cvec: torch.Tensor,
+               xyz: torch.Tensor) -> torch.Tensor:
+    """Kernel 3 on CUDA tensors: (N, 3) float32 points and the absorbed
+    (nh+1, H) cvec -> (N,) float32, through ``select_design``'s kernel; the
+    wgmma design shares each weight slice among CLUSTER CTAs."""
+    dev = xyz.device
     H, nh = packed.width, packed.n_hidden
-    xyz = points.float().contiguous()
-    cvec = _cvec(packed, latent).contiguous()
     wlast = packed.wlast.reshape(-1)
     scal = packed.scal.reshape(-1)
     n = xyz.shape[0]
@@ -184,10 +244,27 @@ def select_mlp_apply(packed: PackedSelectMLP, latent: torch.Tensor,
     _cuda.check("wlast", wlast, torch.float32, (H,), dev)
     _cuda.check("scal", scal, torch.float32, (4,), dev)
     out = torch.empty(n, device=dev, dtype=torch.float32)
-    SELECT_MLP(_cuda.ptr(xyz), _cuda.ptr(packed.ws), _cuda.ptr(packed.wx),
-               _cuda.ptr(cvec), _cuda.ptr(wlast), _cuda.ptr(scal), n, H, nh,
-               int(packed.use_tanh), _cuda.ptr(out), _cuda.stream(xyz))
+    args = (_cuda.ptr(packed.wx), _cuda.ptr(cvec), _cuda.ptr(wlast),
+            _cuda.ptr(scal), n, H, nh, int(packed.use_tanh))
+    if select_design(packed) == "wgmma":
+        _cuda.check("ws_tiles", packed.ws_tiles, torch.bfloat16,
+                    (nh, H // KS, KS * H), dev)
+        SELECT_MLP_WGMMA(_cuda.ptr(xyz), _cuda.ptr(packed.ws_tiles), *args,
+                         CLUSTER, _cuda.ptr(out), _cuda.stream(xyz))
+    else:
+        SELECT_MLP_WMMA(_cuda.ptr(xyz), _cuda.ptr(packed.ws), *args,
+                        _cuda.ptr(out), _cuda.stream(xyz))
     return out
+
+
+def select_mlp_apply(packed: PackedSelectMLP, latent: torch.Tensor,
+                     points: torch.Tensor) -> torch.Tensor:
+    """(N, 3) points -> (N,) float32 sdf ranks. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (``select_fwd``)."""
+    if points.device.type == "cpu":
+        return emulate_select_mlp(packed, latent, points)
+    return select_fwd(packed, _cvec(packed, latent).contiguous(),
+                      points.float().contiguous())
 
 
 def select_fn(cfg: deepsdf.DeepSDFConfig, params: dict):

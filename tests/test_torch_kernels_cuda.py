@@ -14,8 +14,8 @@ import torch
 
 from sdflabel_tpu_torch.engine import refine
 from sdflabel_tpu_torch.models import deepsdf
-from sdflabel_tpu_torch.ops import (ce_cuda, grid, knn, mlp2_cuda, mlp_cuda,
-                                    nn_cuda, splat, splat_cuda)
+from sdflabel_tpu_torch.ops import (_cuda, ce_cuda, grid, knn, mlp2_cuda,
+                                    mlp_cuda, nn_cuda, splat, splat_cuda)
 from sdflabel_tpu_torch.renderer import rasterer
 from sdflabel_tpu_torch.renderer.rasterer import calibration_matrix
 
@@ -102,14 +102,127 @@ def test_select_mlp_matches_plain(dev, width, n):
         params, torch.bfloat16))
     pts = (torch.rand(n, 3, generator=gen) * 2 - 1).to(dev)
     lat = torch.tensor([0.3, -0.5, 0.8], device=dev)
+    w0 = mlp_cuda.SELECT_MLP_WGMMA.launches
     out_k = mlp_cuda.select_mlp_apply(packed, lat, pts)
     out_p = mlp_cuda.emulate_select_mlp(packed, lat, pts)
     torch.cuda.synchronize()
+    assert mlp_cuda.SELECT_MLP_WGMMA.launches == w0 + 1
     # same bf16 operands, fp32 accumulation in another order; a last-ulp
     # difference can flip one activation's bf16 rounding (2^-8 relative)
     err = (out_k - out_p).abs()
     assert err.max() < 1e-3 and err.median() < 1e-5, (err.max(),
                                                        err.median())
+
+
+def _packed(dev, width, layers=8, seed=0):
+    cfg = deepsdf.DeepSDFConfig(
+        latent_size=3, dims=(width,) * layers,
+        norm_layers=tuple(range(layers)), latent_in=(layers // 2,),
+        weight_norm=True)
+    params = deepsdf.init_params(cfg, torch.Generator().manual_seed(seed),
+                                 device=dev)
+    return mlp_cuda.pack_select_mlp(cfg, deepsdf.cast_params(
+        params, torch.bfloat16))
+
+
+def _inputs(dev, packed, n):
+    gen = torch.Generator().manual_seed(n)
+    pts = (torch.rand(n, 3, generator=gen) * 2 - 1).to(dev)
+    lat = torch.tensor([0.3, -0.5, 0.8], device=dev)
+    return pts, lat, mlp_cuda._cvec(packed, lat).contiguous()
+
+
+def _wrappers(packed, cvec, pts):
+    return (mlp_cuda.select_fwd(packed, cvec, pts),
+            mlp2_cuda.stage2_fwd(packed, cvec, pts))
+
+
+def _wgmma_entry_points(cluster):
+    """Kernels 3 and 4a launched through their wgmma C entry points with
+    `cluster` CTAs to a cluster (the wrappers take mlp_cuda.CLUSTER)."""
+    def launch(packed, cvec, pts):
+        n, dev = pts.shape[0], pts.device
+        sel = torch.empty(n, device=dev)
+        fwd = torch.empty(n, 4, device=dev)
+        args = (_cuda.ptr(packed.wx), _cuda.ptr(cvec),
+                _cuda.ptr(packed.wlast), _cuda.ptr(packed.scal), n,
+                packed.width, packed.n_hidden, int(packed.use_tanh), cluster)
+        mlp_cuda.SELECT_MLP_WGMMA(_cuda.ptr(pts), _cuda.ptr(packed.ws_tiles),
+                                  *args, _cuda.ptr(sel), _cuda.stream(pts))
+        mlp2_cuda.STAGE2_FWD_WGMMA(
+            _cuda.ptr(pts), _cuda.ptr(packed.ws_tiles),
+            _cuda.ptr(packed.ws_tiles_t), *args, _cuda.ptr(fwd),
+            _cuda.stream(pts))
+        return sel, fwd
+    return launch
+
+
+def _check_designs(dev, packed, n, design, launch=_wrappers):
+    """Kernel 3 and kernel 4a on n seeded points against their plain
+    versions, each through `design` by `launch`, and that design's counter
+    moves by one."""
+    pts, lat, cvec = _inputs(dev, packed, n)
+    sel = mlp_cuda.SELECT_MLP.designs[design]
+    fwd = mlp2_cuda.STAGE2_FWD.designs[design]
+    s0, f0 = sel.launches, fwd.launches
+    assert mlp_cuda.select_design(packed) == design
+    assert mlp2_cuda.stage2_fwd_design(packed) == design
+    out_k, out = launch(packed, cvec, pts)
+    out_p = mlp_cuda.emulate_select_mlp(packed, lat, pts)
+    p = pts.clone().requires_grad_(True)
+    sdf = mlp2_cuda.stage2_plain(packed, cvec, p)
+    (g,) = torch.autograd.grad(sdf.sum(), p)
+    torch.cuda.synchronize()
+    assert (sel.launches, fwd.launches) == (s0 + 1, f0 + 1)
+    # kernel 3: the tolerance of test_select_mlp_matches_plain
+    err = (out_k - out_p).abs()
+    assert err.max() < 1e-3 and err.median() < 1e-5, (err.max(),
+                                                       err.median())
+    # kernel 4a: mlp2_cuda.stage2_agreement's shares and medians
+    shares, medians = mlp2_cuda.stage2_agreement(
+        out[:, 0], sdf.detach(), (("normals", out[:, 1:], g),))
+    assert (out[:, 0] - sdf).abs().max() < 1e-3 and shares["sdf"] >= 0.995
+    assert medians["sdf"] <= 1e-6 and medians["normals"] <= 1e-4
+    assert shares["normals"] >= 0.98, shares
+
+
+@pytest.mark.parametrize("width", [128, 256, 384, 512])
+def test_wgmma_designs_match_plain(dev, width):
+    # 1000 points: 16 CTAs, the last one ragged
+    _check_designs(dev, _packed(dev, width), 1000, "wgmma")
+
+
+@pytest.mark.parametrize("width", [128, 256, 384, 512])
+@pytest.mark.parametrize("n", [1, 200, 1000])
+def test_wgmma_designs_ragged_n(dev, width, n):
+    # n = 1, fewer points than one cluster of CTAs, not a multiple of 64:
+    # a point's row does not depend on the others, so each output equals
+    # the same point's in a launch over more points, bit for bit
+    packed = _packed(dev, width)
+    pts, lat, cvec = _inputs(dev, packed, 1100)
+    sel = mlp_cuda.select_mlp_apply(packed, lat, pts)
+    fwd = mlp2_cuda.stage2_fwd(packed, cvec, pts)
+    head = pts[:n].contiguous()
+    sel_n = mlp_cuda.select_mlp_apply(packed, lat, head)
+    fwd_n = mlp2_cuda.stage2_fwd(packed, cvec, head)
+    torch.cuda.synchronize()
+    assert sel_n.shape == (n,) and fwd_n.shape == (n, 4)
+    assert torch.equal(sel_n, sel[:n]) and torch.equal(fwd_n, fwd[:n])
+    assert torch.isfinite(sel).all() and torch.isfinite(fwd).all()
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_wgmma_designs_any_cluster(dev, cluster):
+    # the ring's barrier protocol at every cluster size the kernels take
+    _check_designs(dev, _packed(dev, 512), 700, "wgmma",
+                   _wgmma_entry_points(cluster))
+
+
+def test_wide_layers_take_the_wmma_designs(dev):
+    # H = 1024 is above the wgmma design's width: the kept wmma kernels
+    packed = _packed(dev, 1024, layers=3)
+    assert packed.n_hidden == 2 and packed.ws_tiles is None
+    _check_designs(dev, packed, 1500, "wmma")
 
 
 @pytest.mark.parametrize("res,n", [((64, 64), 3000), ((200, 100), 2000),
@@ -246,8 +359,9 @@ def test_stage2_matches_plain(dev, width, n):
     ct = torch.randn(n, generator=gen).to(dev)
     lat = torch.tensor([0.3, -0.5, 0.8], device=dev)
     cvec = mlp_cuda._cvec(packed, lat)
-    f0 = mlp2_cuda.STAGE2_FWD.launches
+    f0 = mlp2_cuda.STAGE2_FWD_WGMMA.launches
     b0 = mlp2_cuda.STAGE2_BWD.launches
+    assert mlp2_cuda.stage2_fwd_design(packed) == "wgmma"
     out = mlp2_cuda.stage2_fwd(packed, cvec, pts)
     dcvec, dpts = mlp2_cuda.stage2_bwd(packed, cvec, pts, ct)
     cv = cvec.clone().requires_grad_(True)
@@ -256,7 +370,7 @@ def test_stage2_matches_plain(dev, width, n):
     (g,) = torch.autograd.grad(sdf.sum(), p, retain_graph=True)
     dcv_p, dp_p = torch.autograd.grad(sdf, (cv, p), ct)
     torch.cuda.synchronize()
-    assert mlp2_cuda.STAGE2_FWD.launches == f0 + 1
+    assert mlp2_cuda.STAGE2_FWD_WGMMA.launches == f0 + 1
     assert mlp2_cuda.STAGE2_BWD.launches == b0 + 1
     shares, medians = mlp2_cuda.stage2_agreement(out[:, 0], sdf.detach(), (
         ("normals", out[:, 1:], g), ("d_points", dpts, dp_p),
