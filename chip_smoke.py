@@ -6,15 +6,18 @@ Seven phases; any failure exits non-zero and no phase's error is caught.
 
 1. Build the port's CUDA kernels from ``sdflabel_tpu_torch/csrc`` (one
    nvcc per source, started together), print the registers, spills and
-   shared memory of the wgmma kernels, and the card's name and power
-   limit.
+   shared memory of the wgmma kernels and the split splat forward, and
+   the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, and time kernel, plain version and (where one
    exists) a PyTorch library call with CUDA events. The selection kernel
-   and kernel 4a also give the design that ran, its cluster size, its
-   roofline share and its ratio to the bf16 matmul chain of the same run;
-   their wmma designs (wider layers) are checked against the same plain
-   versions and timed beside them.
+   and kernels 4a and 4b also give the design that ran, its cluster size,
+   its roofline share and its ratio to the bf16 matmul chain of the same
+   run; their wmma designs (wider layers) are checked against the same
+   plain versions and timed beside them. The dense splat forward's split
+   design is held against its first design (one thread per pixel, the
+   binned forward's kernel), which is checked and timed beside it, and
+   two of its launches must be bit-equal.
 3. The demo driver: ``refine_css_demo`` on the bundled data/optimization
    assets with configs/config_demo.ini (viz off); the labels must land on
    the ground-truth annotation, the splat and NN kernels must have run,
@@ -52,11 +55,11 @@ the binned forward in 5 and the CE kernels in 6. The line before the last is a J
 record; the last line is ``{"ok": true, "device": {...}}``. Without a card
 the script exits 2 and prints no result. ``--profile DIR`` adds one more
 full-width crop and two train steps under torch.profiler: device time by
-kernel group, the device's busy share of the wall time, and
+kernel group, the device busy time and its share of the wall time, and
 DIR/profile.json and DIR/profile_train.json with every kernel; the same
-crop once more with the selection kernel's wmma design, and phase 4c's
-crop with each of kernel 4a's designs, for comparison; then the train step
-timed with cuDNN's autotuner on. ``--rehearse-cpu`` runs phases
+crop once more with the first dense splat forward, and phase 4c's crop
+with the new designs and with the first splat forward and the wmma 4b,
+for comparison; then the train step timed with cuDNN's autotuner on. ``--rehearse-cpu`` runs phases
 3 to 7 on the CPU at a tiny size (2 iterations, 2 suite frames) with the
 kernels' plain versions, then exits 3 without a result: a dry run of the
 control flow for machines without a card.
@@ -67,6 +70,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -103,6 +107,9 @@ from sdflabel_tpu_torch.utils import png  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12  # outside the tensor cores
 BF16_TENSOR_FLOPS = 989e12
+# sqrt, reciprocal / divide and exp each take one special-function (MUFU)
+# op: 16 per clock per SM, 132 SMs at the 1.98 GHz behind the fp32 peak
+SFU_OPS = 132 * 16 * 1.98e9
 
 KERNELS = {  # wrapper counter, source, the TPU kernel it replaces
     "splat_fwd": (splat_cuda.SPLAT_FWD, "sdflabel_tpu_torch/csrc/splat.cu",
@@ -162,25 +169,30 @@ def ptxas_report(logs: dict) -> list[str]:
     at the 8x512 decoder's width."""
     smem = {"select": _cuda.query("select_mlp", "select_mlp_wgmma_smem",
                                   512),
-            "stage2": _cuda.query("stage2_mlp", "stage2_fwd_wgmma_smem",
-                                  512, 7)}
+            "stage2_fwd": _cuda.query("stage2_mlp", "stage2_fwd_wgmma_smem",
+                                      512, 7),
+            "stage2_bwd": _cuda.query("stage2_mlp", "stage2_bwd_wgmma_smem",
+                                      512, 7)}
     lines, name = [], None
     for log in logs.values():
         for line in log.splitlines():
             if "Compiling entry function" in line:
-                m = re.search(r"(select|stage2_fwd)_wgmma_kernelILi(\d+)E",
-                              line)
+                m = re.search(r"(select|stage2_fwd|stage2_bwd)_wgmma_kernel"
+                              r"ILi(\d+)E", line)
                 name = m and f"{m.group(1)}_wgmma_kernel<{m.group(2)}>"
+                key = m and m.group(1)
+                if "splat_fwd_split_kernel" in line:
+                    name, key = "splat_fwd_split_kernel", None
             elif name and "spill" in line:
                 spill = line.strip()
             elif name and "Used" in line:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
-                key = "select" if name.startswith("select") else "stage2"
                 extra = (f", {smem[key]} bytes of dynamic shared memory at "
                          f"H = 512" if name.endswith("<512>") else "")
-                lines.append(f"ptxas: {name}: {regs} registers at launch "
-                             f"(setmaxnreg then gives the consumers 232), "
-                             f"{spill}{extra}")
+                note = (" (setmaxnreg then gives the consumers 232)" if key
+                        else "")
+                lines.append(f"ptxas: {name}: {regs} registers at launch"
+                             f"{note}, {spill}{extra}")
                 name = None
     return lines
 
@@ -203,10 +215,17 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: float, flops: float, peak_flops: float):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def bound(bytes_moved: float, flops: float, peak_flops: float,
+          sfu_ops: float = 0.0):
+    """(ms, "bytes" or "operations", what bounds it: "bytes", "flops" or
+    "special-function ops"): the larger of the bytes over the memory rate,
+    the flops over `peak_flops` and the special-function ops over their
+    rate."""
+    times = {"bytes": bytes_moved / HBM_BYTES_PER_S * 1e3,
+             "flops": flops / peak_flops * 1e3,
+             "special-function ops": sfu_ops / SFU_OPS * 1e3}
+    what = max(times, key=times.get)
+    return times[what], "bytes" if what == "bytes" else "operations", what
 
 
 def decoder_8x512(device):
@@ -273,27 +292,44 @@ def check_splat(dev) -> list[dict]:
     fwd_err, bwd_err = splat_agreement("splat", img_k, img_p, grads_k,
                                        grads_p)
 
-    # work this data needs: ray-plane geometry for every (point, pixel)
-    # pair (~18 flops), plus per footprint pair the z-norm and softmax /
-    # feature composite (~27) forward, the chain rule (~51) backward
     with torch.no_grad():
         fp_pairs = float((splat.surfel_prob(kg, pts, nrm, mask, 0.04) > 0)
                          .sum())
     io_bytes = 4 * (n * 16 + p * 4 + p * 11)
-    fwd_bound = bound(io_bytes, 18 * n * p + 27 * fp_pairs, FP32_FLOPS)
-    bwd_bound = bound(io_bytes + 4 * (p * 12 + n * 14),
-                      18 * n * p + 51 * fp_pairs, FP32_FLOPS)
+    fwd_bound, bwd_bound = splat_bounds(n * p, fp_pairs, io_bytes,
+                                        io_bytes + 4 * (p * 12 + n * 14))
 
     # the kernels' own packed inputs, as the autograd Function builds them
     pk = torch.cat([pts, nrm, mask.float()[:, None],
                     torch.zeros(n, 1, device=dev)], 1).contiguous()
     kg4 = splat_cuda._pack_rays(kg)
     img, m, d, zn = splat_cuda._fwd(pk, feats, kg4, 0.04, 150.0)
+    # the first design (one thread per pixel over all points; the binned
+    # forward's kernel) at the same inputs: the dense tolerance against
+    # the plain version, within 2e-5 of the split design, and two launches
+    # of the split design bit-equal
+    first = splat_cuda._fwd(pk, feats, kg4, 0.04, 150.0,
+                            splat_cuda.SPLAT_FWD_FIRST)
+    again = splat_cuda._fwd(pk, feats, kg4, 0.04, 150.0)
+    torch.cuda.synchronize()
+    first_err = (first[0] - img_p.detach()).abs().max(-1).values
+    first_ok = float((first_err < 2e-4).float().mean())
+    split_vs_first = float((img - first[0]).abs().max())
+    same = all(torch.equal(a, b) for a, b in zip((img, m, d, zn), again))
+    slices = splat_cuda.split_slices(n, p)
+    print(f"splat fwd, split design: {-(-p // 64)} tiles x {slices} slices; "
+          f"max |split - first design| {split_vs_first:.3g} (need <= 2e-5), "
+          f"two launches bit-equal: {same}; first design max_abs_err "
+          f"{float(first_err.max()):.3g}, pixels within 2e-4: {first_ok:.4f} "
+          f"(need >= 0.995)")
+    assert split_vs_first <= 2e-5 and same and first_ok >= 0.995
     corr = (g * img).sum(-1, keepdim=True)
     pix = torch.cat([kg4, m[:, None], d[:, None], zn[:, None], corr, g],
                     1).contiguous()
     fwd_ms = time_ms(lambda: splat_cuda._fwd(pk, feats, kg4, 0.04,
                                              150.0))
+    first_ms = time_ms(lambda: splat_cuda._fwd(
+        pk, feats, kg4, 0.04, 150.0, splat_cuda.SPLAT_FWD_FIRST))
     bwd_ms = time_ms(lambda: splat_cuda._bwd(pk, feats, pix, 0.04,
                                              150.0))
     with torch.no_grad():
@@ -301,14 +337,35 @@ def check_splat(dev) -> list[dict]:
             pts, nrm, feats, kg, mask))
     bwd_plain = time_ms(lambda: torch.autograd.grad(
         img_p, args_p, g, retain_graph=True))
+    print(f"splat fwd: split design {fwd_ms:.4f} ms, first design "
+          f"{first_ms:.4f} ms ({first_ms / fwd_ms:.1f}x), bound "
+          f"{fwd_bound[0]:.5f} ms ({fwd_bound[2]})")
     return [
         dict(name="splat_fwd", max_abs_err=fwd_err, ms=fwd_ms,
              plain_ms=fwd_plain, bound_ms=fwd_bound[0],
-             bound_by=fwd_bound[1], library_ms=None),
+             bound_by=fwd_bound[1], bound_what=fwd_bound[2],
+             library_ms=None, design="split", slices=slices,
+             first_ms=first_ms, first_max_abs_err=float(first_err.max()),
+             max_abs_vs_first=split_vs_first),
         dict(name="splat_bwd", max_abs_err=bwd_err, ms=bwd_ms,
              plain_ms=bwd_plain, bound_ms=bwd_bound[0],
-             bound_by=bwd_bound[1], library_ms=None),
+             bound_by=bwd_bound[1], bound_what=bwd_bound[2],
+             library_ms=None),
     ]
+
+
+def splat_bounds(pairs: float, fp_pairs: float, fwd_bytes: float,
+                 bwd_bytes: float):
+    """Bounds of a splat forward and backward that meet `pairs` (point,
+    pixel) pairs, `fp_pairs` of them in a footprint. Work this data needs:
+    every pair's ray-plane geometry, ~18 flops and 2 special-function ops
+    (the division z = n.v / n.g and the distance's sqrt); per footprint
+    pair the z-norm and softmax / feature composite forward (~27 flops and
+    an exp), the chain rule backward (~51 flops, an exp and a division)."""
+    return (bound(fwd_bytes, 18 * pairs + 27 * fp_pairs, FP32_FLOPS,
+                  2 * pairs + fp_pairs),
+            bound(bwd_bytes, 18 * pairs + 51 * fp_pairs, FP32_FLOPS,
+                  2 * pairs + 2 * fp_pairs))
 
 
 def check_nn(dev) -> dict:
@@ -476,18 +533,20 @@ def check_stage2(dev) -> list[dict]:
     fwd_b = bound(n * 12 + nh * H * H * 2 + n * 16, flops, BF16_TENSOR_FLOPS)
     bwd_b = bound(n * 16 + nh * H * H * 2 + n * 12 + (nh + 1) * H * 4, flops,
                   BF16_TENSOR_FLOPS)
-    # yardstick: the same products as bf16 torch.matmul chains, nh forward
-    # and nh transposed for 4a, twice that for 4b
+    # yardstick: the same products as a bf16 torch.matmul chain, nh
+    # forward and nh transposed, for 4a and for 4b alike: 4b recomputes the
+    # forward and sweeps back once, and its normals take no cotangent, so
+    # its work is 4a's (mlp2_pallas.py:189 and :229 give both the same
+    # flops)
     h0 = torch.relu(torch.randn(n, H, device=dev)).to(torch.bfloat16)
     wt = [packed.ws[j].t() for j in range(nh)]
 
-    def chain(times):
+    def chain():
         h = h0
-        for _ in range(times):
-            for j in range(nh):
-                h = torch.relu(h @ packed.ws[j])
-            for j in reversed(range(nh)):
-                h = h @ wt[j]
+        for j in range(nh):
+            h = torch.relu(h @ packed.ws[j])
+        for j in reversed(range(nh)):
+            h = h @ wt[j]
         return h
 
     def plain_fwd():
@@ -518,22 +577,41 @@ def check_stage2(dev) -> list[dict]:
     assert w_sdf_err < 1e-3 and w_shares["sdf"] >= 0.995
     assert w_medians["sdf"] <= 1e-6 and w_medians["normals"] <= 1e-4
     assert w_shares["normals"] >= 0.98
+    # 4b's first design (wider layers) at the same shapes, same limits
+    bwd_design = mlp2_cuda.stage2_bwd_design(packed)
+    assert bwd_design == "wgmma"
+    dcvec_w, dpts_w = mlp2_cuda.stage2_bwd(packed, cvec, pts, ct, "wmma")
+    torch.cuda.synchronize()
+    wb_shares, wb_medians = agreement(out[:, 0], out[:, 1:], dpts_w, dcvec_w,
+                                      sdf.detach(), g, dp_p, dcv_p)
+    for d in (wb_shares, wb_medians):
+        d.pop("sdf")
+        d.pop("normals")
+    print(f"stage2_bwd, wmma design: shares {wb_shares}, medians "
+          f"{wb_medians}, the same limits")
+    assert max(wb_medians.values()) <= 1e-4
+    assert min(wb_shares.values()) >= 0.98
+    chain_ms = time_ms(chain)
     fwd_row = design_report(
         dict(name="stage2_fwd", max_abs_err=fwd_err,
              ms=time_ms(lambda: mlp2_cuda.stage2_fwd(packed, cvec, pts)),
              plain_ms=time_ms(plain_fwd), bound_ms=fwd_b[0],
-             bound_by=fwd_b[1], library_ms=time_ms(lambda: chain(1)),
+             bound_by=fwd_b[1], library_ms=chain_ms,
              max_rel_err=rel, shares=shares, plain_fp64_shares=spread[0]),
         design, time_ms(wmma),
         max(w_sdf_err, float((out4[:, 1:] - g).abs().max())))
     fwd_row["wmma_shares"] = w_shares
-    return [
-        fwd_row,
+    bwd_row = design_report(
         dict(name="stage2_bwd", max_abs_err=bwd_err,
              ms=time_ms(lambda: mlp2_cuda.stage2_bwd(packed, cvec, pts, ct)),
              plain_ms=time_ms(plain_bwd), bound_ms=bwd_b[0],
-             bound_by=bwd_b[1], library_ms=time_ms(lambda: chain(2))),
-    ]
+             bound_by=bwd_b[1], library_ms=chain_ms),
+        bwd_design, time_ms(lambda: mlp2_cuda.stage2_bwd(
+            packed, cvec, pts, ct, "wmma")),
+        max(float((dpts_w - dp_p).abs().max()),
+            float((dcvec_w - dcv_p).abs().max())))
+    bwd_row.update(wmma_shares=wb_shares, wmma_medians=wb_medians)
+    return [fwd_row, bwd_row]
 
 
 def crop_scene(dev):
@@ -607,9 +685,7 @@ def check_splat_binned(dev) -> list[dict]:
     bwd_plain = time_ms(lambda: torch.autograd.grad(
         img_p, args_p, g, retain_graph=True))
 
-    # work this data needs: ray-plane geometry (~18 flops) for every pair
-    # the bins leave, plus per footprint pair ~27 flops forward and ~51
-    # backward (as the dense rows count them)
+    # work this data needs (splat_bounds) over the pairs the bins leave
     rows_in = torch.tensor([min(bin_px, p - b * bin_px)
                             for b in range(bins.count.shape[0])], device=dev)
     pairs = float((bins.count * rows_in).sum())
@@ -618,19 +694,20 @@ def check_splat_binned(dev) -> list[dict]:
                          .sum())
     nb = bins.count.shape[0]
     io_bytes = 4 * (n * 16 + p * 4 + p * 11 + 2 * nb)
-    fwd_bound = bound(io_bytes, 18 * pairs + 27 * fp_pairs, FP32_FLOPS)
-    bwd_bound = bound(io_bytes + 4 * (p * 12 + n * 14), 18 * pairs
-                      + 51 * fp_pairs, FP32_FLOPS)
+    fwd_bound, bwd_bound = splat_bounds(pairs, fp_pairs, io_bytes,
+                                        io_bytes + 4 * (p * 12 + n * 14))
     print(f"splat binned: {n} points x {p} px, {pairs:.0f} pairs in the "
           f"windows ({pairs / (n * p):.3f} of all), {fp_pairs:.0f} "
           f"footprint pairs; bins + sort {bins_ms:.4f} ms")
     return [
         dict(name="splat_fwd_binned", max_abs_err=fwd_err, ms=fwd_ms,
              plain_ms=fwd_plain, bound_ms=fwd_bound[0],
-             bound_by=fwd_bound[1], library_ms=None, bins_ms=bins_ms),
+             bound_by=fwd_bound[1], bound_what=fwd_bound[2],
+             library_ms=None, bins_ms=bins_ms),
         dict(name="splat_bwd_binned", max_abs_err=bwd_err, ms=bwd_ms,
              plain_ms=bwd_plain, bound_ms=bwd_bound[0],
-             bound_by=bwd_bound[1], library_ms=None),
+             bound_by=bwd_bound[1], bound_what=bwd_bound[2],
+             library_ms=None),
     ]
 
 
@@ -870,10 +947,15 @@ def full_width_stage2_phase(dev, rt512, prep, sample, full: dict):
           f"{launched}")
     assert loss0_rel <= 5e-3
     if dev.type == "cuda":
-        # one 4a per iteration, all of the wgmma design; one 4b per
-        # iteration's backward
+        designs = {f"{k}_{d}": c.launches for k, group in (
+            ("stage2_fwd", mlp2_cuda.STAGE2_FWD),
+            ("stage2_bwd", mlp2_cuda.STAGE2_BWD))
+            for d, c in group.designs.items()}
+        print(f"full width, stage 2: launches by design {designs}")
+        # one 4a and one 4b per iteration, all of the wgmma designs
         assert launched["stage2_fwd"] == launched["stage2_bwd"] == iters
-        assert mlp2_cuda.STAGE2_FWD_WGMMA.launches == iters
+        assert designs["stage2_fwd_wgmma"] == iters
+        assert designs["stage2_bwd_wgmma"] == iters
         assert launched["splat_fwd"] == launched["splat_bwd"] == iters
     return rt, launched, dict(wall_s=wall, iters=iters, loss0=float(loss[0]),
                               loss0_rel=loss0_rel, label_dist_m=dist)
@@ -1142,11 +1224,13 @@ def kitti_phase(dev, out_dir, n_frames: int = 24, iters: int = 60):
 def _kernel_group(name: str) -> str:
     # the port's kernels first; a CUTLASS- or CuTe-built kernel of the
     # port would be named here, and cuBLAS's name a gemm
-    for key, group in (("splat_fwd_kernel", "splat_fwd"),
+    for key, group in (("splat_fwd_split_kernel", "splat_fwd"),
+                       ("splat_fwd_kernel", "splat_fwd"),
                        ("splat_bwd_kernel", "splat_bwd"),
                        ("nn_kernel", "nn"), ("select_mlp_kernel", "select_mlp"),
                        ("select_wgmma_kernel", "select_mlp"),
                        ("stage2_fwd_wgmma_kernel", "stage2_fwd"),
+                       ("stage2_bwd_wgmma_kernel", "stage2_bwd"),
                        ("stage2_kernel", "stage2"),
                        ("dcvec_reduce_kernel", "dcvec_reduce"),
                        ("ce_fwd_kernel", "ce_fwd"), ("ce_bwd_kernel", "ce_bwd"),
@@ -1210,13 +1294,13 @@ def profile_phase(label: str, run, wall_unprofiled: float, units: int,
                   indent=1)
 
 
-def profile_design(rt, prep, module, chooser: str | None, label: str,
-                   path: str) -> None:
-    """Profile one more crop of `rt`, with `module.chooser` (a wrapper's
-    design choice) forced to the wmma design when it is given."""
-    saved = module and getattr(module, chooser)
-    if module:
-        setattr(module, chooser, lambda packed: "wmma")
+def profile_design(rt, prep, label: str, path: str, patches=()) -> None:
+    """Profile one more crop of `rt`, with each (module, name, value) of
+    `patches` set for it: a wrapper's design choice forced to another
+    design."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, value in patches:
+        setattr(mod, name, value)
     try:
         rt.run_refine(prep)  # warm-up
         t0 = time.perf_counter()
@@ -1226,30 +1310,32 @@ def profile_design(rt, prep, module, chooser: str | None, label: str,
         profile_phase(label, lambda: rt.run_refine(prep), wall, rt.cfg.iters,
                       "iteration", path)
     finally:
-        if module:
-            setattr(module, chooser, saved)
+        for mod, name, value in saved:
+            setattr(mod, name, value)
 
 
 def profile_all(out_dir: str, rt512, rt_stage2, prep, state, fixed,
                 summary) -> None:
     """--profile: the full-width crop and two train steps on one fixed
-    batch under the profiler, and the crop again with the wmma selection
-    design and through phase 4c's stage-2 kernels with each 4a design; then
-    the same steps timed with cuDNN's autotuner on (set for this
-    measurement only; the port leaves it off)."""
+    batch under the profiler, the device busy time of each; the full-width
+    crop again with the first dense splat forward, and phase 4c's crop with
+    the new designs and again with the first designs of the dense splat
+    forward and kernel 4b; then the same steps timed with cuDNN's autotuner
+    on (set for this measurement only; the port leaves it off)."""
     profile_phase("full-width crop", lambda: rt512.run_refine(prep),
                   summary["full_width_crop"]["wall_s"], rt512.cfg.iters,
                   "iteration", os.path.join(out_dir, "profile.json"))
-    # the same crop with the selection kernel's first (wmma) design, then
-    # phase 4c's crop with each of kernel 4a's designs
-    profile_design(rt512, prep, mlp_cuda, "select_design",
-                   "full-width crop, wmma select",
-                   os.path.join(out_dir, "profile_wmma_select.json"))
-    profile_design(rt_stage2, prep, None, None, "4c crop (wgmma 4a)",
+    first_fwd = (splat_cuda, "_fwd", functools.partial(
+        splat_cuda._fwd, kernel=splat_cuda.SPLAT_FWD_FIRST))
+    wmma_bwd = (mlp2_cuda, "stage2_bwd_design", lambda packed: "wmma")
+    profile_design(rt512, prep, "full-width crop, first splat_fwd",
+                   os.path.join(out_dir, "profile_first_splat.json"),
+                   [first_fwd])
+    profile_design(rt_stage2, prep, "4c crop",
                    os.path.join(out_dir, "profile_4c.json"))
-    profile_design(rt_stage2, prep, mlp2_cuda, "stage2_fwd_design",
-                   "4c crop, wmma 4a",
-                   os.path.join(out_dir, "profile_4c_wmma.json"))
+    profile_design(rt_stage2, prep, "4c crop, first splat_fwd and wmma 4b",
+                   os.path.join(out_dir, "profile_4c_first.json"),
+                   [first_fwd, wmma_bwd])
     step = css_train.make_train_step(fused_ce=True, direct_ce=True)
 
     def two_steps():

@@ -21,9 +21,9 @@ compute wrong values; only their times mean anything.
 - release_cluster: the ring's remote arrivals release, and its waits
   acquire, at cluster scope instead of the CTA-scope default.
 
-Then kernel 4a as committed (ops/mlp2_cuda.py, csrc/stage2_mlp.cu) on
-K = 8192 seeded points in [-1, 1]^3 (the stage-2 band), at each cluster
-size. The anchors
+Then kernels 4a and 4b as committed (ops/mlp2_cuda.py, csrc/stage2_mlp.cu)
+on K = 8192 seeded points in [-1, 1]^3 (the stage-2 band) and seeded
+cotangents, at each cluster size. The anchors
 that the patches need are named in csrc/mlp_wgmma.cuh's source note.
 
 Prints one line per variant and cluster size and, last, one JSON object.
@@ -163,11 +163,13 @@ def main() -> int:
                 print(f"{name:16s} cluster {cl}: {result[name][cl]:.4f} ms",
                       flush=True)
 
-    # kernel 4a through the repository's own library, by cluster size
+    # kernels 4a and 4b through the repository's own library, by cluster
+    # size
     gen = torch.Generator().manual_seed(6)
     pts4 = (torch.rand(8192, 3, generator=gen) * 2 - 1).to(dev)
+    ct4 = torch.randn(8192, generator=gen).to(dev)
     out4 = torch.empty(8192, 4, device=dev)
-    result["stage2_fwd"] = {}
+    result["stage2_fwd"], result["stage2_bwd"] = {}, {}
     for cl in SIZES:
         def launch4():
             mlp2_cuda.STAGE2_FWD_WGMMA(
@@ -177,8 +179,11 @@ def main() -> int:
                 _cuda.ptr(packed.scal), 8192, H, nh, int(packed.use_tanh),
                 cl, _cuda.ptr(out4), _cuda.stream(pts4))
         result["stage2_fwd"][cl] = time_ms(launch4)
-        print(f"{'stage2_fwd':16s} cluster {cl}: "
-              f"{result['stage2_fwd'][cl]:.4f} ms", flush=True)
+        result["stage2_bwd"][cl] = time_ms(lambda: mlp2_cuda.stage2_bwd(
+            packed, cvec, pts4, ct4, "wgmma", cl))
+        for name in ("stage2_fwd", "stage2_bwd"):
+            print(f"{name:16s} cluster {cl}: {result[name][cl]:.4f} ms",
+                  flush=True)
     line = json.dumps({"card": card, "points": n, "width": H,
                        "hidden_products": nh, "ms": result})
     if args.out:

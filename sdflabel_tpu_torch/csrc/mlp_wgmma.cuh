@@ -1,6 +1,7 @@
 // The folded DeepSDF MLP on Hopper: wgmma on weight slices that a cluster
 // shares through bulk-copy multicast. Included by select_mlp.cu (kernel 3)
-// and stage2_mlp.cu (kernel 4a) for widths H in {128, 256, 384, 512}.
+// and stage2_mlp.cu (kernels 4a and 4b) for widths H in {128, 256, 384,
+// 512}; mlp_body's Mode says which.
 //
 // What bounds the earlier wmma design (still in those files for wider
 // layers): each block of 64 points streamed the whole bf16 stack from L2
@@ -40,11 +41,17 @@
 //   fp32 work and L1 loads of its per-column constants, which each product
 //   prefetches for the epilogue after it (prefetch_cols; without it the
 //   kernel takes 0.72 ms, not 0.64).
-// - Kernel 4a keeps each activation's ReLU sign as one bit in shared memory,
-//   in the thread's own accumulator order ((nh+1) * H * 8 bytes), and runs
-//   the reverse sweep dh_{j-1} = bf16(dpre_j) @ ws_{j-1}^T through a second
-//   packed stack (the transposed images), streamed by the same ring after
-//   the forward slices.
+// - Kernels 4a and 4b keep each activation's ReLU sign as one bit in shared
+//   memory, in the thread's own accumulator order ((nh+1) * H * 8 bytes),
+//   and run the reverse sweep dh_{j-1} = bf16(dpre_j) @ ws_{j-1}^T through
+//   a second packed stack (the transposed images), streamed by the same
+//   ring after the forward slices. 4b takes the loss cotangent times
+//   dt/ds at the last layer (0 for a row past n), writes d_xyz, and sums
+//   each layer's d_pre over the CTA's rows: the thread's two rows, the
+//   lanes that share lane % 4 (shuffles), then the four warps of the
+//   warpgroup in order through an exchange area of 16 * H bytes; a second
+//   kernel adds the CTAs' partials. In the 4c crop's device time 4b
+//   takes 7% longer than 4a (PERF.md).
 // The grid is rounded up to whole clusters; CTAs past n take part in every
 // copy and barrier and only mask their stores. Every CTA ends on a cluster
 // barrier, so none exits while a peer may still write into it.
@@ -77,11 +84,15 @@ __host__ __device__ constexpr bool width_ok(int H) {
   return H == 128 || H == 256 || H == 384 || H == 512;
 }
 
+// What mlp_body computes: kernel 3, kernel 4a or kernel 4b.
+enum class Mode { SELECT, STAGE2_FWD, STAGE2_BWD };
+
 // Shared-memory map (bytes from a 1024-aligned base): A tile, ring, sign
-// bits (kernel 4a), xyz, exchange, barriers.
+// bits (kernels 4a, 4b), xyz, exchanges, 4b's column sums, barriers.
 struct Smem {
-  uint32_t a, ring, bits, sx, red, ct, dx, full, empty, total;
-  __host__ __device__ Smem(int H, int stages, int sign_layers) {
+  uint32_t a, ring, bits, sx, red, ct, dx, ex, full, empty, total;
+  __host__ __device__ Smem(int H, int stages, int sign_layers,
+                           bool col_sums = false) {
     a = 0;
     ring = a + ROWS * H * 2;
     bits = ring + stages * KS * H * 2;
@@ -89,7 +100,8 @@ struct Smem {
     red = sx + ROWS * 3 * 4;   // per-warpgroup row partials
     ct = red + 2 * ROWS * 4;   // per-row cotangent on s (4a)
     dx = ct + ROWS * 4;        // per-warpgroup d_xyz partials (4a)
-    full = dx + 2 * ROWS * 3 * 4;
+    ex = dx + 2 * ROWS * 3 * 4;  // per-warp column sums of d_pre (4b)
+    full = ex + (col_sums ? 8 * (H / 2) * 4 : 0);
     empty = full + stages * 8;
     total = empty + stages * 8 + 1024;  // + alignment slack
   }
@@ -259,7 +271,7 @@ struct Cols {
 struct Ctx {
   uint32_t a, ring, full, empty;
   unsigned* bits;
-  float *sx, *red, *ct, *dx;
+  float *sx, *red, *ct, *dx, *ex;
   int g, rA, cq, lane, tid, cl;
 };
 
@@ -360,15 +372,56 @@ __device__ __forceinline__ void hidden_epilogue(const float (&acc)[H / 4],
   }
 }
 
-// STAGE2 = false: kernel 3, out (n,) = tanh chain of s.
-// STAGE2 = true: kernel 4a, out (n, 4) = [t, dt/dx, dt/dy, dt/dz].
-template <int H, int STAGES, bool STAGE2>
+// Kernel 4b: this warp's sums over its 16 rows of d_pre, for the thread's
+// columns in the G 8-column blocks from b0, into the exchange area: the
+// thread's two rows, then the lanes that share lane % 4, in a fixed order.
+template <int H>
+__device__ __forceinline__ void col_sums(const float (&acc)[H / 4],
+                                         const Ctx& c, int b0) {
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int e = 4 * (b0 + g) + jj;
+      float s = acc[e] + acc[e + 2];
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (c.lane < 4)
+        c.ex[(c.tid / 32) * (H / 2) + 8 * (b0 + g) + c.cq + jj] = s;
+    }
+}
+
+// Kernel 4b, once the exchange area holds layer j's warp sums (behind a
+// named barrier): the CTA's column sums, the four warps of each
+// warpgroup in order, to partial row j. The exchange is next written
+// only after another named barrier.
+template <int H>
+__device__ __forceinline__ void store_col_sums(const Ctx& c,
+                                               float* __restrict__ partial,
+                                               int nh, int j) {
+  for (int col = c.tid; col < H; col += CONSUMERS) {
+    const float* w = c.ex + (col / (H / 2)) * 4 * (H / 2) + col % (H / 2);
+    const float s = ((w[0] + w[H / 2]) + w[H]) + w[3 * (H / 2)];
+    partial[((size_t)blockIdx.x * (nh + 1) + j) * H + col] = s;
+  }
+}
+
+// Mode::SELECT: kernel 3, out (n,) = tanh chain of s.
+// Mode::STAGE2_FWD: kernel 4a, out (n, 4) = [t, dt/dx, dt/dy, dt/dz].
+// Mode::STAGE2_BWD: kernel 4b, the loss cotangent ct_in (n,) on t ->
+// out (n, 3) = d_xyz, and this CTA's (nh+1, H) column sums of d_pre at
+// partial + blockIdx.x * (nh+1) * H.
+template <int H, int STAGES, Mode MODE>
 __device__ __forceinline__ void mlp_body(
     const float* __restrict__ xyz, const __nv_bfloat16* __restrict__ tiles,
     const __nv_bfloat16* __restrict__ tiles_t, const float* __restrict__ wx,
     const float* __restrict__ cvec, const float* __restrict__ wlast,
-    const float* __restrict__ scal, int n, int nh, int use_tanh,
-    float* __restrict__ out) {
+    const float* __restrict__ scal, const float* __restrict__ ct_in, int n,
+    int nh, int use_tanh, float* __restrict__ out,
+    float* __restrict__ partial) {
+  constexpr bool STAGE2 = MODE != Mode::SELECT;
+  constexpr bool BWD = MODE == Mode::STAGE2_BWD;
   constexpr int E = H / 4;  // accumulator floats per thread
   constexpr int NB = H / 16;
   constexpr int WORDS = H / 128;
@@ -378,7 +431,7 @@ __device__ __forceinline__ void mlp_body(
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* smem = smem_raw + (base - raw);
-  const Smem m(H, STAGES, STAGE2 ? nh + 1 : 0);
+  const Smem m(H, STAGES, STAGE2 ? nh + 1 : 0, BWD);
 
   Ctx c;
   c.a = base + m.a;
@@ -390,6 +443,7 @@ __device__ __forceinline__ void mlp_body(
   c.red = reinterpret_cast<float*>(smem + m.red);
   c.ct = reinterpret_cast<float*>(smem + m.ct);
   c.dx = reinterpret_cast<float*>(smem + m.dx);
+  c.ex = reinterpret_cast<float*>(smem + m.ex);
   c.tid = threadIdx.x;
   c.lane = c.tid % 32;
   c.g = c.tid / 128;
@@ -423,7 +477,7 @@ __device__ __forceinline__ void mlp_body(
         const int slot = t % STAGES;
         mbar_wait(c.empty + 8 * slot, ((t / STAGES) & 1) ^ 1);
         mbar_expect_tx(c.full + 8 * slot, SLICE);
-        // forward products read ws_0 .. ws_{nh-1}; 4a's reverse sweep then
+        // forward products read ws_0 .. ws_{nh-1}; the reverse sweep then
         // reads the transposed images of ws_{nh-1} .. ws_0
         const unsigned char* src;
         if (t < fwd) {
@@ -516,10 +570,12 @@ __device__ __forceinline__ void mlp_body(
           if (!STAGE2) {
             if (live) out[row0 + r] = fin;
           } else {
-            if (live) out[(size_t)(row0 + r) * 4] = fin;
+            if (!BWD && live) out[(size_t)(row0 + r) * 4] = fin;
             float d_pre = 1.f - t1 * t1;  // d fin / d s: the tanh chain
             if (use_tanh) d_pre = d_pre * (1.f - fin * fin);
-            c.ct[r] = d_pre;
+            // 4b: the loss cotangent times d fin / d s; 0 for a dead row,
+            // so that it adds nothing to the column sums
+            c.ct[r] = !BWD ? d_pre : live ? ct_in[row0 + r] * d_pre : 0.f;
           }
         }
       }
@@ -562,6 +618,7 @@ __device__ __forceinline__ void mlp_body(
                 pd[i][1] += dpre * k.w[g][1][jj];
                 pd[i][2] += dpre * k.w[g][2][jj];
               }
+          if (BWD) col_sums<H>(acc, c, b0);
         }
         if (j == 0) break;
         // dh_{j-1} = bf16(dpre) @ ws_{j-1}^T; A is free (the last product
@@ -579,6 +636,7 @@ __device__ __forceinline__ void mlp_body(
         }
         fence_async_smem();
         named_sync();
+        if (BWD) store_col_sums<H>(c, partial, nh, j);
         prefetch_cols<H>(c, nullptr, wx + (size_t)(j - 1) * 4 * H, nullptr);
         product<H, STAGES>(acc, c, t);
         named_sync();
@@ -594,14 +652,17 @@ __device__ __forceinline__ void mlp_body(
           if (c.lane % 4 == 0) c.dx[(c.g * ROWS + c.rA + 8 * i) * 3 + d] = p;
         }
       named_sync();
+      if (BWD) store_col_sums<H>(c, partial, nh, 0);
       if (c.g == 0 && c.lane % 4 == 0) {
+        // 4a writes [t, d_xyz] rows, 4b d_xyz rows
+        constexpr int W = BWD ? 3 : 4, D0 = BWD ? 0 : 1;
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int r = c.rA + 8 * i;
           if (row0 + r >= n) continue;
 #pragma unroll
           for (int d = 0; d < 3; ++d)
-            out[(size_t)(row0 + r) * 4 + 1 + d] =
+            out[(size_t)(row0 + r) * W + D0 + d] =
                 ct[i] * scal[1 + d] +
                 (c.dx[r * 3 + d] + c.dx[(ROWS + r) * 3 + d]);
         }
@@ -611,9 +672,11 @@ __device__ __forceinline__ void mlp_body(
   }
 }
 
-template <int H, int STAGES, bool STAGE2>
+template <int H, int STAGES, Mode MODE>
 size_t smem_bytes(int nh) {
-  return Smem(H, STAGES, STAGE2 ? nh + 1 : 0).total;
+  return Smem(H, STAGES, MODE != Mode::SELECT ? nh + 1 : 0,
+              MODE == Mode::STAGE2_BWD)
+      .total;
 }
 
 // Launch `kernel` over ceil(n / 64) CTAs rounded up to whole clusters.

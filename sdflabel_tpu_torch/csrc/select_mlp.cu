@@ -164,8 +164,9 @@ select_wgmma_kernel(const float* __restrict__ xyz,
                     const float* __restrict__ wlast,
                     const float* __restrict__ scal, int n, int nh,
                     int use_tanh, float* __restrict__ out) {
-  mlpw::mlp_body<H, SELECT_STAGES, false>(xyz, tiles, nullptr, wx, cvec,
-                                          wlast, scal, n, nh, use_tanh, out);
+  mlpw::mlp_body<H, SELECT_STAGES, mlpw::Mode::SELECT>(
+      xyz, tiles, nullptr, wx, cvec, wlast, scal, nullptr, n, nh, use_tanh,
+      out, nullptr);
 }
 
 template <int H>
@@ -174,7 +175,8 @@ int launch_wgmma(const void* xyz, const void* tiles, const void* wx,
                  int n, int nh, int use_tanh, int cluster, void* out,
                  cudaStream_t stream) {
   return mlpw::launch_clustered(
-      select_wgmma_kernel<H>, mlpw::smem_bytes<H, SELECT_STAGES, false>(nh),
+      select_wgmma_kernel<H>,
+      mlpw::smem_bytes<H, SELECT_STAGES, mlpw::Mode::SELECT>(nh),
       n, cluster, stream, (const float*)xyz, (const __nv_bfloat16*)tiles,
       (const float*)wx, (const float*)cvec, (const float*)wlast,
       (const float*)scal, n, nh, use_tanh, (float*)out);

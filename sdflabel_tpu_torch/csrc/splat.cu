@@ -22,19 +22,33 @@
 // pair within ~3% of the disc edge may land on either side of it. The
 // explicit offset keeps that error at ~1e-6 of a 0.04 diameter.
 //
-// Bound on the H100: fp32 operations. Every (point, pixel) pair costs
-// ~25 flops of ray-plane geometry in each of the two forward passes and
-// ~45 in the backward; bytes are ~0.6 MB per call. Design: the TPU
-// kernels' sequential chunk axis carried in VMEM scratch becomes a loop
-// inside the thread over point chunks staged in shared memory.
-//   forward : one thread per pixel; pass 1 reduces the z-norm, pass 2 runs
-//             the online softmax with the running max, denominator and 8
-//             feature accumulators in registers.
+// Bound on the H100: operations. Every (point, pixel) pair costs ~18 flops
+// of ray-plane geometry and two special-function ops (the division
+// z = n.v / n.g and the distance's sqrt, at 16 per clock per SM a quarter
+// of the fp32 rate), in each of the two forward passes and in the
+// backward; bytes are ~0.6 MB per call. The TPU kernels carry the point
+// axis as a sequential grid dimension in VMEM scratch.
+//   dense forward, split design (splat_fwd_split_kernel, every dense
+//             render): a 32x32 crop has only 16 tiles of 64 pixels, so the
+//             points are split too: grid (tiles, S), the S <= 8 CTAs of a
+//             tile one thread-block cluster, each on a contiguous slice
+//             staged once in shared memory for both passes, 8 threads per
+//             pixel on interleaved points (16 warps per CTA). The z-norm's
+//             partial sums and the online-softmax partials (m, d, acc) are
+//             merged in fixed orders, over the threads and then over the
+//             cluster's ranks through distributed shared memory: no
+//             atomics, the same result every run. 8192 points onto 32x32
+//             px: 128 CTAs. What bounds it now: the per-pair fp32 and
+//             special-function work of both passes on every pair, footprint
+//             or not; a per-tile cull of the pairs far from any disc edge
+//             is the next step.
+//   first design (splat_fwd_kernel): one thread per pixel over all points;
+//             pass 1 reduces the z-norm, pass 2 runs the online softmax
+//             with the running max, denominator and 8 feature accumulators
+//             in registers. The binned forward runs it with windows; dense,
+//             it is the split design's yardstick (splat_fwd_first).
 //   backward: point-major, one thread per point looping over pixel chunks
 //             staged in shared memory; no atomics, so it is deterministic.
-// At <= 1536 pixels the forward fills only P / 64 blocks of the 132 SMs;
-// splitting points across blocks (and merging the softmax partials) is the
-// first thing to change for speed.
 //
 // Row binning (renders of >= 4096 px, ops/splat_cuda.py::compute_bins):
 // the points arrive sorted by the first bin_px-pixel row block their
@@ -48,8 +62,11 @@
 // outside its own. The footprint test stays exact per pair, so binning
 // changes only the order of the sums.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cfloat>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -61,6 +78,17 @@ constexpr int FWD_CHUNK = 256;   // points per shared-memory chunk
 constexpr int BWD_THREADS = 128; // points per block
 constexpr int BWD_CHUNK = 128;   // pixels per shared-memory chunk
 constexpr int PIX_W = 16;        // packed pixel row, see splat_bwd_kernel
+// the split dense forward, splat_fwd_split_kernel
+constexpr int SPLIT_PX = 64;     // pixels per CTA
+constexpr int SPLIT_T = 8;       // threads per pixel, on interleaved points
+constexpr int SPLIT_THREADS = SPLIT_PX * SPLIT_T;
+constexpr int SPLIT_MAX = 8;     // CTAs per cluster: the portable limit
+constexpr int SPLIT_MIN_PTS = 128;  // fewest points per slice worth a CTA
+constexpr int SPLIT_CAP = 1024;  // points staged at once: 64 KB
+constexpr int PART = 2 + NF;     // a softmax partial: m, d, acc[NF]
+constexpr size_t SPLIT_SMEM =
+    (size_t)(SPLIT_CAP * (8 + NF) + SPLIT_T * PART * SPLIT_PX +
+             (1 + PART) * SPLIT_PX) * sizeof(float);
 
 // Ray-plane geometry of point q = [v(3), n(3), mask, pad] against pixel ray
 // g (splat_pallas.py::_geometry, with the explicit distance of
@@ -218,6 +246,179 @@ splat_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ feats,
   }
 }
 
+// Online-softmax partials (m, d, acc) merged in order into (m, d, acc):
+// m = max m_s, d = sum d_s e^(m_s - m), acc = sum acc_s e^(m_s - m). An
+// empty partial (NEG_BIG, 0, 0) adds nothing; all empty stay empty.
+// part(s, q) gives partial s's entry q: 0 m, 1 d, 2 + f acc[f].
+template <typename Part>
+__device__ __forceinline__ void merge_partials(int count, Part part,
+                                               float& m, float& d,
+                                               float (&acc)[NF]) {
+  m = part(0, 0);
+  for (int s = 1; s < count; ++s) m = fmaxf(m, part(s, 0));
+  d = 0.f;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) acc[f] = 0.f;
+  for (int s = 0; s < count; ++s) {
+    const float w = expf(part(s, 0) - m);
+    d += part(s, 1) * w;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) acc[f] += part(s, 2 + f) * w;
+  }
+}
+
+// The dense forward split over the points. Grid (pixel tiles, S): the S
+// CTAs of one tile form a cluster and take contiguous slices of `per`
+// points; in a CTA, SPLIT_T threads share each pixel, thread k on the
+// slice's points k, k + SPLIT_T, ... Each CTA stages its slice (up to
+// SPLIT_CAP points; larger slices in chunks) in shared memory once for
+// both passes. Pass 1: the z-norm's sums of squares, merged over the
+// threads in order, then every CTA reads every rank's through distributed
+// shared memory in rank order, so all hold the same zn. Pass 2: each
+// thread's online softmax, merged over the threads in order into the
+// CTA's partial; rank 0 merges the S partials in rank order and writes
+// img, m, d, zn. The per-pair arithmetic is splat_fwd_kernel's; only the
+// order of the sums differs.
+__global__ void __launch_bounds__(SPLIT_THREADS, 2)
+splat_fwd_split_kernel(const float* __restrict__ pts,
+                       const float* __restrict__ feats,
+                       const float* __restrict__ kg, int n, int p, int per,
+                       float diam, float dc, float* __restrict__ img,
+                       float* __restrict__ m_out, float* __restrict__ d_out,
+                       float* __restrict__ zn_out) {
+  extern __shared__ float4 smem4[];
+  float* s_pts = reinterpret_cast<float*>(smem4);  // SPLIT_CAP x 8
+  float* s_feat = s_pts + SPLIT_CAP * 8;           // SPLIT_CAP x NF
+  float* s_red = s_feat + SPLIT_CAP * NF;  // per thread: SPLIT_T x PART x px
+  float* s_ssq = s_red + SPLIT_T * PART * SPLIT_PX;  // the CTA's, per px
+  float* s_part = s_ssq + SPLIT_PX;                  // PART x px
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int slices = (int)cluster.num_blocks();
+  const int px = threadIdx.x % SPLIT_PX, k = threadIdx.x / SPLIT_PX;
+  const int pix = blockIdx.x * SPLIT_PX + px;
+  const bool active = pix < p;
+  const int lo = min(n, rank * per), hi = min(n, lo + per);
+  const bool resident = hi - lo <= SPLIT_CAP;
+  float gx = 0.f, gy = 0.f, gz = 0.f;
+  if (active) {
+    gx = kg[pix * 4 + 0];
+    gy = kg[pix * 4 + 1];
+    gz = kg[pix * 4 + 2];
+  }
+  auto stage = [&](int c0, int cn) {
+    __syncthreads();
+    const float4* p4 = reinterpret_cast<const float4*>(pts) + (size_t)c0 * 2;
+    const float4* f4 =
+        reinterpret_cast<const float4*>(feats) + (size_t)c0 * (NF / 4);
+    for (int i = threadIdx.x; i < cn * 2; i += SPLIT_THREADS)
+      reinterpret_cast<float4*>(s_pts)[i] = p4[i];
+    for (int i = threadIdx.x; i < cn * (NF / 4); i += SPLIT_THREADS)
+      reinterpret_cast<float4*>(s_feat)[i] = f4[i];
+    __syncthreads();
+  };
+  float z, nk;
+  bool guard;
+
+  // pass 1: this thread's sum of footprint depths squared
+  float ssq = 0.f;
+  for (int c0 = lo; c0 < hi; c0 += SPLIT_CAP) {
+    const int cn = min(SPLIT_CAP, hi - c0);
+    stage(c0, cn);
+    if (!active) continue;
+    for (int i = k; i < cn; i += SPLIT_T)
+      if (geometry(&s_pts[i * 8], gx, gy, gz, diam, z, nk, guard))
+        ssq += z * z;
+  }
+  s_red[k * SPLIT_PX + px] = ssq;
+  __syncthreads();
+  if (k == 0) {
+    float s = s_red[px];
+    for (int t = 1; t < SPLIT_T; ++t) s += s_red[t * SPLIT_PX + px];
+    s_ssq[px] = s;
+  }
+  cluster.sync();
+  float ssq_all = 0.f;
+  for (int r = 0; r < slices; ++r)
+    ssq_all += *cluster.map_shared_rank(s_ssq + px, r);
+  const float zn = sqrtf(ssq_all);
+  const float inv_zn = 1.f / (zn + FLT_EPSILON);
+
+  // pass 2: online softmax over this thread's footprint points
+  float m = NEG_BIG, d = 0.f;
+  float acc[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) acc[f] = 0.f;
+  for (int c0 = lo; c0 < hi; c0 += SPLIT_CAP) {
+    const int cn = min(SPLIT_CAP, hi - c0);
+    if (!resident) stage(c0, cn);
+    if (!active) continue;
+    for (int i = k; i < cn; i += SPLIT_T) {
+      if (!geometry(&s_pts[i * 8], gx, gy, gz, diam, z, nk, guard))
+        continue;
+      const float s = fmaxf(-z * inv_zn + 1.f, 0.f) * dc;
+      const float* fi = &s_feat[i * NF];
+      if (s > m) {
+        const float scale = expf(m - s);
+        d = d * scale + 1.f;
+#pragma unroll
+        for (int f = 0; f < NF; ++f) acc[f] = acc[f] * scale + fi[f];
+        m = s;
+      } else {
+        const float w = expf(s - m);
+        d += w;
+#pragma unroll
+        for (int f = 0; f < NF; ++f) acc[f] += w * fi[f];
+      }
+    }
+  }
+  float* mine = s_red + k * PART * SPLIT_PX + px;
+  mine[0] = m;
+  mine[SPLIT_PX] = d;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) mine[(2 + f) * SPLIT_PX] = acc[f];
+  __syncthreads();
+  if (k == 0) {  // the CTA's partial: its threads in order
+    merge_partials(
+        SPLIT_T,
+        [&](int t, int q) { return s_red[(t * PART + q) * SPLIT_PX + px]; },
+        m, d, acc);
+    s_part[px] = m;
+    s_part[SPLIT_PX + px] = d;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) s_part[(2 + f) * SPLIT_PX + px] = acc[f];
+  }
+  cluster.sync();
+  if (rank == 0 && k == 0 && active) {  // the cluster's: its ranks in order
+    merge_partials(
+        slices,
+        [&](int r, int q) {
+          return *cluster.map_shared_rank(s_part + q * SPLIT_PX + px, r);
+        },
+        m, d, acc);
+    const float inv_d = d > 0.f ? 1.f / fmaxf(d, 1e-30f) : 0.f;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) img[(size_t)pix * NF + f] = acc[f] * inv_d;
+    m_out[pix] = m;
+    d_out[pix] = d;
+    zn_out[pix] = zn;
+  }
+  cluster.sync();  // no CTA leaves while rank 0 may still read it
+}
+
+// Slices S of the split forward for n points onto p pixels: enough CTAs
+// to give each SM of the card one, at most SPLIT_MAX, and slices of at
+// least SPLIT_MIN_PTS points; 1 when the pixel tiles alone fill the card.
+int split_slices(int n, int p) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int tiles = (p + SPLIT_PX - 1) / SPLIT_PX;
+  int s = min(sms / max(tiles, 1), SPLIT_MAX);
+  s = min(s, (n + SPLIT_MIN_PTS - 1) / SPLIT_MIN_PTS);
+  return max(s, 1);
+}
+
 // pix rows (P, 16): see PointGrads.
 __global__ void __launch_bounds__(BWD_THREADS)
 splat_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ feats,
@@ -307,11 +508,45 @@ const char* sdl_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Point slices (CTAs per cluster) of splat_fwd for n points onto p pixels.
+int splat_fwd_slices(int n, int p) { return split_slices(n, p); }
+
 // pts (n, 8) [v, n, mask, 0], feats (n, 8), kg (p, 4) [g, 0] float32 ->
-// img (p, 8), m, d, zn (p,) float32.
+// img (p, 8), m, d, zn (p,) float32. The split design.
 int splat_fwd(const void* pts, const void* feats, const void* kg, int n, int p,
               float diam, float depth_constant, void* img, void* m, void* d,
               void* zn, void* stream) {
+  if (p <= 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      splat_fwd_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SPLIT_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int slices = split_slices(n, p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((p + SPLIT_PX - 1) / SPLIT_PX, slices);
+  cfg.blockDim = dim3(SPLIT_THREADS);
+  cfg.dynamicSmemBytes = SPLIT_SMEM;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = slices;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, splat_fwd_split_kernel, (const float*)pts, (const float*)feats,
+      (const float*)kg, n, p, (n + slices - 1) / slices, diam,
+      depth_constant, (float*)img, (float*)m, (float*)d, (float*)zn);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// As splat_fwd, through the first design: one thread per pixel over all n
+// points (splat_fwd_kernel without windows).
+int splat_fwd_first(const void* pts, const void* feats, const void* kg, int n,
+                    int p, float diam, float depth_constant, void* img,
+                    void* m, void* d, void* zn, void* stream) {
   if (p <= 0) return 0;
   const int blocks = (p + FWD_THREADS - 1) / FWD_THREADS;
   splat_fwd_kernel<<<blocks, FWD_THREADS, 0, (cudaStream_t)stream>>>(

@@ -18,25 +18,29 @@
 // through the 8x512 decoder, 0.061 ms); bytes are the points, the 3.7 MB
 // weight stack and the outputs.
 //
-// Kernel 4a at H in {128, 256, 384, 512}, when its sign bits fit:
-// stage2_fwd_wgmma_kernel, the Hopper design of mlp_wgmma.cuh (wgmma with
-// register accumulators on pre-packed slices that a cluster shares through
-// bulk-copy multicast; the reverse sweep streams a second, transposed
-// packed stack through the same ring; one ReLU sign bit per activation in
-// shared memory). At 8192 points a launch is 128 CTAs, one wave.
+// Kernels 4a and 4b at H in {128, 256, 384, 512}, when their sign bits
+// fit: stage2_fwd_wgmma_kernel and stage2_bwd_wgmma_kernel, the Hopper
+// design of mlp_wgmma.cuh (wgmma with register accumulators on pre-packed
+// slices that a cluster shares through bulk-copy multicast; the reverse
+// sweep streams a second, transposed packed stack through the same ring;
+// one ReLU sign bit per activation in shared memory). 4b is 4a's body with
+// the loss cotangent on the last layer, d_xyz as its output, and each
+// layer's column sums of d_pre (the CTA's d_cvec partial) taken in
+// registers, across lanes by shuffles and across warps through shared
+// memory, in a fixed order. At 8192 points a launch is 128 CTAs, one wave;
+// what bounds both is the epilogue between the products (mlp_wgmma.cuh).
 //
-// Kernel 4b, and 4a at wider layers, keep the first design
-// (stage2_kernel): the TPU kernel keeps every layer's activations in an
-// (nh+1, 512, H) fp32 scratch (8 MB at 512 points); a block here has 227 KB
-// of shared memory. The reverse sweep needs only each activation's ReLU
+// Wider layers keep the first design (stage2_kernel): the TPU kernel keeps
+// every layer's activations in an (nh+1, 512, H) fp32 scratch (8 MB at 512
+// points); a block here has 227 KB of shared memory. The reverse sweep needs only each activation's ReLU
 // sign, so a block of R points keeps one bit per (layer, point, unit) --
 // 32 KB at R = 64, nh = 7, H = 512 -- plus the current layer as an fp32
 // tile and its bf16 copy. The products stream each layer's weights from L2
 // into nvcuda::wmma bf16 fragments with fp32 accumulation; the backward's
 // dh = bf16(d_pre) @ ws_j^T reads the same [in, out] stack as a
-// column-major operand, with no transposed copy. d_cvec: each block writes
-// its (nh+1, H) column sums, and a second kernel adds the blocks' partials
-// in block order: no atomics, the same result every run.
+// column-major operand, with no transposed copy. d_cvec, in both designs:
+// each block writes its (nh+1, H) column sums, and a second kernel adds the
+// blocks' partials in block order: no atomics, the same result every run.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -257,15 +261,37 @@ stage2_kernel(const float* __restrict__ xyz,
   }
 }
 
-// d_cvec (nh+1, H) = sum over blocks of the partials, in block order.
-__global__ void __launch_bounds__(THREADS)
+// d_cvec (nh+1, H) = sum over blocks of the partials, in block order;
+// REDUCE_LOADS loads in flight per thread ahead of their sums.
+constexpr int REDUCE_THREADS = 64;
+constexpr int REDUCE_LOADS = 8;
+
+__global__ void __launch_bounds__(REDUCE_THREADS)
 dcvec_reduce_kernel(const float* __restrict__ partial, int blocks, int size,
                     float* __restrict__ dcvec) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
+  const int i = blockIdx.x * REDUCE_THREADS + threadIdx.x;
   if (i >= size) return;
+  const float* col = partial + i;
   float s = 0.f;
-  for (int b = 0; b < blocks; ++b) s += partial[(size_t)b * size + i];
+  int b = 0;
+  for (; b + REDUCE_LOADS <= blocks; b += REDUCE_LOADS) {
+    float v[REDUCE_LOADS];
+#pragma unroll
+    for (int u = 0; u < REDUCE_LOADS; ++u)
+      v[u] = col[(size_t)(b + u) * size];
+#pragma unroll
+    for (int u = 0; u < REDUCE_LOADS; ++u) s += v[u];
+  }
+  for (; b < blocks; ++b) s += col[(size_t)b * size];
   dcvec[i] = s;
+}
+
+int reduce_dcvec(const void* partial, int blocks, int size, void* dcvec,
+                 cudaStream_t s) {
+  dcvec_reduce_kernel<<<(size + REDUCE_THREADS - 1) / REDUCE_THREADS,
+                        REDUCE_THREADS, 0, s>>>((const float*)partial, blocks,
+                                                size, (float*)dcvec);
+  return (int)cudaGetLastError();
 }
 
 template <int RT, bool BWD>
@@ -309,6 +335,8 @@ int dispatch(int R, const void* xyz, const void* ws, const void* wx,
 
 constexpr int STAGE2_STAGES = 3;
 
+using mlpw::Mode;
+
 template <int H>
 __global__ void __launch_bounds__(mlpw::THREADS, 1)
 stage2_fwd_wgmma_kernel(const float* __restrict__ xyz,
@@ -319,8 +347,26 @@ stage2_fwd_wgmma_kernel(const float* __restrict__ xyz,
                         const float* __restrict__ wlast,
                         const float* __restrict__ scal, int n, int nh,
                         int use_tanh, float* __restrict__ out) {
-  mlpw::mlp_body<H, STAGE2_STAGES, true>(xyz, tiles, tiles_t, wx, cvec,
-                                         wlast, scal, n, nh, use_tanh, out);
+  mlpw::mlp_body<H, STAGE2_STAGES, Mode::STAGE2_FWD>(
+      xyz, tiles, tiles_t, wx, cvec, wlast, scal, nullptr, n, nh, use_tanh,
+      out, nullptr);
+}
+
+template <int H>
+__global__ void __launch_bounds__(mlpw::THREADS, 1)
+stage2_bwd_wgmma_kernel(const float* __restrict__ xyz,
+                        const __nv_bfloat16* __restrict__ tiles,
+                        const __nv_bfloat16* __restrict__ tiles_t,
+                        const float* __restrict__ wx,
+                        const float* __restrict__ cvec,
+                        const float* __restrict__ wlast,
+                        const float* __restrict__ scal,
+                        const float* __restrict__ ct, int n, int nh,
+                        int use_tanh, float* __restrict__ dxyz,
+                        float* __restrict__ partial) {
+  mlpw::mlp_body<H, STAGE2_STAGES, Mode::STAGE2_BWD>(
+      xyz, tiles, tiles_t, wx, cvec, wlast, scal, ct, n, nh, use_tanh, dxyz,
+      partial);
 }
 
 template <int H>
@@ -330,10 +376,25 @@ int launch_wgmma(const void* xyz, const void* tiles, const void* tiles_t,
                  void* out, cudaStream_t stream) {
   return mlpw::launch_clustered(
       stage2_fwd_wgmma_kernel<H>,
-      mlpw::smem_bytes<H, STAGE2_STAGES, true>(nh), n, cluster, stream,
-      (const float*)xyz, (const __nv_bfloat16*)tiles,
+      mlpw::smem_bytes<H, STAGE2_STAGES, Mode::STAGE2_FWD>(nh), n, cluster,
+      stream, (const float*)xyz, (const __nv_bfloat16*)tiles,
       (const __nv_bfloat16*)tiles_t, (const float*)wx, (const float*)cvec,
       (const float*)wlast, (const float*)scal, n, nh, use_tanh, (float*)out);
+}
+
+template <int H>
+int launch_wgmma_bwd(const void* xyz, const void* tiles, const void* tiles_t,
+                     const void* wx, const void* cvec, const void* wlast,
+                     const void* scal, const void* ct, int n, int nh,
+                     int use_tanh, int cluster, void* dxyz, void* partial,
+                     cudaStream_t stream) {
+  return mlpw::launch_clustered(
+      stage2_bwd_wgmma_kernel<H>,
+      mlpw::smem_bytes<H, STAGE2_STAGES, Mode::STAGE2_BWD>(nh), n, cluster,
+      stream, (const float*)xyz, (const __nv_bfloat16*)tiles,
+      (const __nv_bfloat16*)tiles_t, (const float*)wx, (const float*)cvec,
+      (const float*)wlast, (const float*)scal, (const float*)ct, n, nh,
+      use_tanh, (float*)dxyz, (float*)partial);
 }
 
 }  // namespace
@@ -379,16 +440,32 @@ int stage2_bwd(const void* xyz, const void* ws, const void* wx,
   const int err = dispatch<true>(R, xyz, ws, wx, cvec, wlast, scal, ct, n, H,
                                  nh, use_tanh, dxyz, partial, s);
   if (err != 0) return err;
-  const int blocks = (n + R - 1) / R;
-  dcvec_reduce_kernel<<<(size + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-      (const float*)partial, blocks, size, (float*)dcvec);
-  return (int)cudaGetLastError();
+  return reduce_dcvec(partial, (n + R - 1) / R, size, dcvec, s);
 }
 
 // Dynamic shared memory of 4a's wgmma design at width H and nh hidden
 // products, in bytes.
 int stage2_fwd_wgmma_smem(int H, int nh) {
   return (int)mlpw::Smem(H, STAGE2_STAGES, nh + 1).total;
+}
+
+// The same for 4b's wgmma design (4a's map plus the column-sum exchange).
+int stage2_bwd_wgmma_smem(int H, int nh) {
+  return (int)mlpw::Smem(H, STAGE2_STAGES, nh + 1, true).total;
+}
+
+// 1 when 4b at width H and nh hidden products takes the wgmma design
+// (stage2_bwd_wgmma), else 0 (stage2_bwd).
+int stage2_bwd_wgmma_fits(int H, int nh) {
+  return mlpw::width_ok(H) && nh >= 1 &&
+         (size_t)stage2_bwd_wgmma_smem(H, nh) <= mlpw::SMEM_LIMIT;
+}
+
+// CTAs, and so d_cvec partials, of a wgmma launch over n points:
+// ceil(n / 64) rounded up to whole clusters.
+int stage2_wgmma_blocks(int n, int cluster) {
+  const int tiles = (n + mlpw::ROWS - 1) / mlpw::ROWS;
+  return (tiles + cluster - 1) / cluster * cluster;
 }
 
 // 1 when 4a at width H and nh hidden products takes the wgmma design
@@ -423,6 +500,48 @@ int stage2_fwd_wgmma(const void* xyz, const void* tiles, const void* tiles_t,
       return launch_wgmma<512>(xyz, tiles, tiles_t, wx, cvec, wlast, scal, n,
                                nh, use_tanh, cluster, out, s);
   }
+}
+
+// Kernel 4b, the wgmma design. As stage2_bwd, with tiles and tiles_t in
+// place of ws (as stage2_fwd_wgmma) and cluster CTAs (1..4) sharing each
+// slice; partial is scratch of stage2_wgmma_blocks(n, cluster) * (nh+1) * H
+// floats.
+int stage2_bwd_wgmma(const void* xyz, const void* tiles, const void* tiles_t,
+                     const void* wx, const void* cvec, const void* wlast,
+                     const void* scal, const void* ct, int n, int H, int nh,
+                     int use_tanh, int cluster, void* dxyz, void* dcvec,
+                     void* partial, void* stream) {
+  if (!stage2_bwd_wgmma_fits(H, nh) || cluster < 1 ||
+      cluster > mlpw::MAX_CLUSTER)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int size = (nh + 1) * H;
+  if (n <= 0) return (int)cudaMemsetAsync(dcvec, 0, size * sizeof(float), s);
+  int err;
+  switch (H) {
+    case 128:
+      err = launch_wgmma_bwd<128>(xyz, tiles, tiles_t, wx, cvec, wlast, scal,
+                                  ct, n, nh, use_tanh, cluster, dxyz, partial,
+                                  s);
+      break;
+    case 256:
+      err = launch_wgmma_bwd<256>(xyz, tiles, tiles_t, wx, cvec, wlast, scal,
+                                  ct, n, nh, use_tanh, cluster, dxyz, partial,
+                                  s);
+      break;
+    case 384:
+      err = launch_wgmma_bwd<384>(xyz, tiles, tiles_t, wx, cvec, wlast, scal,
+                                  ct, n, nh, use_tanh, cluster, dxyz, partial,
+                                  s);
+      break;
+    default:
+      err = launch_wgmma_bwd<512>(xyz, tiles, tiles_t, wx, cvec, wlast, scal,
+                                  ct, n, nh, use_tanh, cluster, dxyz, partial,
+                                  s);
+  }
+  if (err != 0) return err;
+  return reduce_dcvec(partial, stage2_wgmma_blocks(n, cluster), size, dcvec,
+                      s);
 }
 
 }  // extern "C"

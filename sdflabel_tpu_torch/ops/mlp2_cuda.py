@@ -8,10 +8,12 @@ and the loss backward in one launch of kernel 4b, which recomputes the
 forward (csrc/stage2_mlp.cu; its source note says what bounds it). It
 packs the decoder as the selection kernel does (``mlp_cuda.
 pack_select_mlp``) and returns None outside that packer's contract.
-Kernel 4a has two designs, chosen by shape (``stage2_fwd_design``): the
-wgmma design of csrc/mlp_wgmma.cuh for H <= 512 when its sign bits fit in
-shared memory, else the wmma design that 4b keeps; each counts its own
-launches and ``STAGE2_FWD`` counts both.
+Kernels 4a and 4b have two designs each, chosen by shape
+(``stage2_fwd_design``, ``stage2_bwd_design``): the wgmma design of
+csrc/mlp_wgmma.cuh for H in {128, 256, 384, 512} when its sign bits fit in
+shared memory, else the first (wmma) design of csrc/stage2_mlp.cu; each
+design counts its own launches, and ``STAGE2_FWD`` and ``STAGE2_BWD``
+count both of theirs.
 
 Numerics: bf16 operands and fp32 accumulation in the hidden products, fp32
 activations between layers (the plain bf16 decoder path stores bf16, so
@@ -42,8 +44,11 @@ STAGE2_FWD_WMMA = _cuda.CudaKernel("stage2_mlp", "stage2_fwd", [
 STAGE2_FWD_WGMMA = _cuda.CudaKernel("stage2_mlp", "stage2_fwd_wgmma", [
     _cuda.P] * 7 + [_cuda.I] * 5 + [_cuda.P, _cuda.P])
 STAGE2_FWD = _cuda.KernelGroup(wgmma=STAGE2_FWD_WGMMA, wmma=STAGE2_FWD_WMMA)
-STAGE2_BWD = _cuda.CudaKernel("stage2_mlp", "stage2_bwd", [_cuda.P] * 7 + [
-    _cuda.I, _cuda.I, _cuda.I, _cuda.I] + [_cuda.P] * 4)
+STAGE2_BWD_WMMA = _cuda.CudaKernel("stage2_mlp", "stage2_bwd", [
+    _cuda.P] * 7 + [_cuda.I] * 4 + [_cuda.P] * 4)
+STAGE2_BWD_WGMMA = _cuda.CudaKernel("stage2_mlp", "stage2_bwd_wgmma", [
+    _cuda.P] * 8 + [_cuda.I] * 5 + [_cuda.P] * 4)
+STAGE2_BWD = _cuda.KernelGroup(wgmma=STAGE2_BWD_WGMMA, wmma=STAGE2_BWD_WMMA)
 
 
 class _Bf16Product(torch.autograd.Function):
@@ -109,29 +114,61 @@ def emulate_stage2(packed: PackedSelectMLP, latent: torch.Tensor,
     return sdf, g.detach()
 
 
-def _check(packed: PackedSelectMLP, cvec: torch.Tensor, xyz: torch.Tensor):
-    dev = xyz.device
+@functools.lru_cache(maxsize=8)
+def _packed_device(packed: PackedSelectMLP) -> torch.device:
+    """The device of `packed`'s tensors, once they are checked. A packed
+    decoder does not change, so each is checked once: the checks cost as
+    much host time as a launch, and 4a and 4b run every iteration."""
+    dev = packed.ws.device
     H, nh = packed.width, packed.n_hidden
-    _cuda.check("points", xyz, torch.float32, (-1, 3), dev)
     _cuda.check("ws", packed.ws, torch.bfloat16, (nh, H, H), dev)
     _cuda.check("wx", packed.wx, torch.float32, (nh + 1, 4, H), dev)
-    _cuda.check("cvec", cvec, torch.float32, (nh + 1, H), dev)
     _cuda.check("wlast", packed.wlast, torch.float32, (1, H), dev)
     _cuda.check("scal", packed.scal, torch.float32, (1, 4), dev)
+    if packed.ws_tiles is not None:
+        for name in ("ws_tiles", "ws_tiles_t"):
+            _cuda.check(name, getattr(packed, name), torch.bfloat16,
+                        (nh, H // KS, KS * H), dev)
+    return dev
+
+
+def _check(packed: PackedSelectMLP, cvec: torch.Tensor, xyz: torch.Tensor):
+    dev = xyz.device
+    _cuda.check("points", xyz, torch.float32, (-1, 3), dev)
+    _cuda.check("cvec", cvec, torch.float32,
+                (packed.n_hidden + 1, packed.width), dev)
+    if _packed_device(packed) != dev:
+        raise ValueError(f"packed decoder: on {_packed_device(packed)}, "
+                         f"expected {dev}")
 
 
 @functools.lru_cache(maxsize=None)
-def _wgmma_fits(H: int, nh: int) -> bool:
-    return bool(_cuda.query("stage2_mlp", "stage2_fwd_wgmma_fits", H, nh))
+def _wgmma_fits(kernel: str, H: int, nh: int) -> bool:
+    return bool(_cuda.query("stage2_mlp", f"stage2_{kernel}_wgmma_fits", H,
+                            nh))
+
+
+def _design(packed: PackedSelectMLP, kernel: str) -> str:
+    if packed.ws_tiles is not None and _wgmma_fits(kernel, packed.width,
+                                                   packed.n_hidden):
+        return "wgmma"
+    return "wmma"
+
+
+@functools.lru_cache(maxsize=64)
+def _wgmma_blocks(n: int, cluster: int) -> int:
+    return _cuda.query("stage2_mlp", "stage2_wgmma_blocks", n, cluster)
 
 
 def stage2_fwd_design(packed: PackedSelectMLP) -> str:
     """Kernel 4a's design for `packed`'s shape: "wgmma" or "wmma". Asks
     the library (built on first use)."""
-    if packed.ws_tiles is not None and _wgmma_fits(packed.width,
-                                                   packed.n_hidden):
-        return "wgmma"
-    return "wmma"
+    return _design(packed, "fwd")
+
+
+def stage2_bwd_design(packed: PackedSelectMLP) -> str:
+    """Kernel 4b's design for `packed`'s shape, as stage2_fwd_design."""
+    return _design(packed, "bwd")
 
 
 def stage2_fwd(packed: PackedSelectMLP, cvec: torch.Tensor,
@@ -146,9 +183,6 @@ def stage2_fwd(packed: PackedSelectMLP, cvec: torch.Tensor,
             _cuda.ptr(packed.scal), xyz.shape[0], H, nh,
             int(packed.use_tanh))
     if stage2_fwd_design(packed) == "wgmma":
-        for name in ("ws_tiles", "ws_tiles_t"):
-            _cuda.check(name, getattr(packed, name), torch.bfloat16,
-                        (nh, H // KS, KS * H), xyz.device)
         STAGE2_FWD_WGMMA(_cuda.ptr(xyz), _cuda.ptr(packed.ws_tiles),
                          _cuda.ptr(packed.ws_tiles_t), *args, CLUSTER,
                          _cuda.ptr(out), _cuda.stream(xyz))
@@ -159,25 +193,36 @@ def stage2_fwd(packed: PackedSelectMLP, cvec: torch.Tensor,
 
 
 def stage2_bwd(packed: PackedSelectMLP, cvec: torch.Tensor,
-               xyz: torch.Tensor, ct: torch.Tensor):
+               xyz: torch.Tensor, ct: torch.Tensor, design: str | None = None,
+               cluster: int = CLUSTER):
     """Kernel 4b: the sdf's cotangent (N,) -> (d_cvec (nh+1, H),
-    d_points (N, 3))."""
+    d_points (N, 3)). `design` None takes stage2_bwd_design's; the wgmma
+    design shares each weight slice among `cluster` CTAs."""
     _check(packed, cvec, xyz)
     n, H, nh = xyz.shape[0], packed.width, packed.n_hidden
     _cuda.check("ct", ct, torch.float32, (n,), xyz.device)
-    tile = _cuda.query("stage2_mlp", "stage2_tile", H, nh)
-    if tile == 0:
-        raise ValueError(f"stage2: width {H} does not fit a block")
-    blocks = -(-n // tile)
+    design = design or stage2_bwd_design(packed)
+    if design == "wgmma":
+        blocks = _wgmma_blocks(n, cluster)
+    else:
+        tile = _cuda.query("stage2_mlp", "stage2_tile", H, nh)
+        if tile == 0:
+            raise ValueError(f"stage2: width {H} does not fit a block")
+        blocks = -(-n // tile)
     partial = torch.empty(max(blocks, 1) * (nh + 1) * H, device=xyz.device,
                           dtype=torch.float32)
     dxyz = torch.empty(n, 3, device=xyz.device, dtype=torch.float32)
     dcvec = torch.empty(nh + 1, H, device=xyz.device, dtype=torch.float32)
-    STAGE2_BWD(_cuda.ptr(xyz), _cuda.ptr(packed.ws), _cuda.ptr(packed.wx),
-               _cuda.ptr(cvec), _cuda.ptr(packed.wlast),
-               _cuda.ptr(packed.scal), _cuda.ptr(ct), n, H, nh,
-               int(packed.use_tanh), _cuda.ptr(dxyz), _cuda.ptr(dcvec),
-               _cuda.ptr(partial), _cuda.stream(xyz))
+    args = (_cuda.ptr(packed.wx), _cuda.ptr(cvec), _cuda.ptr(packed.wlast),
+            _cuda.ptr(packed.scal), _cuda.ptr(ct), n, H, nh,
+            int(packed.use_tanh))
+    outs = (_cuda.ptr(dxyz), _cuda.ptr(dcvec), _cuda.ptr(partial),
+            _cuda.stream(xyz))
+    if design == "wgmma":
+        STAGE2_BWD_WGMMA(_cuda.ptr(xyz), _cuda.ptr(packed.ws_tiles),
+                         _cuda.ptr(packed.ws_tiles_t), *args, cluster, *outs)
+    else:
+        STAGE2_BWD_WMMA(_cuda.ptr(xyz), _cuda.ptr(packed.ws), *args, *outs)
     return dcvec, dxyz
 
 

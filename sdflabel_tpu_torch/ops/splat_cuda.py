@@ -8,6 +8,14 @@ versions (ops/splat.py::surfel_composite_dense, or
 :func:`surfel_composite_windowed` when binning is on) and CUDA tensors the
 kernels.
 
+The dense forward has two designs in csrc/splat.cu: the split design
+(``SPLAT_FWD``, every dense render), which splits the points over a
+cluster of up to 8 CTAs per 64-pixel tile and merges their softmax
+partials in one launch, and the first design (``SPLAT_FWD_FIRST``), one
+thread per pixel over all points, kept as the yardstick and as the
+binned forward's kernel. :func:`split_slices` says how many CTAs share a
+tile.
+
 Binning (splat_pallas.py:211-292) sorts the points by the first
 ``bin_px``-pixel row block their footprint can touch; each row block then
 meets only a window of the sorted points. :func:`compute_bins` repeats the
@@ -40,6 +48,9 @@ from sdflabel_tpu_torch.ops import splat as splat_ops
 NUM_FEATURES = 8  # [color(3) | mask(1) | depth(1) | normal(3)]
 
 SPLAT_FWD = _cuda.CudaKernel("splat", "splat_fwd", [
+    _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.F, _cuda.F,
+    _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P])
+SPLAT_FWD_FIRST = _cuda.CudaKernel("splat", "splat_fwd_first", [
     _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.F, _cuda.F,
     _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P])
 SPLAT_BWD = _cuda.CudaKernel("splat", "splat_bwd", [
@@ -141,7 +152,15 @@ def _pack_rays(kinv_grid):
     return torch.cat([kg, kg.new_zeros(kg.shape[0], 1)], 1).contiguous()
 
 
-def _fwd(pts, feats, kg, diam, depth_constant):
+def split_slices(n: int, p: int) -> int:
+    """CTAs (point slices) that share each 64-pixel tile in the split
+    dense forward for n points onto p pixels, on the current card."""
+    return _cuda.query("splat", "splat_fwd_slices", n, p)
+
+
+def _fwd(pts, feats, kg, diam, depth_constant, kernel=SPLAT_FWD):
+    """The dense forward through `kernel`: SPLAT_FWD (the split design)
+    or SPLAT_FWD_FIRST."""
     dev = pts.device
     n, p = pts.shape[0], kg.shape[0]
     _cuda.check("pts", pts, torch.float32, (n, 8), dev)
@@ -150,9 +169,9 @@ def _fwd(pts, feats, kg, diam, depth_constant):
     img = torch.empty(p, NUM_FEATURES, device=dev, dtype=torch.float32)
     m, d, zn = (torch.empty(p, device=dev, dtype=torch.float32)
                 for _ in range(3))
-    SPLAT_FWD(_cuda.ptr(pts), _cuda.ptr(feats), _cuda.ptr(kg), n, p, diam,
-              float(depth_constant), _cuda.ptr(img), _cuda.ptr(m),
-              _cuda.ptr(d), _cuda.ptr(zn), _cuda.stream(pts))
+    kernel(_cuda.ptr(pts), _cuda.ptr(feats), _cuda.ptr(kg), n, p, diam,
+           float(depth_constant), _cuda.ptr(img), _cuda.ptr(m),
+           _cuda.ptr(d), _cuda.ptr(zn), _cuda.stream(pts))
     return img, m, d, zn
 
 

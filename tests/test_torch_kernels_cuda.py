@@ -76,6 +76,47 @@ def test_splat_empty_mask_is_zero(dev):
     assert torch.all(img == 0)
 
 
+def _packed_splat(pts, nrm, feats, mask, kg):
+    return (splat_cuda._pack_points(pts, nrm, mask), feats.contiguous(),
+            splat_cuda._pack_rays(kg))
+
+
+@pytest.mark.parametrize("n,res", [(8192, (32, 32)), (3000, (32, 32)),
+                                   (3000, (30, 27))])
+def test_split_splat_forward_matches_plain_and_first_design(dev, n, res):
+    # the split dense forward (points over a cluster of CTAs, partials
+    # merged in rank order): the dense tolerance against the plain version
+    # (>= 99.5% of pixels within 2e-4), and the first design's per-pair
+    # arithmetic in another order of sums: within 2e-5 of it
+    pts, nrm, feats, mask, kg = _splat_scene(dev, n=n, res=res)
+    pts[:3, 2] = torch.tensor([-3.0, 0.0, 0.02], device=dev)  # degenerate
+    p = kg.shape[0]
+    assert splat_cuda.split_slices(n, p) == 8  # 810 or 1024 px: 13-16 tiles
+    f0 = splat_cuda.SPLAT_FWD.launches
+    pk, fk, kg4 = _packed_splat(pts, nrm, feats, mask, kg)
+    img, m, d, zn = splat_cuda._fwd(pk, fk, kg4, 0.04, 150.0)
+    first = splat_cuda._fwd(pk, fk, kg4, 0.04, 150.0,
+                            splat_cuda.SPLAT_FWD_FIRST)
+    img_p = splat.surfel_composite_dense(pts, nrm, feats, kg, mask)
+    torch.cuda.synchronize()
+    assert splat_cuda.SPLAT_FWD.launches == f0 + 1
+    err = (img - img_p).abs().max(-1).values
+    assert (err < 2e-4).float().mean() >= 0.995, err.max()
+    assert (img - first[0]).abs().max() <= 2e-5
+    # the saved m, d, zn keep their meaning for the backward
+    for got, want in zip((m, d, zn), first[1:]):
+        assert torch.allclose(got, want, rtol=2e-5, atol=1e-6)
+
+
+def test_split_splat_forward_is_deterministic(dev):
+    # no atomics: two launches are bit-equal
+    pk, fk, kg4 = _packed_splat(*_splat_scene(dev, n=8192))
+    a = splat_cuda._fwd(pk, fk, kg4, 0.04, 150.0)
+    b = splat_cuda._fwd(pk, fk, kg4, 0.04, 150.0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def test_nn_matches_plain_bitwise_with_ties_and_masks(dev):
     rng = np.random.RandomState(1)
     q = rng.randint(-4, 5, (3000, 3)).astype(np.float32) * 0.25
@@ -223,6 +264,83 @@ def test_wide_layers_take_the_wmma_designs(dev):
     packed = _packed(dev, 1024, layers=3)
     assert packed.n_hidden == 2 and packed.ws_tiles is None
     _check_designs(dev, packed, 1500, "wmma")
+    _check_bwd(dev, packed, 1500, "wmma")
+
+
+def _check_bwd(dev, packed, n, design, cluster=mlp_cuda.CLUSTER):
+    """Kernel 4b on n seeded points and cotangents against the plain
+    version's autograd, through `design` at `cluster` (the wgmma design's
+    C entry point takes it), with mlp2_cuda.stage2_agreement's limits; that
+    design's counter moves by one."""
+    pts, lat, cvec = _inputs(dev, packed, n)
+    ct = torch.randn(n, generator=torch.Generator().manual_seed(7)).to(dev)
+    if packed.ws_tiles is not None:
+        assert mlp2_cuda.stage2_bwd_design(packed) == "wgmma"
+    kernel = mlp2_cuda.STAGE2_BWD.designs[design]
+    b0 = kernel.launches
+    dcvec, dpts = mlp2_cuda.stage2_bwd(packed, cvec, pts, ct, design,
+                                       cluster)
+    cv = cvec.clone().requires_grad_(True)
+    p = pts.clone().requires_grad_(True)
+    sdf = mlp2_cuda.stage2_plain(packed, cv, p)
+    dcv_p, dp_p = torch.autograd.grad(sdf, (cv, p), ct)
+    torch.cuda.synchronize()
+    assert kernel.launches == b0 + 1
+    shares, medians = mlp2_cuda.stage2_agreement(sdf.detach(), sdf.detach(), (
+        ("d_points", dpts, dp_p),
+        ("d_cvec", dcvec.reshape(-1, 1), dcv_p.reshape(-1, 1))))
+    medians.pop("sdf")
+    assert max(medians.values()) <= 1e-4, medians
+    assert min(shares.values()) >= 0.98, shares
+
+
+@pytest.mark.parametrize("width", [128, 256, 384, 512])
+def test_wgmma_bwd_matches_plain(dev, width):
+    # 1000 points: 16 CTAs, the last one ragged
+    _check_bwd(dev, _packed(dev, width), 1000, "wgmma")
+
+
+@pytest.mark.parametrize("width", [128, 512])
+def test_wmma_bwd_matches_plain(dev, width):
+    # the first design stays live for wider layers: checked at these too
+    _check_bwd(dev, _packed(dev, width), 1000, "wmma")
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_wgmma_bwd_any_cluster(dev, cluster):
+    # the ring's barrier protocol and the partials' count at every cluster
+    # size the C entry point takes: the plain version's limits at the
+    # width tests' 1000 points, and the cluster size changes no sum, so
+    # the outputs equal the wrapper's (cluster mlp_cuda.CLUSTER) bit for bit
+    packed = _packed(dev, 512)
+    _check_bwd(dev, packed, 1000, "wgmma", cluster)
+    pts, _, cvec = _inputs(dev, packed, 1000)
+    ct = torch.randn(1000, generator=torch.Generator().manual_seed(7)).to(dev)
+    got = mlp2_cuda.stage2_bwd(packed, cvec, pts, ct, "wgmma", cluster)
+    want = mlp2_cuda.stage2_bwd(packed, cvec, pts, ct)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("width", [128, 256, 384, 512])
+@pytest.mark.parametrize("n", [1, 200, 1000])
+def test_wgmma_bwd_ragged_n(dev, width, n):
+    # rows do not meet but in the column sums, and a row whose cotangent is
+    # 0 adds 0 to them: n points give, bit for bit, the d_xyz of the first
+    # n rows and the d_cvec of 1100 points whose cotangent is 0 past n
+    packed = _packed(dev, width)
+    pts, _, cvec = _inputs(dev, packed, 1100)
+    ct = torch.randn(1100, generator=torch.Generator().manual_seed(8))
+    ct[n:] = 0.0
+    ct = ct.to(dev)
+    dcvec, dpts = mlp2_cuda.stage2_bwd(packed, cvec, pts, ct)
+    dcvec_n, dpts_n = mlp2_cuda.stage2_bwd(packed, cvec, pts[:n].contiguous(),
+                                           ct[:n].contiguous())
+    torch.cuda.synchronize()
+    assert mlp2_cuda.stage2_bwd_design(packed) == "wgmma"
+    assert dpts_n.shape == (n, 3)
+    assert torch.equal(dpts_n, dpts[:n]) and torch.equal(dcvec_n, dcvec)
+    assert torch.isfinite(dpts).all() and torch.isfinite(dcvec).all()
 
 
 @pytest.mark.parametrize("res,n", [((64, 64), 3000), ((200, 100), 2000),
@@ -360,8 +478,9 @@ def test_stage2_matches_plain(dev, width, n):
     lat = torch.tensor([0.3, -0.5, 0.8], device=dev)
     cvec = mlp_cuda._cvec(packed, lat)
     f0 = mlp2_cuda.STAGE2_FWD_WGMMA.launches
-    b0 = mlp2_cuda.STAGE2_BWD.launches
+    b0 = mlp2_cuda.STAGE2_BWD_WGMMA.launches
     assert mlp2_cuda.stage2_fwd_design(packed) == "wgmma"
+    assert mlp2_cuda.stage2_bwd_design(packed) == "wgmma"
     out = mlp2_cuda.stage2_fwd(packed, cvec, pts)
     dcvec, dpts = mlp2_cuda.stage2_bwd(packed, cvec, pts, ct)
     cv = cvec.clone().requires_grad_(True)
@@ -371,7 +490,7 @@ def test_stage2_matches_plain(dev, width, n):
     dcv_p, dp_p = torch.autograd.grad(sdf, (cv, p), ct)
     torch.cuda.synchronize()
     assert mlp2_cuda.STAGE2_FWD_WGMMA.launches == f0 + 1
-    assert mlp2_cuda.STAGE2_BWD.launches == b0 + 1
+    assert mlp2_cuda.STAGE2_BWD_WGMMA.launches == b0 + 1
     shares, medians = mlp2_cuda.stage2_agreement(out[:, 0], sdf.detach(), (
         ("normals", out[:, 1:], g), ("d_points", dpts, dp_p),
         ("d_cvec", dcvec.reshape(-1, 1), dcv_p.reshape(-1, 1))))
