@@ -6,8 +6,9 @@ Seven phases; any failure exits non-zero and no phase's error is caught.
 
 1. Build the port's CUDA kernels from ``sdflabel_tpu_torch/csrc`` (one
    nvcc per source, started together), print the registers, spills and
-   shared memory of the wgmma kernels and the split splat forward, and
-   the card's name and power limit.
+   shared memory of the wgmma kernels, the split splat forward and
+   backward and the split nearest neighbour, and the card's name and
+   power limit.
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, and time kernel, plain version and (where one
    exists) a PyTorch library call with CUDA events. The selection kernel
@@ -17,7 +18,12 @@ Seven phases; any failure exits non-zero and no phase's error is caught.
    plain versions and timed beside them. The dense splat forward's split
    design is held against its first design (one thread per pixel, the
    binned forward's kernel), which is checked and timed beside it, and
-   two of its launches must be bit-equal.
+   two of its launches must be bit-equal; so is the dense backward's split
+   design against its first design (one thread per point), and the split
+   nearest neighbour must equal its first design and the plain version bit
+   for bit, at the 3D loss's shape and at RANSAC's. Both new designs are
+   also timed alone on the device (the profiler's kernel time, without
+   the wrapper), beside their first designs.
 3. The demo driver: ``refine_css_demo`` on the bundled data/optimization
    assets with configs/config_demo.ini (viz off); the labels must land on
    the ground-truth annotation, the splat and NN kernels must have run,
@@ -46,7 +52,9 @@ Seven phases; any failure exits non-zero and no phase's error is caught.
    --refine`` does (the settings of scripts/run_quality_benchmark.py, 60
    iterations, float16, the stock warm band, the committed quality nets),
    and ``evaluate_dump.evaluate`` scores the dumps: KITTI and nuScenes AP
-   per difficulty.
+   per difficulty. Every car must get a label, and the BEV and 3D AP must
+   lie within 2 and 5 points of the JAX driver's on the same frames
+   (QUALITY_jax_cpu_v2.json, written by scripts/quality_jax_cpu.py).
 
 Each kernel's launches are counted on the path that runs it (set to 0
 just before the path, read just after): the dense splat, NN and selection
@@ -57,7 +65,9 @@ the script exits 2 and prints no result. ``--profile DIR`` adds one more
 full-width crop and two train steps under torch.profiler: device time by
 kernel group, the device busy time and its share of the wall time, and
 DIR/profile.json and DIR/profile_train.json with every kernel; the same
-crop once more with the first dense splat forward, and phase 4c's crop
+crop once more with the first dense splat forward, once with the first
+designs of the dense splat backward and the nearest neighbour, and phase
+4c's crop
 with the new designs and with the first splat forward and the wmma 4b,
 for comparison; then the train step timed with cuDNN's autotuner on. ``--rehearse-cpu`` runs phases
 3 to 7 on the CPU at a tiny size (2 iterations, 2 suite frames) with the
@@ -181,8 +191,11 @@ def ptxas_report(logs: dict) -> list[str]:
                               r"ILi(\d+)E", line)
                 name = m and f"{m.group(1)}_wgmma_kernel<{m.group(2)}>"
                 key = m and m.group(1)
-                if "splat_fwd_split_kernel" in line:
-                    name, key = "splat_fwd_split_kernel", None
+                for plain_name in ("splat_fwd_split_kernel",
+                                   "splat_bwd_split_kernel",
+                                   "nn_split_kernel"):
+                    if plain_name in line:
+                        name, key = plain_name, None
             elif name and "spill" in line:
                 spill = line.strip()
             elif name and "Used" in line:
@@ -213,6 +226,27 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Device time of one launch of the kernel whose name contains
+    `kernel`, without the wrapper's host work: the mean of the profiler's
+    kernel times over `reps` calls of `fn` (the profiler may drop a few
+    of the launches; the mean is over those it recorded)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and kernel in e.key]
+    count = sum(e.count for e in hits)
+    assert count > 0, f"the profiler recorded no launch of {kernel}"
+    return sum(e.self_device_time_total for e in hits) / count / 1e3
 
 
 def bound(bytes_moved: float, flops: float, peak_flops: float,
@@ -330,8 +364,41 @@ def check_splat(dev) -> list[dict]:
                                              150.0))
     first_ms = time_ms(lambda: splat_cuda._fwd(
         pk, feats, kg4, 0.04, 150.0, splat_cuda.SPLAT_FWD_FIRST))
+    # the backward's split design against its first design (one thread
+    # per point over all pixels) at the same inputs: d_points and
+    # d_features within 1e-5 of their largest magnitude, d_normals within
+    # 5e-5 (a difference of two sums that cancel ~100x: see
+    # tests/test_torch_kernels_cuda.py), and two launches of the split
+    # design bit-equal
+    bwd = splat_cuda._bwd(pk, feats, pix, 0.04, 150.0)
+    bwd_again = splat_cuda._bwd(pk, feats, pix, 0.04, 150.0)
+    bwd_first = splat_cuda._bwd(pk, feats, pix, 0.04, 150.0,
+                                splat_cuda.SPLAT_BWD_FIRST)
+    torch.cuda.synchronize()
+    bwd_vs_first = [float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(bwd, bwd_first)]
+    bwd_same = all(torch.equal(a, b) for a, b in zip(bwd, bwd_again))
+    first_bwd_err = max(float((a - b).abs().max())
+                        for a, b in zip(bwd_first, grads_p))
+    bwd_slices = splat_cuda.bwd_split_slices(n, p)
+    print(f"splat bwd, split design: {-(-n // 64)} point blocks x "
+          f"{bwd_slices} slices; max |split - first design| over the "
+          f"largest (d_points, d_normals, d_features) "
+          f"{[f'{x:.3g}' for x in bwd_vs_first]} (need <= 1e-5, 5e-5, "
+          f"1e-5), two launches bit-equal: {bwd_same}; first design "
+          f"max_abs_err {first_bwd_err:.3g}")
+    assert bwd_same and bwd_vs_first[1] <= 5e-5
+    assert bwd_vs_first[0] <= 1e-5 and bwd_vs_first[2] <= 1e-5
     bwd_ms = time_ms(lambda: splat_cuda._bwd(pk, feats, pix, 0.04,
                                              150.0))
+    bwd_first_ms = time_ms(lambda: splat_cuda._bwd(
+        pk, feats, pix, 0.04, 150.0, splat_cuda.SPLAT_BWD_FIRST))
+    bwd_kernel = kernel_ms(lambda: splat_cuda._bwd(pk, feats, pix, 0.04,
+                                                   150.0),
+                           "splat_bwd_split_kernel")
+    bwd_first_kernel = kernel_ms(lambda: splat_cuda._bwd(
+        pk, feats, pix, 0.04, 150.0, splat_cuda.SPLAT_BWD_FIRST),
+        "splat_bwd_kernel")
     with torch.no_grad():
         fwd_plain = time_ms(lambda: splat.surfel_composite_dense(
             pts, nrm, feats, kg, mask))
@@ -340,6 +407,12 @@ def check_splat(dev) -> list[dict]:
     print(f"splat fwd: split design {fwd_ms:.4f} ms, first design "
           f"{first_ms:.4f} ms ({first_ms / fwd_ms:.1f}x), bound "
           f"{fwd_bound[0]:.5f} ms ({fwd_bound[2]})")
+    print(f"splat bwd: split design {bwd_ms:.4f} ms a call "
+          f"({bwd_kernel:.4f} ms the kernel alone), first design "
+          f"{bwd_first_ms:.4f} ms ({bwd_first_kernel:.4f}), "
+          f"{bwd_first_ms / bwd_ms:.1f}x a call, "
+          f"{bwd_first_kernel / bwd_kernel:.1f}x the kernel; bound "
+          f"{bwd_bound[0]:.5f} ms ({bwd_bound[2]})")
     return [
         dict(name="splat_fwd", max_abs_err=fwd_err, ms=fwd_ms,
              plain_ms=fwd_plain, bound_ms=fwd_bound[0],
@@ -350,7 +423,11 @@ def check_splat(dev) -> list[dict]:
         dict(name="splat_bwd", max_abs_err=bwd_err, ms=bwd_ms,
              plain_ms=bwd_plain, bound_ms=bwd_bound[0],
              bound_by=bwd_bound[1], bound_what=bwd_bound[2],
-             library_ms=None),
+             library_ms=None, design="split", slices=bwd_slices,
+             kernel_ms=bwd_kernel, first_ms=bwd_first_ms,
+             first_kernel_ms=bwd_first_kernel,
+             first_max_abs_err=first_bwd_err,
+             rel_vs_first=bwd_vs_first),
     ]
 
 
@@ -370,28 +447,64 @@ def splat_bounds(pairs: float, fp_pairs: float, fwd_bytes: float,
 
 def check_nn(dev) -> dict:
     """8192 queries x 8192 data (the frustum capacity), a partial mask, and
-    coordinates on a 0.25 lattice so that exact distance ties abound."""
+    coordinates on a 0.25 lattice so that exact distance ties abound; then
+    RANSAC's shape, 567 hypotheses x 2048 scene points against 2048 model
+    points. The split design must equal the plain version and the first
+    design bit for bit at both."""
+    def case(n, m, seed):
+        rng = np.random.RandomState(seed)
+        q = rng.randint(-8, 9, (n, 3)).astype(np.float32) * 0.25
+        d = rng.randint(-8, 9, (m, 3)).astype(np.float32) * 0.25
+        mask = rng.uniform(size=m) > 0.3
+        return tuple(torch.as_tensor(a, device=dev) for a in (q, d, mask))
+
+    first = functools.partial(nn_cuda.nearest_neighbor_fused,
+                              kernel=nn_cuda.NN_FIRST)
+    rows = {}
+    for label, (n, m, seed) in (("loss", (8192, 8192, 1)),
+                                ("ransac", (567 * 2048, 2048, 2))):
+        q, d, mask = case(n, m, seed)
+        dk, ik = nn_cuda.nearest_neighbor_fused(q, d, mask)
+        df, if_ = first(q, d, mask)
+        dp, ip = knn.nearest_neighbor_plain(q, d, mask)
+        torch.cuda.synchronize()
+        # tolerance: none; the index and the squared distance are equal
+        err = float((dk - dp).abs().max())
+        first_err = float((df - dp).abs().max())
+        same = (bool(torch.equal(ik, ip)) and bool(torch.equal(ik, if_))
+                and bool(torch.equal(dk, df)))
+        slices = nn_cuda.split_slices(n, m)
+        print(f"nn {label} ({n} x {m}): split design, {slices} slices; "
+              f"max_abs_err {err} (need 0), indices and distances equal to "
+              f"the plain version's and the first design's: {same}")
+        assert err == 0.0 and same
+        rows[label] = (q, d, mask, err, first_err, slices)
+    q, d, mask, err, first_err, slices = rows["loss"]
     n = m = 8192
-    rng = np.random.RandomState(1)
-    q = rng.randint(-8, 9, (n, 3)).astype(np.float32) * 0.25
-    d = rng.randint(-8, 9, (m, 3)).astype(np.float32) * 0.25
-    mask = rng.uniform(size=m) > 0.3
-    q, d, mask = (torch.as_tensor(a, device=dev) for a in (q, d, mask))
-    dk, ik = nn_cuda.nearest_neighbor_fused(q, d, mask)
-    dp, ip = knn.nearest_neighbor_plain(q, d, mask)
-    torch.cuda.synchronize()
-    # tolerance: none; the index and the squared distance are equal
-    err = float((dk - dp).abs().max())
-    same_idx = bool(torch.equal(ik, ip))
-    print(f"nn: max_abs_err {err} (need 0), indices equal: {same_idx}")
-    assert err == 0.0 and same_idx
-    b = bound(4 * (3 * n + 4 * m + 2 * n), 9 * n * m, FP32_FLOPS)
-    return dict(name="nn", max_abs_err=err,
-                ms=time_ms(lambda: nn_cuda.nearest_neighbor_fused(q, d,
-                                                                  mask)),
+    b = bound(4 * 3 * n + 13 * m + 12 * n, 9 * n * m, FP32_FLOPS)
+    ms = time_ms(lambda: nn_cuda.nearest_neighbor_fused(q, d, mask))
+    first_ms = time_ms(lambda: first(q, d, mask))
+    kernel = kernel_ms(lambda: nn_cuda.nearest_neighbor_fused(q, d, mask),
+                       "nn_split_kernel")
+    first_kernel = kernel_ms(lambda: first(q, d, mask), "nn_kernel")
+    qr, dr, mr = rows["ransac"][:3]
+    ransac_kernel = kernel_ms(lambda: nn_cuda.nearest_neighbor_fused(
+        qr, dr, mr), "nn_split_kernel", reps=5)
+    ransac_first = kernel_ms(lambda: first(qr, dr, mr), "nn_kernel", reps=5)
+    print(f"nn: split design {ms:.4f} ms a call ({kernel:.4f} ms the "
+          f"kernel alone), first design {first_ms:.4f} ms "
+          f"({first_kernel:.4f}), {first_kernel / kernel:.1f}x the kernel; "
+          f"bound {b[0]:.5f} ms; RANSAC shape: the kernel alone "
+          f"{ransac_kernel:.4f} ms, first design {ransac_first:.4f} ms")
+    return dict(name="nn", max_abs_err=err, ms=ms,
                 plain_ms=time_ms(lambda: knn.nearest_neighbor_plain(q, d,
                                                                     mask)),
-                bound_ms=b[0], bound_by=b[1], library_ms=None)
+                bound_ms=b[0], bound_by=b[1], library_ms=None,
+                design="split", slices=slices, kernel_ms=kernel,
+                first_ms=first_ms, first_kernel_ms=first_kernel,
+                first_max_abs_err=first_err, ransac_kernel_ms=ransac_kernel,
+                ransac_first_kernel_ms=ransac_first,
+                ransac_slices=rows["ransac"][5])
 
 
 def check_select(dev) -> dict:
@@ -1156,6 +1269,34 @@ def quality_cfgp(suite: str, labels: str, iters: int = 60):
     return cfgp
 
 
+# the JAX driver's AP on the same suite on the CPU
+# (scripts/quality_jax_cpu.py), one row per frame count
+QUALITY_JAX = os.path.join(ROOT, "QUALITY_jax_cpu_v2.json")
+AP_BANDS = {"bev_ap": 2.0, "kitti_3d_ap": 5.0}  # points, PERF.md section 2
+
+
+def hold_against_jax(ap: dict, n_frames: int) -> None:
+    """KITTI BEV AP within 2 points and 3D AP within 5 of the JAX driver's
+    row with the same frame count, at each difficulty and threshold: the
+    bands of PERF.md section 2, a few objects crossing IoU 0.7 on a suite
+    of 50 to 150 cars."""
+    with open(QUALITY_JAX) as f:
+        row = json.load(f)["rows"].get(str(n_frames))
+    if row is None:
+        print(f"quality: no JAX row for {n_frames} frames in "
+              f"{os.path.basename(QUALITY_JAX)}; not held")
+        return
+    worst = {}
+    for key, band in AP_BANDS.items():
+        gaps = [abs(a - b) for d in ap[key]
+                for a, b in zip(ap[key][d], row[key][d])]
+        worst[key] = max(gaps)
+        print(f"quality: {key} against the JAX driver on the CPU "
+              f"({row['gt_boxes']} cars): port {ap[key]}, JAX {row[key]}, "
+              f"largest gap {worst[key]:.4f} points (band {band})")
+    assert all(worst[k] <= b for k, b in AP_BANDS.items()), worst
+
+
 def kitti_phase(dev, out_dir, n_frames: int = 24, iters: int = 60):
     """Build the suite, run the driver over it, evaluate the dumps."""
     suite = os.path.join(out_dir, "quality_suite")
@@ -1195,6 +1336,7 @@ def kitti_phase(dev, out_dir, n_frames: int = 24, iters: int = 60):
     assert n_est >= 0.9 * n_gt
     if dev.type == "cuda":
         assert launched["splat_fwd"] > 0 and launched["nn"] > 0
+        assert n_est == n_gt, "every car gets a label"
 
     t0 = time.perf_counter()
     results = evaluate_dump.evaluate(cfgp, (0, 1, 2), device=dev)
@@ -1211,6 +1353,8 @@ def kitti_phase(dev, out_dir, n_frames: int = 24, iters: int = 60):
           "nuscenes_3d_ap": per_diff(results[1]["Box3DAP_Nu"])}
     print(f"evaluation: {eval_s:.3f} s; AP per difficulty (at the two "
           f"thresholds) {json.dumps(ap)}")
+    if dev.type == "cuda":
+        hold_against_jax(ap, n_frames)
     return launched, dict(frames=n_frames, cars=meta["objects"],
                           tiers=meta["difficulty_tiers"], build_s=build_s,
                           driver_s=wall, crops=n_gt, labels=n_est,
@@ -1226,7 +1370,9 @@ def _kernel_group(name: str) -> str:
     # port would be named here, and cuBLAS's name a gemm
     for key, group in (("splat_fwd_split_kernel", "splat_fwd"),
                        ("splat_fwd_kernel", "splat_fwd"),
+                       ("splat_bwd_split_kernel", "splat_bwd"),
                        ("splat_bwd_kernel", "splat_bwd"),
+                       ("nn_split_kernel", "nn"),
                        ("nn_kernel", "nn"), ("select_mlp_kernel", "select_mlp"),
                        ("select_wgmma_kernel", "select_mlp"),
                        ("stage2_fwd_wgmma_kernel", "stage2_fwd"),
@@ -1331,6 +1477,13 @@ def profile_all(out_dir: str, rt512, rt_stage2, prep, state, fixed,
     profile_design(rt512, prep, "full-width crop, first splat_fwd",
                    os.path.join(out_dir, "profile_first_splat.json"),
                    [first_fwd])
+    first_bwd = (splat_cuda, "_bwd", functools.partial(
+        splat_cuda._bwd, kernel=splat_cuda.SPLAT_BWD_FIRST))
+    first_nn = (nn_cuda, "nearest_neighbor_fused", functools.partial(
+        nn_cuda.nearest_neighbor_fused, kernel=nn_cuda.NN_FIRST))
+    profile_design(rt512, prep, "full-width crop, first splat_bwd and nn",
+                   os.path.join(out_dir, "profile_first_bwd_nn.json"),
+                   [first_bwd, first_nn])
     profile_design(rt_stage2, prep, "4c crop",
                    os.path.join(out_dir, "profile_4c.json"))
     profile_design(rt_stage2, prep, "4c crop, first splat_fwd and wmma 4b",

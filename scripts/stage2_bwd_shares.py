@@ -9,7 +9,12 @@ For the seeded decoders and inputs of tests/test_torch_kernels_cuda.py
 (the wgmma design at clusters 1, 2 and 4, the wmma design) against the
 plain version summed in fp32 and in fp64, and of the fp32 plain version
 against the fp64 one; and whether the cluster sizes give the same bits.
-Prints one line per case and, last, one JSON object.
+For each case it also lists the d_cvec rows (layer j, column h of the
+(nh + 1, H) cvec) that the wgmma design at the wrappers' cluster size puts
+outside 5e-3 of the largest element against the fp32 plain version: per
+layer, and each with its value in the kernel, the fp32 and the fp64 plain
+versions, so that one sees which of the two fp32 results the fp64 sum
+sides with. Prints one line per case and, last, one JSON object.
 """
 
 from __future__ import annotations
@@ -38,6 +43,29 @@ def shares(dev, got, want):
     s.pop("sdf")
     m.pop("sdf")
     return s, m
+
+
+def outside_rows(got, fp32, fp64, limit=5e-3):
+    """d_cvec rows of `got` outside `limit` of fp32's largest element:
+    each (layer, column, kernel, fp32, fp64), the count per layer, and how
+    many of them the kernel holds within `limit` of fp64's largest."""
+    got, fp32, fp64 = (t.detach().double().cpu().reshape(fp32.shape)
+                       for t in (got, fp32, fp64))
+    err = (got - fp32).abs() / fp32.abs().max()
+    err64 = (got - fp64).abs() / fp64.abs().max()
+    plain_err = (fp32 - fp64).abs() / fp64.abs().max()
+    rows = [dict(layer=int(j), column=int(h), kernel=float(got[j, h]),
+                 fp32=float(fp32[j, h]), fp64=float(fp64[j, h]),
+                 kernel_vs_fp64=float(err64[j, h]),
+                 fp32_vs_fp64=float(plain_err[j, h]))
+            for j, h in (err > limit).nonzero().tolist()]
+    per_layer = [int(c) for c in (err > limit).sum(1).tolist()]
+    return dict(count=len(rows), of=int(err.numel()), per_layer=per_layer,
+                kernel_within_vs_fp64=sum(r["kernel_vs_fp64"] <= limit
+                                          for r in rows),
+                fp32_outside_vs_fp64=sum(r["fp32_vs_fp64"] > limit
+                                         for r in rows),
+                largest_fp32=float(fp32.abs().max()), rows=rows)
 
 
 def main() -> int:
@@ -73,6 +101,9 @@ def main() -> int:
                 row[f"{design}_{cluster}"] = {
                     "vs_fp32": shares(dev, out, plain[torch.float32]),
                     "vs_fp64": shares(dev, out, plain[torch.float64])}
+            row["d_cvec_outside_fp32"] = outside_rows(
+                outs["wgmma", 2][0], plain[torch.float32][0],
+                plain[torch.float64][0])
             row["clusters_bit_equal"] = all(
                 all(torch.equal(a, b) for a, b in zip(
                     outs["wgmma", c], outs["wgmma", 2])) for c in (1, 4))

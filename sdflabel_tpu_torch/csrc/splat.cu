@@ -47,8 +47,25 @@
 //             with the running max, denominator and 8 feature accumulators
 //             in registers. The binned forward runs it with windows; dense,
 //             it is the split design's yardstick (splat_fwd_first).
-//   backward: point-major, one thread per point looping over pixel chunks
-//             staged in shared memory; no atomics, so it is deterministic.
+//   dense backward, split design (splat_bwd_split_kernel, every dense
+//             render's VJP): point-major, but the pixels are split too, as
+//             the forward's points are: grid (point blocks, S), the S <= 8
+//             CTAs of a block of 64 points one cluster, each on a
+//             contiguous slice of the pixel rows staged once in shared
+//             memory (in chunks past BSPLIT_CAP). In a CTA, BSPLIT_T groups
+//             of two warps take contiguous parts of each staged chunk; the
+//             32 lanes of a warp hold 32 points that read the same pixel
+//             row, a broadcast. Each thread's PointGrads partial goes to
+//             shared memory, the groups' partials are added in warp order,
+//             then the ranks' sums in rank order through distributed shared
+//             memory, rank r adding the r-th share of the block's points:
+//             no atomics, the same result every run. The per-pair work is
+//             the first design's; only the order of the per-point sums over
+//             pixels changes. 8192 points onto 32x32 px: 128 point blocks
+//             x 3 CTAs of 8 warps (bwd_split_slices), 23 warps an SM.
+//   dense backward, first design (splat_bwd_kernel, the split design's
+//             yardstick, splat_bwd_first): one thread per point looping
+//             over all pixel chunks; 64 CTAs of 4 warps for 8192 points.
 //
 // Row binning (renders of >= 4096 px, ops/splat_cuda.py::compute_bins):
 // the points arrive sorted by the first bin_px-pixel row block their
@@ -89,6 +106,14 @@ constexpr int PART = 2 + NF;     // a softmax partial: m, d, acc[NF]
 constexpr size_t SPLIT_SMEM =
     (size_t)(SPLIT_CAP * (8 + NF) + SPLIT_T * PART * SPLIT_PX +
              (1 + PART) * SPLIT_PX) * sizeof(float);
+// the split dense backward, splat_bwd_split_kernel
+constexpr int BSPLIT_PTS = 64;   // points per CTA: two warps
+constexpr int BSPLIT_T = 4;      // groups of two warps over the pixels
+constexpr int BSPLIT_THREADS = BSPLIT_PTS * BSPLIT_T;
+constexpr int BSPLIT_CAP = 256;  // pixel rows staged at once: 16 KB
+constexpr int BSPLIT_MIN_PX = 64;  // fewest pixels per slice worth a CTA
+constexpr int BSPLIT_CTAS_PER_SM = 2;  // CTAs (16 warps) the rule aims at
+constexpr int NG = 4 + NF;       // the floats of a PointGrads
 
 // Ray-plane geometry of point q = [v(3), n(3), mask, pad] against pixel ray
 // g (splat_pallas.py::_geometry, with the explicit distance of
@@ -142,6 +167,12 @@ struct PointGrads {
       dnk_g1 += dnk * r[1];
       dnk_g2 += dnk * r[2];
     }
+  }
+
+  // entry k of the partial: 0 dnv_sum, 1-3 dnk_g0..2, 4 + f gf[f]
+  __device__ __forceinline__ float& at(int k) {
+    return k == 0 ? dnv_sum : k == 1 ? dnk_g0 : k == 2 ? dnk_g1
+         : k == 3 ? dnk_g2 : gf[k - 4];
   }
 
   __device__ __forceinline__ void store(const float* q, int i, float* dv,
@@ -447,6 +478,100 @@ splat_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ feats,
   if (active) acc.store(q, i, dv, dn, df);
 }
 
+// The dense backward split over the pixels. Grid (point blocks, S): the S
+// CTAs of a block of BSPLIT_PTS points form a cluster and take contiguous
+// slices of `per` pixel rows; thread t is point t % BSPLIT_PTS of the
+// block in group g = t / BSPLIT_PTS, and group g takes the g-th contiguous
+// part (ceil(cn / BSPLIT_T) rows) of each staged chunk of cn rows. Each
+// thread's PointGrads partial is added over the groups in order, then over
+// the ranks in rank order; rank r stores the r-th share of the points.
+__global__ void __launch_bounds__(BSPLIT_THREADS, 3)
+splat_bwd_split_kernel(const float* __restrict__ pts,
+                       const float* __restrict__ feats,
+                       const float* __restrict__ pix, int n, int p, int per,
+                       float diam, float dc, float* __restrict__ dv,
+                       float* __restrict__ dn, float* __restrict__ df) {
+  __shared__ float4 s_pix4[BSPLIT_CAP * PIX_W / 4];
+  __shared__ float s_part[BSPLIT_T * NG * BSPLIT_PTS];
+  __shared__ float s_sum[NG * BSPLIT_PTS];
+  const float* s_pix = reinterpret_cast<const float*>(s_pix4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int slices = (int)cluster.num_blocks();
+  const int pt = threadIdx.x % BSPLIT_PTS, grp = threadIdx.x / BSPLIT_PTS;
+  const int i = blockIdx.x * BSPLIT_PTS + pt;
+  const bool active = i < n;
+  const int lo = min(p, rank * per), hi = min(p, lo + per);
+  float q[8], fi[NF];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) q[k] = active ? pts[(size_t)i * 8 + k] : 0.f;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) fi[f] = active ? feats[(size_t)i * NF + f] : 0.f;
+  PointGrads acc;
+
+  for (int c0 = lo; c0 < hi; c0 += BSPLIT_CAP) {
+    const int cn = min(BSPLIT_CAP, hi - c0);
+    __syncthreads();
+    const float4* p4 = reinterpret_cast<const float4*>(pix) +
+                       (size_t)c0 * (PIX_W / 4);
+    for (int k = threadIdx.x; k < cn * (PIX_W / 4); k += BSPLIT_THREADS)
+      s_pix4[k] = p4[k];
+    __syncthreads();
+    if (!active) continue;
+    const int sub = (cn + BSPLIT_T - 1) / BSPLIT_T;
+    const int j0 = grp * sub, j1 = min(cn, j0 + sub);
+    for (int j = j0; j < j1; ++j) acc.add(q, fi, &s_pix[j * PIX_W], diam, dc);
+  }
+#pragma unroll
+  for (int k = 0; k < NG; ++k)
+    s_part[(grp * NG + k) * BSPLIT_PTS + pt] = acc.at(k);
+  __syncthreads();
+  if (grp == 0) {  // the CTA's partial: its groups in warp order
+#pragma unroll
+    for (int k = 0; k < NG; ++k) {
+      float v = s_part[k * BSPLIT_PTS + pt];
+      for (int g = 1; g < BSPLIT_T; ++g)
+        v += s_part[(g * NG + k) * BSPLIT_PTS + pt];
+      s_sum[k * BSPLIT_PTS + pt] = v;
+    }
+  }
+  cluster.sync();
+  // rank r adds the ranks' sums of its share of the points in rank order
+  // (share <= BSPLIT_PTS < BSPLIT_THREADS: one point a thread)
+  const int share = (BSPLIT_PTS + slices - 1) / slices;
+  const int j = rank * share + (int)threadIdx.x;
+  const int ij = blockIdx.x * BSPLIT_PTS + j;
+  if ((int)threadIdx.x < share && j < BSPLIT_PTS && ij < n) {
+    PointGrads total;
+#pragma unroll
+    for (int k = 0; k < NG; ++k) {
+      float v = *cluster.map_shared_rank(s_sum + k * BSPLIT_PTS + j, 0);
+      for (int r = 1; r < slices; ++r)
+        v += *cluster.map_shared_rank(s_sum + k * BSPLIT_PTS + j, r);
+      total.at(k) = v;
+    }
+    float qj[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) qj[k] = pts[(size_t)ij * 8 + k];
+    total.store(qj, ij, dv, dn, df);
+  }
+  cluster.sync();  // no CTA leaves while a peer may still read it
+}
+
+// Slices S of the split backward for n points onto p pixels: enough CTAs
+// for BSPLIT_CTAS_PER_SM on every SM, at most SPLIT_MAX, slices of at least
+// BSPLIT_MIN_PX pixels; 1 when the point blocks alone fill the card.
+int bwd_split_slices(int n, int p) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int blocks = max((n + BSPLIT_PTS - 1) / BSPLIT_PTS, 1);
+  int s = (sms * BSPLIT_CTAS_PER_SM + blocks - 1) / blocks;
+  s = min(s, SPLIT_MAX);
+  s = min(s, (p + BSPLIT_MIN_PX - 1) / BSPLIT_MIN_PX);
+  return max(s, 1);
+}
+
 // Binned backward over points sorted as the binned forward saw them. key
 // (n,) is each sorted point's first row block (nb: touches none); smax
 // points at the widest span. Outputs are in sorted order.
@@ -572,10 +697,42 @@ int splat_fwd_binned(const void* pts, const void* feats, const void* kg, int n,
   return (int)cudaGetLastError();
 }
 
-// pts, feats as above; pix (p, 16) -> dv (n, 3), dn (n, 3), df (n, 8).
+// Pixel slices (CTAs per cluster) of splat_bwd for n points onto p pixels.
+int splat_bwd_slices(int n, int p) { return bwd_split_slices(n, p); }
+
+// pts, feats as above; pix (p, 16) -> dv (n, 3), dn (n, 3), df (n, 8). The
+// split design; `slices` > 0 forces the cluster size (1..8), 0 takes
+// bwd_split_slices(n, p).
 int splat_bwd(const void* pts, const void* feats, const void* pix, int n,
-              int p, float diam, float depth_constant, void* dv, void* dn,
-              void* df, void* stream) {
+              int p, int slices, float diam, float depth_constant, void* dv,
+              void* dn, void* df, void* stream) {
+  if (n <= 0) return 0;
+  if (slices <= 0) slices = bwd_split_slices(n, p);
+  if (slices > SPLIT_MAX) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + BSPLIT_PTS - 1) / BSPLIT_PTS, slices);
+  cfg.blockDim = dim3(BSPLIT_THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = slices;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, splat_bwd_split_kernel, (const float*)pts, (const float*)feats,
+      (const float*)pix, n, p, (p + slices - 1) / slices, diam,
+      depth_constant, (float*)dv, (float*)dn, (float*)df);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// As splat_bwd, through the first design (splat_bwd_kernel).
+int splat_bwd_first(const void* pts, const void* feats, const void* pix,
+                    int n, int p, float diam, float depth_constant, void* dv,
+                    void* dn, void* df, void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + BWD_THREADS - 1) / BWD_THREADS;
   splat_bwd_kernel<<<blocks, BWD_THREADS, 0, (cudaStream_t)stream>>>(

@@ -183,7 +183,9 @@ def ptr(t: torch.Tensor) -> int:
 
 
 def stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on `t`'s device, as a raw cudaStream_t
+    (without building a torch.cuda.Stream object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,

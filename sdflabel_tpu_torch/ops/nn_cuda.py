@@ -1,10 +1,14 @@
 """Streaming top-1 nearest neighbour (kernel 2).
 
-Counterpart of sdflabel_tpu/ops/nn_pallas.py. The kernel lives in
-csrc/nn.cu, whose source note says what bounds it on the H100 and how the
-design follows. It is bit-identical to the plain version
-(ops/knn.py::nearest_neighbor_plain): same per-pair arithmetic, same
-first-min index. Non-differentiable: callers pass detached inputs.
+Counterpart of sdflabel_tpu/ops/nn_pallas.py. The kernels live in
+csrc/nn.cu, whose source note says what bounds them on the H100 and how
+the designs follow: the split design (``NN_FWD``, every launch) splits the
+data points over a cluster of up to 8 CTAs per query block and merges the
+slices' first minima in rank order; the first design (``NN_FIRST``, one
+thread per query over all data) is kept as its yardstick and is launched
+only by measurements and tests. Both are bit-identical to the plain
+version (ops/knn.py::nearest_neighbor_plain): same per-pair arithmetic,
+same first-min index. Non-differentiable: callers pass detached inputs.
 """
 
 from __future__ import annotations
@@ -16,28 +20,49 @@ from sdflabel_tpu_torch.ops import _cuda
 BIG = 1e30  # masked-column sentinel of the squared distance
 
 NN_FWD = _cuda.CudaKernel("nn", "nn_fwd", [
-    _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.P, _cuda.P, _cuda.P])
+    _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.P, _cuda.P,
+    _cuda.P])
+NN_FIRST = _cuda.CudaKernel("nn", "nn_first", [
+    _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.P, _cuda.P, _cuda.P])
+
+
+def split_slices(n: int, m: int) -> int:
+    """CTAs (data slices) that share each query block in the split design
+    for n queries against m data points, on the current card."""
+    return _cuda.query("nn", "nn_slices", n, m)
 
 
 def nearest_neighbor_fused(query: torch.Tensor, data: torch.Tensor,
-                           data_mask: torch.Tensor | None = None
+                           data_mask: torch.Tensor | None = None,
+                           kernel: _cuda.CudaKernel = NN_FWD,
+                           slices: int = 0
                            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(N,3) query, (M,3) data on a CUDA device -> (squared min distance
-    (N,) float32, index (N,) int64). A fully masked row gives 1e30 and
-    index 0."""
+    """(N,3) query, (M,3) data, optional (M,) mask (nonzero: valid) on a
+    CUDA device -> (squared min distance (N,) float32, index (N,) int64).
+    A fully masked row gives 1e30 and index 0. `kernel` is NN_FWD (the
+    split design; `slices` > 0 forces its cluster size) or NN_FIRST.
+    Contiguous float32 points and a bool mask are read as they are: the
+    kernel is then the only launch."""
     if query.device.type != "cuda":
         raise ValueError("nearest_neighbor_fused launches a CUDA kernel; "
                          f"got a tensor on {query.device}")
     dev = query.device
     n, m = query.shape[0], data.shape[0]
-    mask = (torch.ones(m, device=dev) if data_mask is None
-            else data_mask.to(torch.float32))
     q = query.detach().float().contiguous()
-    packed = torch.cat([data.detach().float(), mask[:, None]], 1).contiguous()
+    d = data.detach().float().contiguous()
     _cuda.check("query", q, torch.float32, (n, 3), dev)
-    _cuda.check("data", packed, torch.float32, (m, 4), dev)
+    _cuda.check("data", d, torch.float32, (m, 3), dev)
+    mask_ptr = None
+    if data_mask is not None:
+        mask = data_mask.detach()
+        if mask.dtype != torch.bool:
+            mask = mask != 0
+        mask = mask.contiguous()
+        _cuda.check("data_mask", mask, torch.bool, (m,), dev)
+        mask_ptr = _cuda.ptr(mask)
     d2 = torch.empty(n, device=dev, dtype=torch.float32)
-    idx = torch.empty(n, device=dev, dtype=torch.int32)
-    NN_FWD(_cuda.ptr(q), _cuda.ptr(packed), n, m, _cuda.ptr(d2),
-           _cuda.ptr(idx), _cuda.stream(q))
-    return d2, idx.long()
+    idx = torch.empty(n, device=dev, dtype=torch.int64)
+    extra = (slices,) if kernel is NN_FWD else ()
+    kernel(_cuda.ptr(q), _cuda.ptr(d), mask_ptr, n, m, *extra,
+           _cuda.ptr(d2), _cuda.ptr(idx), _cuda.stream(q))
+    return d2, idx

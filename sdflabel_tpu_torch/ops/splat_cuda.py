@@ -14,7 +14,12 @@ cluster of up to 8 CTAs per 64-pixel tile and merges their softmax
 partials in one launch, and the first design (``SPLAT_FWD_FIRST``), one
 thread per pixel over all points, kept as the yardstick and as the
 binned forward's kernel. :func:`split_slices` says how many CTAs share a
-tile.
+tile. The dense backward likewise: the split design (``SPLAT_BWD``, every
+dense VJP) splits the pixels over a cluster of up to 8 CTAs per block of
+64 points and adds their per-point partial gradients in rank order
+(:func:`bwd_split_slices` CTAs a block); the first design
+(``SPLAT_BWD_FIRST``, one thread per point over all pixels) is the
+yardstick, launched only by measurements and tests.
 
 Binning (splat_pallas.py:211-292) sorts the points by the first
 ``bin_px``-pixel row block their footprint can touch; each row block then
@@ -54,6 +59,9 @@ SPLAT_FWD_FIRST = _cuda.CudaKernel("splat", "splat_fwd_first", [
     _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.F, _cuda.F,
     _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P])
 SPLAT_BWD = _cuda.CudaKernel("splat", "splat_bwd", [
+    _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.F,
+    _cuda.P, _cuda.P, _cuda.P, _cuda.P])
+SPLAT_BWD_FIRST = _cuda.CudaKernel("splat", "splat_bwd_first", [
     _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.F, _cuda.F,
     _cuda.P, _cuda.P, _cuda.P, _cuda.P])
 SPLAT_FWD_BINNED = _cuda.CudaKernel("splat", "splat_fwd_binned", [
@@ -158,6 +166,12 @@ def split_slices(n: int, p: int) -> int:
     return _cuda.query("splat", "splat_fwd_slices", n, p)
 
 
+def bwd_split_slices(n: int, p: int) -> int:
+    """CTAs (pixel slices) that share each block of 64 points in the split
+    dense backward for n points onto p pixels, on the current card."""
+    return _cuda.query("splat", "splat_bwd_slices", n, p)
+
+
 def _fwd(pts, feats, kg, diam, depth_constant, kernel=SPLAT_FWD):
     """The dense forward through `kernel`: SPLAT_FWD (the split design)
     or SPLAT_FWD_FIRST."""
@@ -211,18 +225,24 @@ def _bwd_binned(pts, feats, pix, key, smax, bin_px, diam, depth_constant):
     return dv, dn, df
 
 
-def _bwd(pts, feats, pix, diam, depth_constant):
+def _bwd(pts, feats, pix, diam, depth_constant, kernel=SPLAT_BWD,
+         slices=0):
+    """The dense backward through `kernel`: SPLAT_BWD (the split design;
+    `slices` > 0 forces its cluster size) or SPLAT_BWD_FIRST."""
     dev = pts.device
     n, p = pts.shape[0], pix.shape[0]
     _cuda.check("pts", pts, torch.float32, (n, 8), dev)
     _cuda.check("feats", feats, torch.float32, (n, NUM_FEATURES), dev)
     _cuda.check("pix", pix, torch.float32, (p, 16), dev)
-    dv = torch.empty(n, 3, device=dev, dtype=torch.float32)
-    dn = torch.empty(n, 3, device=dev, dtype=torch.float32)
-    df = torch.empty(n, NUM_FEATURES, device=dev, dtype=torch.float32)
-    SPLAT_BWD(_cuda.ptr(pts), _cuda.ptr(feats), _cuda.ptr(pix), n, p, diam,
-              float(depth_constant), _cuda.ptr(dv), _cuda.ptr(dn),
-              _cuda.ptr(df), _cuda.stream(pts))
+    # one allocation for the three outputs, each a contiguous part of it
+    dv, dn, df = torch.empty((6 + NUM_FEATURES) * n, device=dev,
+                             dtype=torch.float32).split(
+        [3 * n, 3 * n, NUM_FEATURES * n])
+    dv, dn, df = dv.view(n, 3), dn.view(n, 3), df.view(n, NUM_FEATURES)
+    extra = (slices,) if kernel is SPLAT_BWD else ()
+    kernel(_cuda.ptr(pts), _cuda.ptr(feats), _cuda.ptr(pix), n, p, *extra,
+           diam, float(depth_constant), _cuda.ptr(dv), _cuda.ptr(dn),
+           _cuda.ptr(df), _cuda.stream(pts))
     return dv, dn, df
 
 
