@@ -7,8 +7,8 @@ Seven phases; any failure exits non-zero and no phase's error is caught.
 1. Build the port's CUDA kernels from ``sdflabel_tpu_torch/csrc`` (one
    nvcc per source, started together), print the registers, spills and
    shared memory of the wgmma kernels, the split splat forward and
-   backward and the split nearest neighbour, and the card's name and
-   power limit.
+   backward, the split nearest neighbour and the CE kernels, and the
+   card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, and time kernel, plain version and (where one
    exists) a PyTorch library call with CUDA events. The selection kernel
@@ -23,7 +23,12 @@ Seven phases; any failure exits non-zero and no phase's error is caught.
    nearest neighbour must equal its first design and the plain version bit
    for bit, at the 3D loss's shape and at RANSAC's. Both new designs are
    also timed alone on the device (the profiler's kernel time, without
-   the wrapper), beside their first designs.
+   the wrapper), beside their first designs. The cross-entropy's
+   class-split forward and its backward from the saved log-sum-exp are
+   held against the plain version and against their first designs, two
+   launches bit-equal, and timed a call and alone beside the first
+   designs; the binned splat kernels are timed alone too. Every row
+   prints its share of its bound.
 3. The demo driver: ``refine_css_demo`` on the bundled data/optimization
    assets with configs/config_demo.ini (viz off); the labels must land on
    the ground-truth annotation, the splat and NN kernels must have run,
@@ -45,7 +50,9 @@ Seven phases; any failure exits non-zero and no phase's error is caught.
    13, float32, from a seeded init, for 2 epochs (4 steps): every CE tower
    goes through the CE kernels, no CPU operator runs in the step, the
    written css.msgpack reloads to the same network, and 3 steps on one
-   fixed batch lower its loss.
+   fixed batch lower its loss. The device launches of one
+   fused_cross_entropy forward and backward are counted beside those of
+   the first designs' wrapper chain.
 7. The KITTI driver: ``tools/quality_suite.py`` builds the first 24 frames
    of the v2 quality suite (``--quality-frames 72``: all of it) through
    the binned splat kernel; ``refine_css`` labels them as ``main.py
@@ -195,6 +202,15 @@ def ptxas_report(logs: dict) -> list[str]:
                                    "splat_bwd_split_kernel",
                                    "nn_split_kernel"):
                     if plain_name in line:
+                        name, key = plain_name, None
+                # the CE kernels as the train towers launch them (int64
+                # targets, float4 lanes; the forward's 8 class groups)
+                for mangled, plain_name in (
+                        ("ce_fwd_split_kernelIxLi4ELi8E",
+                         "ce_fwd_split_kernel<int64, 4, 8>"),
+                        ("ce_bwd_lse_kernelIxLi4E",
+                         "ce_bwd_lse_kernel<int64, 4>")):
+                    if mangled in line:
                         name, key = plain_name, None
             elif name and "spill" in line:
                 spill = line.strip()
@@ -792,6 +808,12 @@ def check_splat_binned(dev) -> list[dict]:
     bwd_ms = time_ms(lambda: splat_cuda._bwd_binned(pks, fs, pix, key, smax,
                                                     bin_px, 0.04, 150.0))
     bins_ms = time_ms(binned_inputs)
+    # the kernels alone on the device, without the wrappers' host work
+    fwd_kernel = kernel_ms(lambda: splat_cuda._fwd_binned(
+        pks, fs, kg4, win, bin_px, 0.04, 150.0), "splat_fwd_kernel")
+    bwd_kernel = kernel_ms(lambda: splat_cuda._bwd_binned(
+        pks, fs, pix, key, smax, bin_px, 0.04, 150.0),
+        "splat_bwd_binned_kernel")
     with torch.no_grad():
         fwd_plain = time_ms(lambda: splat_cuda.surfel_composite_windowed(
             v, nrm, feats, kg, mask, bin_px=bin_px))
@@ -811,23 +833,29 @@ def check_splat_binned(dev) -> list[dict]:
                                         io_bytes + 4 * (p * 12 + n * 14))
     print(f"splat binned: {n} points x {p} px, {pairs:.0f} pairs in the "
           f"windows ({pairs / (n * p):.3f} of all), {fp_pairs:.0f} "
-          f"footprint pairs; bins + sort {bins_ms:.4f} ms")
+          f"footprint pairs; bins + sort {bins_ms:.4f} ms; forward "
+          f"{fwd_ms:.4f} ms a call, {fwd_kernel:.4f} ms alone; backward "
+          f"{bwd_ms:.4f} ms a call, {bwd_kernel:.4f} ms alone")
     return [
         dict(name="splat_fwd_binned", max_abs_err=fwd_err, ms=fwd_ms,
-             plain_ms=fwd_plain, bound_ms=fwd_bound[0],
-             bound_by=fwd_bound[1], bound_what=fwd_bound[2],
-             library_ms=None, bins_ms=bins_ms),
+             kernel_ms=fwd_kernel, plain_ms=fwd_plain,
+             bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+             bound_what=fwd_bound[2], library_ms=None, bins_ms=bins_ms),
         dict(name="splat_bwd_binned", max_abs_err=bwd_err, ms=bwd_ms,
-             plain_ms=bwd_plain, bound_ms=bwd_bound[0],
-             bound_by=bwd_bound[1], bound_what=bwd_bound[2],
-             library_ms=None),
+             kernel_ms=bwd_kernel, plain_ms=bwd_plain,
+             bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+             bound_what=bwd_bound[2], library_ms=None),
     ]
 
 
 def check_ce(dev) -> list[dict]:
-    """The CE kernels on the train step's towers: (13, 256, 128, 128)
-    logits for u, v and w, (13, 2, 128, 128) for the mask, with an upstream
-    cotangent of 2.5. The rows give the 256-class numbers."""
+    """The CE kernels on the train step's towers: (13, 256, 128, 128) logits
+    for u, v and w, (13, 2, 128, 128) for the mask, int64 targets as the
+    train step gives them, an upstream cotangent of 2.5. The class-split
+    forward and the backward from its saved lse against the plain version,
+    against the first designs (one thread per pixel) and against a second
+    launch of themselves (bit-equal); each timed a call and alone on the
+    device beside the first designs. The rows give the 256-class numbers."""
     F = torch.nn.functional
     rows = {}
     for c in (256, 2):
@@ -853,42 +881,93 @@ def check_ce(dev) -> list[dict]:
               f"{g_err:.3g}, within tolerance: {g_ok}")
         assert loss_err <= 1e-5 * abs(float(lp.detach())) and g_ok
 
+        # the first designs and a second launch, on the wrapper's inputs
         b, hw = 13, 128 * 128
-        xc = x.reshape(b, c, hw).contiguous()
-        tc = t.reshape(b, hw).to(torch.int32).contiguous()
-        scale = (cot / (b * hw)).reshape(1).contiguous()
+        n = b * hw
+        xc, tc = x.reshape(b, c, hw), t.reshape(b, hw)
+        loss_first = ce_cuda._fwd(xc, tc, "first")[0].sum() / n
+        dx_first = ce_cuda._bwd(xc, tc, None, cot, n, "first")
+        partial, lse = ce_cuda._fwd(xc, tc)
+        partial2, lse2 = ce_cuda._fwd(xc, tc)
+        dx = ce_cuda._bwd(xc, tc, lse, cot, n)
+        dx2 = ce_cuda._bwd(xc, tc, lse2, cot, n)
+        torch.cuda.synchronize()
+        first_rel = abs(float(lk.detach()) - float(loss_first)) / abs(
+            float(loss_first))
+        first_g_ok = bool(torch.allclose(
+            dx, dx_first, rtol=1e-5, atol=1e-6 * float(dx_first.abs().max())))
+        first_g_err = float((dx - dx_first).abs().max())
+        same = (torch.equal(partial, partial2) and torch.equal(lse, lse2)
+                and torch.equal(dx, dx2))
+        plan = ce_cuda.fwd_plan(c, hw)
+        print(f"ce C={c}: split forward {plan['groups']} class groups of "
+              f"{plan['per_group']}, tiles of {plan['tile']} px x "
+              f"{b * plan['tiles']}; against the first designs: loss "
+              f"{first_rel:.3g} relative (need <= 1e-6), gradient "
+              f"{first_g_err:.3g}, within tolerance: {first_g_ok}; two "
+              f"launches bit-equal: {same}")
+        assert first_rel <= 1e-6 and first_g_ok and same
+
+        def fwd():
+            return ce_cuda._fwd(xc, tc)
+
+        def bwd():
+            return ce_cuda._bwd(xc, tc, lse, cot, n)
+
+        def fwd_first():
+            return ce_cuda._fwd(xc, tc, "first")
+
+        def bwd_first():
+            return ce_cuda._bwd(xc, tc, None, cot, n, "first")
+
         xl = x.clone().requires_grad_(True)
         with torch.no_grad():
             plain_fwd = time_ms(
                 lambda: ce_cuda.cross_entropy_with_internal_softmax(x, t))
             lib_fwd = time_ms(lambda: F.cross_entropy(x, t))
-        logit_bytes, t_bytes = 4 * b * c * hw, 4 * b * hw
-        fwd_b = bound(logit_bytes + t_bytes, 6 * b * c * hw, FP32_FLOPS)
-        bwd_b = bound(2 * logit_bytes + t_bytes, 10 * b * c * hw, FP32_FLOPS)
+        # bytes the function needs: the logits and the targets read once
+        # (and the gradient written once); one exp per logit
+        logit_bytes, t_bytes = 4 * b * c * hw, t.element_size() * n
+        fwd_b = bound(logit_bytes + t_bytes, 6 * b * c * hw, FP32_FLOPS,
+                      b * c * hw)
+        bwd_b = bound(2 * logit_bytes + t_bytes, 10 * b * c * hw, FP32_FLOPS,
+                      b * c * hw)
         rows[c] = [
-            dict(name="ce_fwd", max_abs_err=loss_err,
-                 ms=time_ms(lambda: ce_cuda._fwd(xc, tc)),
+            dict(name="ce_fwd", max_abs_err=loss_err, ms=time_ms(fwd),
+                 kernel_ms=kernel_ms(fwd, "ce_fwd_split_kernel"),
                  plain_ms=plain_fwd, bound_ms=fwd_b[0], bound_by=fwd_b[1],
-                 library_ms=lib_fwd),
-            dict(name="ce_bwd", max_abs_err=g_err,
-                 ms=time_ms(lambda: ce_cuda._bwd(xc, tc, scale)),
+                 library_ms=lib_fwd, design="split",
+                 first_ms=time_ms(fwd_first),
+                 first_kernel_ms=kernel_ms(fwd_first, "ce_fwd_kernel"),
+                 rel_vs_first=first_rel),
+            dict(name="ce_bwd", max_abs_err=g_err, ms=time_ms(bwd),
+                 kernel_ms=kernel_ms(bwd, "ce_bwd_lse_kernel"),
                  plain_ms=time_ms(lambda: torch.autograd.grad(
                      lp, xp, cot, retain_graph=True)),
                  bound_ms=bwd_b[0], bound_by=bwd_b[1],
                  # yardstick: F.cross_entropy forward and backward together
                  library_ms=time_ms(lambda: torch.autograd.grad(
-                     F.cross_entropy(xl, t), xl, cot))),
+                     F.cross_entropy(xl, t), xl, cot)),
+                 design="saved_lse", first_ms=time_ms(bwd_first),
+                 first_kernel_ms=kernel_ms(bwd_first, "ce_bwd_kernel"),
+                 max_abs_vs_first=first_g_err),
         ]
         for r in rows[c]:
-            print(f"ce C={c} {r['name']}: {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f} ms, F.cross_entropy "
+            share = r["bound_ms"] / r["kernel_ms"]
+            print(f"ce C={c} {r['name']}: {r['ms']:.4f} ms a call, "
+                  f"{r['kernel_ms']:.4f} ms alone ({share:.1%} of the "
+                  f"bound); first design "
+                  f"{r['first_ms']:.4f} ms a call, {r['first_kernel_ms']:.4f} "
+                  f"ms alone ({r['first_kernel_ms'] / r['kernel_ms']:.2f}x); "
+                  f"plain {r['plain_ms']:.4f} ms, F.cross_entropy "
                   f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']})")
-        del x, xk, xp, xl, gk, gp, lp, xc
+        del x, xk, xp, xl, gk, gp, lp, dx, dx2, dx_first, lse, lse2
     for r256, r2 in zip(rows[256], rows[2]):
         r256["max_abs_err"] = max(r256["max_abs_err"], r2["max_abs_err"])
-        r256["c2"] = {k: r2[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "library_ms")}
+        r256["c2"] = {k: r2[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                         "bound_ms", "library_ms",
+                                         "first_ms", "first_kernel_ms")}
     return rows[256]
 
 
@@ -1146,6 +1225,57 @@ def crops_phase(dev, out_dir, n_crops: int = 26, grid: int = 40,
 
 # ---------------------------------------------------------------- phase 6
 
+def ce_call_launches(dev, reps: int = 10) -> dict:
+    """Device launches (kernels, copies, fills) of one fused_cross_entropy
+    forward and backward on a u-tower's (13, 256, 128, 128) logits with the
+    train step's int64 targets, by the profiler over `reps` calls (it may
+    drop a launch or two; the count a call is rounded); beside them the
+    launches of the first designs' wrapper chain (the targets cast to
+    int32, the forward, the partials' sum and division, the scale, the
+    backward)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(13, 256, 128, 128, device=dev,
+                    generator=gen).requires_grad_(True)
+    t = torch.randint(0, 256, (13, 128, 128), device=dev, generator=gen)
+    cot = torch.tensor(2.5, device=dev)
+    n = t.numel()
+
+    def split():
+        torch.autograd.grad(ce_cuda.fused_cross_entropy(x, t), x, cot)
+
+    def first():
+        xc = x.detach().reshape(13, 256, n // 13)
+        t32 = t.reshape(13, n // 13).to(torch.int32)
+        ce_cuda._fwd(xc, t32, "first")[0].sum() / n
+        scale = cot.float() / n
+        ce_cuda._bwd(xc, t32, None, scale, 1, "first")
+
+    launches = {}
+    for name, fn in (("split", split), ("first", first)):
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):  # a profiler run now and then records nothing
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            per_call = {e.key: e.count / reps for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA}
+            if per_call:
+                break
+        assert per_call, f"the profiler recorded no launch of the {name} chain"
+        launches[name] = round(sum(per_call.values()))
+        launches[f"{name}_by_kernel"] = per_call
+    print(f"train: device launches per fused_cross_entropy forward + "
+          f"backward: {launches['split']} (the first designs' chain: "
+          f"{launches['first']}); by kernel "
+          f"{json.dumps(launches['split_by_kernel'])}")
+    return launches
+
+
 def train_phase(dev, crops_dir, log_dir, width: int = 64, batch: int = 13,
                 epochs: int = 2):
     """train_css on the phase-5 crops with the CE kernels on every tower."""
@@ -1201,6 +1331,7 @@ def train_phase(dev, crops_dir, log_dir, width: int = 64, batch: int = 13,
         assert not watch.cpu_ops
         # u, v, w and mask: one forward and one backward each per step
         assert launched["ce_fwd"] == launched["ce_bwd"] == 4 * len(steps)
+        ce_launches = ce_call_launches(dev)
 
     # the exported network reloads to the same one
     model = state.model.eval()
@@ -1234,6 +1365,7 @@ def train_phase(dev, crops_dir, log_dir, width: int = 64, batch: int = 13,
     assert fixed_losses[3] < fixed_losses[0]
     return state, fixed, launched, dict(
         wall_s=wall, steps=len(steps), batch=batch, width=width,
+        ce_call_launches=ce_launches if dev.type == "cuda" else None,
         step_ms=step_ms, steady_ms_per_step=steady,
         images_per_s=batch / steady * 1e3, losses=losses,
         fixed_batch_step_ms=fixed_ms)
@@ -1379,7 +1511,10 @@ def _kernel_group(name: str) -> str:
                        ("stage2_bwd_wgmma_kernel", "stage2_bwd"),
                        ("stage2_kernel", "stage2"),
                        ("dcvec_reduce_kernel", "dcvec_reduce"),
-                       ("ce_fwd_kernel", "ce_fwd"), ("ce_bwd_kernel", "ce_bwd"),
+                       ("ce_fwd_split_kernel", "ce_fwd"),
+                       ("ce_fwd_kernel", "ce_fwd"),
+                       ("ce_bwd_lse_kernel", "ce_bwd"),
+                       ("ce_bwd_kernel", "ce_bwd"),
                        ("fprop", "convolution"), ("dgrad", "convolution"),
                        ("wgrad", "convolution"), ("conv", "convolution"),
                        ("cudnn", "convolution"),
@@ -1602,6 +1737,12 @@ def main() -> int:
     rows = (check_splat(dev) + [check_nn(dev), check_select(dev)]
             + check_splat_binned(dev) + check_ce(dev) + check_stage2(dev))
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
+    for row in rows:
+        alone = row.get("kernel_ms")
+        print(f"bound share {row['name']}: bound {row['bound_ms']:.5f} ms, "
+              f"{row['ms']:.4f} ms a call ({row['bound_ms'] / row['ms']:.1%})"
+              + (f", {alone:.4f} ms alone ({row['bound_ms'] / alone:.1%})"
+                 if alone else ""))
     with tempfile.TemporaryDirectory() as out_dir:
         handles, launched, summary = run_paths(
             dev, out_dir, quality_frames=args.quality_frames)

@@ -525,26 +525,105 @@ def test_binned_splat_matches_dense_kernel(dev):
         assert ((a - b).abs() / scale).max() < 2e-4
 
 
-@pytest.mark.parametrize("c", [2, 256])
-def test_ce_matches_plain(dev, c):
-    # fp32 sums in other orders: loss to 1e-5 relative, gradient to 1e-5
-    # relative plus 1e-6 of its largest element
-    gen = torch.Generator().manual_seed(c)
-    x = (torch.randn(3, c, 40, 56, generator=gen) * 3).to(dev)
-    t = torch.randint(0, c, (3, 40, 56), generator=gen).to(dev)
+def _ce_onehot(x, t, cot):
+    """The fused kernels' function for any target, in float64: lse - x[t]
+    averaged, a target outside [0, C) picking nothing; its gradient
+    (softmax - one_hot) * cot / n."""
+    x = x.double()
+    c = x.shape[1]
+    valid = (t >= 0) & (t < c)
+    one_hot = (torch.arange(c, device=x.device)[None, :, None, None]
+               == t[:, None]) & valid[:, None]
+    lse = torch.logsumexp(x, 1)
+    loss = (lse - (x * one_hot).sum(1)).mean()
+    grad = (torch.softmax(x, 1) - one_hot.double()) * cot / t.numel()
+    return loss.float(), grad.float()
+
+
+CE_SHAPES = [(c, shape) for c in (1, 2, 3, 256, 257)
+             for shape in ((3, 40, 56), (1, 7, 9))] + [(256, (13, 128, 128))]
+
+
+@pytest.mark.parametrize("out_of_range", [False, True])
+@pytest.mark.parametrize("tdtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("c,shape", CE_SHAPES)
+def test_ce_matches_plain(dev, c, shape, tdtype, out_of_range):
+    # the class-split forward and the saved-lse backward against the plain
+    # version (targets in range; the plain gather takes no other) or the
+    # float64 one-hot function, and against the first designs: fp32 sums in
+    # other orders, so the loss to 1e-5 relative of the reference and 1e-6
+    # of the first design, the gradient to 1e-5 relative plus 1e-6 of its
+    # largest element; two launches bit-equal; one launch of each new
+    # design per call
+    b, h, w = shape
+    gen = torch.Generator().manual_seed(c * 100 + h)
+    x = (torch.randn(b, c, h, w, generator=gen) * 3).to(dev)
+    t = torch.randint(0, c, shape, generator=gen)
+    if out_of_range:
+        bad = torch.rand(shape, generator=gen) < 0.2
+        wild = [-1, c, c + 5, 2 ** 31 - 1] + (
+            [2 ** 32 + 1] if tdtype == torch.int64 else [])
+        pick = torch.randint(0, len(wild), (int(bad.sum()),), generator=gen)
+        t[bad] = torch.tensor(wild)[pick]
+    t = t.to(tdtype).to(dev)
+    cot = torch.tensor(2.5, device=dev)
+    n = b * h * w
+
     f0, b0 = ce_cuda.CE_FWD.launches, ce_cuda.CE_BWD.launches
     xk = x.clone().requires_grad_(True)
     lk = ce_cuda.fused_cross_entropy(xk, t)
-    (gk,) = torch.autograd.grad(lk * 2.5, xk)
-    xp = x.clone().requires_grad_(True)
-    lp = ce_cuda.cross_entropy_with_internal_softmax(xp, t)
-    (gp,) = torch.autograd.grad(lp * 2.5, xp)
+    (gk,) = torch.autograd.grad(lk, xk, cot)
     torch.cuda.synchronize()
     assert ce_cuda.CE_FWD.launches == f0 + 1
     assert ce_cuda.CE_BWD.launches == b0 + 1
-    assert abs(lk.item() - lp.item()) <= 1e-5 * abs(lp.item())
-    assert torch.allclose(gk, gp, rtol=1e-5,
-                          atol=1e-6 * float(gp.abs().max()))
+    if out_of_range:
+        lr, gr = _ce_onehot(x, t, cot)
+    else:
+        xp = x.clone().requires_grad_(True)
+        lr = ce_cuda.cross_entropy_with_internal_softmax(xp, t)
+        (gr,) = torch.autograd.grad(lr, xp, cot)
+    assert abs(lk.item() - lr.item()) <= 1e-5 * abs(lr.item())
+    assert torch.allclose(gk, gr, rtol=1e-5,
+                          atol=1e-6 * float(gr.abs().max()))
+
+    xc, tc = x.reshape(b, c, h * w), t.reshape(b, h * w)
+    loss_first = ce_cuda._fwd(xc, tc, "first")[0].sum() / n
+    dx_first = ce_cuda._bwd(xc, tc, None, cot, n, "first").reshape(x.shape)
+    assert abs(lk.item() - loss_first.item()) <= 1e-6 * abs(
+        loss_first.item())
+    assert torch.allclose(gk, dx_first, rtol=1e-5,
+                          atol=1e-6 * float(dx_first.abs().max()))
+
+    p1, lse1 = ce_cuda._fwd(xc, tc)
+    p2, lse2 = ce_cuda._fwd(xc, tc)
+    d1 = ce_cuda._bwd(xc, tc, lse1, cot, n)
+    d2 = ce_cuda._bwd(xc, tc, lse2, cot, n)
+    assert torch.equal(p1, p2) and torch.equal(lse1, lse2)
+    assert torch.equal(d1, d2) and torch.equal(d1.reshape(x.shape), gk)
+
+
+@pytest.mark.parametrize("c", [2, 256])
+def test_ce_split_unaligned_logits(dev, c):
+    # logits 4 bytes off a 16-byte boundary take one pixel a lane: the same
+    # class order per pixel, so lse and the gradient are bit-equal to the
+    # float4 launch; only the tiles of the partial sums differ
+    gen = torch.Generator().manual_seed(c)
+    b, hw = 2, 40 * 56
+    x = (torch.randn(b, c, hw, generator=gen) * 3).to(dev)
+    t = torch.randint(0, c, (b, hw), generator=gen).to(dev)
+    buf = torch.empty(x.numel() + 1, device=dev)
+    xu = buf[1:].view(b, c, hw)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 == 4
+    assert ce_cuda.fwd_plan(c, hw, aligned=False)["vec"] == 1
+    cot = torch.tensor(2.5, device=dev)
+    p4, lse4 = ce_cuda._fwd(x, t)
+    p1, lse1 = ce_cuda._fwd(xu, t)
+    assert torch.equal(lse4, lse1)
+    assert abs(p4.sum().item() - p1.sum().item()) <= 1e-6 * abs(
+        p4.sum().item())
+    assert torch.equal(ce_cuda._bwd(x, t, lse4, cot, b * hw),
+                       ce_cuda._bwd(xu, t, lse1, cot, b * hw))
 
 
 def _decoded_scene(dev, px, dist=18.0):
