@@ -7,8 +7,8 @@ Seven phases; any failure exits non-zero and no phase's error is caught.
 1. Build the port's CUDA kernels from ``sdflabel_tpu_torch/csrc`` (one
    nvcc per source, started together), print the registers, spills and
    shared memory of the wgmma kernels, the split splat forward and
-   backward, the split nearest neighbour and the CE kernels, and the
-   card's name and power limit.
+   backward (dense and binned), the bins kernels, the split nearest
+   neighbour and the CE kernels, and the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, and time kernel, plain version and (where one
    exists) a PyTorch library call with CUDA events. The selection kernel
@@ -27,8 +27,12 @@ Seven phases; any failure exits non-zero and no phase's error is caught.
    class-split forward and its backward from the saved log-sum-exp are
    held against the plain version and against their first designs, two
    launches bit-equal, and timed a call and alone beside the first
-   designs; the binned splat kernels are timed alone too. Every row
-   prints its share of its bound.
+   designs. The row-binned path on a make_crops render: the bins kernel
+   must equal compute_bins and the torch gathers bit for bit, the binned
+   split forward and backward must hold the first designs' limits (those
+   of the dense split designs) and give two bit-equal launches; each is
+   timed a call and alone beside its first design, with the window pairs
+   and footprint pairs. Every row prints its share of its bound.
 3. The demo driver: ``refine_css_demo`` on the bundled data/optimization
    assets with configs/config_demo.ini (viz off); the labels must land on
    the ground-truth annotation, the splat and NN kernels must have run,
@@ -41,10 +45,13 @@ Seven phases; any failure exits non-zero and no phase's error is caught.
    and runtime with ``stage2_pallas = True``, whose stage-2 decode and its
    backward take kernels 4a and 4b; then (4b) phase 3's crop prepared and
    refined at ``rendering_area = 96``, whose renders of >= 4096 pixels
-   take the row-binned splat kernels, forward and backward.
+   take the row-binned splat kernels (the bins, the forward and the
+   backward), with the device launches of one such render beside those of
+   the first designs' chain.
 5. Crops: ``make_crops`` renders 26 crops of 128x128 px (grid 40,
    capacity 4096) from data/quality_nets/deepsdf_quality.pt, each through
-   the row-binned splat kernel.
+   the bins kernel and the binned splat forward; the device launches of
+   one such render beside those of the first designs' chain.
 6. Training: ``train_css`` trains the width-64 CSS network on those crops
    under configs/config_train.ini with fused_ce and direct_ce on, batch
    13, float32, from a seeded init, for 2 epochs (4 steps): every CE tower
@@ -66,8 +73,9 @@ Seven phases; any failure exits non-zero and no phase's error is caught.
 Each kernel's launches are counted on the path that runs it (set to 0
 just before the path, read just after): the dense splat, NN and selection
 kernels in phase 4, the stage-2 kernels in 4c, the binned backward in 4b,
-the binned forward in 5 and the CE kernels in 6. The line before the last is a JSON ``kernels``
-record; the last line is ``{"ok": true, "device": {...}}``. Without a card
+the bins and the binned forward in 5 and the CE kernels in 6. The line
+before the last is a JSON ``kernels`` record; the last line is
+``{"ok": true, "device": {...}}``. Without a card
 the script exits 2 and prints no result. ``--profile DIR`` adds one more
 full-width crop and two train steps under torch.profiler: device time by
 kernel group, the device busy time and its share of the wall time, and
@@ -140,6 +148,11 @@ KERNELS = {  # wrapper counter, source, the TPU kernel it replaces
     "splat_fwd_binned": (splat_cuda.SPLAT_FWD_BINNED,
                          "sdflabel_tpu_torch/csrc/splat.cu",
                          "sdflabel_tpu/ops/splat_pallas.py:467"),
+    # the port's own kernel: JAX bins in XLA (_compute_bins) before its
+    # binned kernels
+    "splat_bins": (splat_cuda.SPLAT_BINS,
+                   "sdflabel_tpu_torch/csrc/splat_bins.cu",
+                   "sdflabel_tpu/ops/splat_pallas.py:242"),
     "splat_bwd_binned": (splat_cuda.SPLAT_BWD_BINNED,
                          "sdflabel_tpu_torch/csrc/splat.cu",
                          "sdflabel_tpu/ops/splat_pallas.py:589"),
@@ -158,6 +171,7 @@ KERNELS = {  # wrapper counter, source, the TPU kernel it replaces
 PATHS = {"splat_fwd": "full_width", "splat_bwd": "full_width",
          "nn": "full_width", "select_mlp": "full_width",
          "splat_bwd_binned": "binned_refine", "splat_fwd_binned": "crops",
+         "splat_bins": "crops",
          "ce_fwd": "train", "ce_bwd": "train",
          "stage2_fwd": "full_width_stage2", "stage2_bwd": "full_width_stage2"}
 QUALITY_DSDF = os.path.join(ROOT, "data", "quality_nets",
@@ -200,6 +214,10 @@ def ptxas_report(logs: dict) -> list[str]:
                 key = m and m.group(1)
                 for plain_name in ("splat_fwd_split_kernel",
                                    "splat_bwd_split_kernel",
+                                   "splat_fwd_binned_split_kernel",
+                                   "splat_bwd_binned_split_kernel",
+                                   "splat_bins_keys_kernel",
+                                   "splat_bins_scatter_kernel",
                                    "nn_split_kernel"):
                     if plain_name in line:
                         name, key = plain_name, None
@@ -263,6 +281,46 @@ def kernel_ms(fn, kernel: str, reps: int = 20) -> float:
     count = sum(e.count for e in hits)
     assert count > 0, f"the profiler recorded no launch of {kernel}"
     return sum(e.self_device_time_total for e in hits) / count / 1e3
+
+
+def chain_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of `fn`, every kernel, copy and fill it
+    launches, without the host's work: the profiler's device times summed
+    over `reps` calls, over `reps`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    assert total > 0, "the profiler recorded no device time"
+    return total / reps / 1e3
+
+
+def device_launches(fn, reps: int = 10) -> dict:
+    """Device launches (kernels, copies, fills) of one call of `fn` by
+    kernel name, by the profiler over `reps` calls (it may drop a launch or
+    two; round the total)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profiler run now and then records nothing
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per_call = {e.key: e.count / reps for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA}
+        if per_call:
+            return per_call
+    raise AssertionError("the profiler recorded no launch")
 
 
 def bound(bytes_moved: float, flops: float, peak_flops: float,
@@ -765,13 +823,21 @@ def crop_scene(dev):
 
 
 def check_splat_binned(dev) -> list[dict]:
-    """The row-binned kernels on a make_crops render (16384 px, 4096
-    surfels) against the windowed plain version, with the dense kernel's
-    tolerance."""
+    """The row-binned path on a make_crops render (16384 px, 4096 surfels):
+    the autograd path against the windowed plain version with the dense
+    kernel's tolerance; the bins kernel against compute_bins and the torch
+    gathers, bit for bit; the split forward against its first design
+    within 2e-5 (statistics 2e-5 relative), the split backward against its
+    first design within 1e-5 of the largest d_points and d_features and
+    5e-5 of the largest d_normals (a difference of two sums that cancel
+    ~100x: see tests/test_torch_kernels_cuda.py); two launches of each new
+    kernel bit-equal. Each is timed a call and alone on the device beside
+    its first design."""
     v, nrm, feats, mask, kg = crop_scene(dev)
     n, p = v.shape[0], kg.shape[0]
     bin_px = splat_cuda.bin_policy(p)
     assert bin_px == 512, bin_px
+    nb = -(-p // bin_px)
     args_k = [t.clone().requires_grad_(True) for t in (v, nrm, feats)]
     img_k = splat_cuda.surfel_composite(*args_k, kg, mask)
     g = torch.randn(img_k.shape, device=dev,
@@ -787,65 +853,203 @@ def check_splat_binned(dev) -> list[dict]:
 
     # the kernels' own inputs, as the autograd Function builds them
     pk = splat_cuda._pack_points(v, nrm, mask)
+    fk = feats.float().contiguous()
     kg4 = splat_cuda._pack_rays(kg)
 
-    def binned_inputs():
-        bins = splat_cuda.compute_bins(pk, kg4, 0.04, bin_px)
-        win = torch.stack([bins.start, bins.start + bins.count],
-                          1).to(torch.int32).contiguous()
-        return (bins, pk[bins.order].contiguous(),
-                feats[bins.order].contiguous(), win)
+    def bins():
+        return splat_cuda._sort_bins(pk, fk, kg4, 0.04, bin_px)
 
-    bins, pks, fs, win = binned_inputs()
-    img, m, d, zn = splat_cuda._fwd_binned(pks, fs, kg4, win, bin_px, 0.04,
-                                           150.0)
+    def bins_first():
+        return splat_cuda._sort_bins(pk, fk, kg4, 0.04, bin_px,
+                                     design="first")
+
+    sb, sb2, sf = bins(), bins(), bins_first()
+    torch.cuda.synchronize()
+    bins_same = all(torch.equal(a, b) for a, b in zip(sb, sb2))
+    bins_equal = (torch.equal(sb.order.long(), sf.order)
+                  and all(torch.equal(a, b) for a, b in zip(sb[1:], sf[1:])))
+    bins_err = max(float((a - b).abs().max())
+                   for a, b in zip(sb[4:], sf[4:]))
+    print(f"splat bins: {nb} row blocks, smax {int(sb.smax)}; equal to "
+          f"compute_bins + gathers bit for bit: {bins_equal}; two launches "
+          f"bit-equal: {bins_same}")
+    assert bins_equal and bins_same
+
+    def fwd(design="split"):
+        return splat_cuda._fwd_binned(sb.pts, sb.feats, kg4, sb.win, bin_px,
+                                      0.04, 150.0, design=design)
+
+    out, out2, out_first = fwd(), fwd(), fwd("first")
+    torch.cuda.synchronize()
+    fwd_same = all(torch.equal(a, b) for a, b in zip(out, out2))
+    fwd_vs_first = float((out[0] - out_first[0]).abs().max())
+    stats_ok = all(torch.allclose(a, b, rtol=2e-5, atol=1e-6)
+                   for a, b in zip(out[1:], out_first[1:]))
+    first_px = (out_first[0] - img_p.detach()).abs().max(-1).values
+    slices = splat_cuda.binned_slices(n, p, bin_px)
+    print(f"splat fwd binned, split design: {-(-p // 64)} tiles x {slices} "
+          f"slices; max |split - first design| {fwd_vs_first:.3g} (need <= "
+          f"2e-5), statistics within 2e-5: {stats_ok}, two launches "
+          f"bit-equal: {fwd_same}; first design max_abs_err "
+          f"{float(first_px.max()):.3g}")
+    assert fwd_vs_first <= 2e-5 and stats_ok and fwd_same
+    img, m, d, zn = out
     corr = (g * img).sum(-1, keepdim=True)
     pix = torch.cat([kg4, m[:, None], d[:, None], zn[:, None], corr, g],
                     1).contiguous()
-    key, smax = bins.key.to(torch.int32), bins.smax.reshape(1).to(torch.int32)
-    fwd_ms = time_ms(lambda: splat_cuda._fwd_binned(pks, fs, kg4, win, bin_px,
-                                                    0.04, 150.0))
-    bwd_ms = time_ms(lambda: splat_cuda._bwd_binned(pks, fs, pix, key, smax,
-                                                    bin_px, 0.04, 150.0))
-    bins_ms = time_ms(binned_inputs)
-    # the kernels alone on the device, without the wrappers' host work
-    fwd_kernel = kernel_ms(lambda: splat_cuda._fwd_binned(
-        pks, fs, kg4, win, bin_px, 0.04, 150.0), "splat_fwd_kernel")
-    bwd_kernel = kernel_ms(lambda: splat_cuda._bwd_binned(
-        pks, fs, pix, key, smax, bin_px, 0.04, 150.0),
-        "splat_bwd_binned_kernel")
+
+    def bwd(design="split"):
+        return splat_cuda._bwd_binned(sb.pts, sb.feats, pix, sb.key, sb.smax,
+                                      sb.order, bin_px, 0.04, 150.0,
+                                      design=design)
+
+    grads, grads2, grads_first = bwd(), bwd(), bwd("first")
+    torch.cuda.synchronize()
+    bwd_same = all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    bwd_vs_first = [float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(grads, grads_first)]
+    bwd_slices = splat_cuda.bwd_binned_slices(n, p, bin_px)
+    print(f"splat bwd binned, split design: {-(-n // 64)} point blocks x "
+          f"{bwd_slices} slices; max |split - first design| over the "
+          f"largest (d_points, d_normals, d_features) "
+          f"{[f'{x:.3g}' for x in bwd_vs_first]} (need <= 1e-5, 5e-5, "
+          f"1e-5), two launches bit-equal: {bwd_same}")
+    assert bwd_same and bwd_vs_first[1] <= 5e-5
+    assert bwd_vs_first[0] <= 1e-5 and bwd_vs_first[2] <= 1e-5
+
+    # a call (host enqueue included) and alone on the device; the first
+    # bins design is compute_bins + the torch gathers, casts and stack
+    times = dict(
+        bins_ms=time_ms(bins), bins_first_ms=time_ms(bins_first),
+        bins_kernel_ms=(kernel_ms(bins, "splat_bins_keys_kernel")
+                        + kernel_ms(bins, "splat_bins_scatter_kernel")),
+        bins_first_kernel_ms=chain_ms(bins_first),
+        fwd_ms=time_ms(fwd), fwd_first_ms=time_ms(lambda: fwd("first")),
+        fwd_kernel_ms=kernel_ms(fwd, "splat_fwd_binned_split_kernel"),
+        fwd_first_kernel_ms=kernel_ms(lambda: fwd("first"),
+                                      "splat_fwd_kernel"),
+        bwd_ms=time_ms(bwd), bwd_first_ms=time_ms(lambda: bwd("first")),
+        bwd_kernel_ms=kernel_ms(bwd, "splat_bwd_binned_split_kernel"),
+        bwd_first_kernel_ms=kernel_ms(lambda: bwd("first"),
+                                      "splat_bwd_binned_kernel"),
+        bwd_first_chain_ms=chain_ms(lambda: bwd("first")))
     with torch.no_grad():
         fwd_plain = time_ms(lambda: splat_cuda.surfel_composite_windowed(
             v, nrm, feats, kg, mask, bin_px=bin_px))
     bwd_plain = time_ms(lambda: torch.autograd.grad(
         img_p, args_p, g, retain_graph=True))
 
-    # work this data needs (splat_bounds) over the pairs the bins leave
-    rows_in = torch.tensor([min(bin_px, p - b * bin_px)
-                            for b in range(bins.count.shape[0])], device=dev)
-    pairs = float((bins.count * rows_in).sum())
+    # work this data needs (splat_bounds) over the pairs the windows hold
+    win_len = (sb.win[:, 1] - sb.win[:, 0]).long()
+    rows_in = torch.tensor([min(bin_px, p - b * bin_px) for b in range(nb)],
+                           device=dev)
+    pairs = float((win_len * rows_in).sum())
     with torch.no_grad():
         fp_pairs = float((splat.surfel_prob(kg, v, nrm, mask, 0.04) > 0)
                          .sum())
-    nb = bins.count.shape[0]
     io_bytes = 4 * (n * 16 + p * 4 + p * 11 + 2 * nb)
     fwd_bound, bwd_bound = splat_bounds(pairs, fp_pairs, io_bytes,
-                                        io_bytes + 4 * (p * 12 + n * 14))
+                                        io_bytes + 4 * (p * 12 + n * 14 + n))
+    # the bins: points and features read and written once, the rays read
+    # once, order, keys, smax and windows written; the overlap test's ~10
+    # flops and 6 divisions for each (point, row block) of a point in the
+    # mask and in front of the camera (the others skip the test)
+    tested = float(((pk[:, 6] > 0.5) & (pk[:, 2] - 0.04 > 0)).sum()) * nb
+    bins_bound = bound(4 * (n * 16 * 2 + p * 4 + n * 2 + 1 + 2 * nb),
+                       10 * tested, FP32_FLOPS, 6 * tested)
+    t = times
     print(f"splat binned: {n} points x {p} px, {pairs:.0f} pairs in the "
           f"windows ({pairs / (n * p):.3f} of all), {fp_pairs:.0f} "
-          f"footprint pairs; bins + sort {bins_ms:.4f} ms; forward "
-          f"{fwd_ms:.4f} ms a call, {fwd_kernel:.4f} ms alone; backward "
-          f"{bwd_ms:.4f} ms a call, {bwd_kernel:.4f} ms alone")
+          f"footprint pairs, {tested:.0f} (point, row block) tests")
+    for name, new, first, alone, first_alone, bnd in (
+            ("bins", t["bins_ms"], t["bins_first_ms"], t["bins_kernel_ms"],
+             t["bins_first_kernel_ms"], bins_bound),
+            ("forward", t["fwd_ms"], t["fwd_first_ms"], t["fwd_kernel_ms"],
+             t["fwd_first_kernel_ms"], fwd_bound),
+            ("backward", t["bwd_ms"], t["bwd_first_ms"], t["bwd_kernel_ms"],
+             t["bwd_first_kernel_ms"], bwd_bound)):
+        print(f"splat binned {name}: new {new:.4f} ms a call, {alone:.4f} ms "
+              f"alone ({bnd[0] / alone:.1%} of the bound); first design "
+              f"{first:.4f} ms a call ({first / new:.1f}x), {first_alone:.4f} "
+              f"ms alone ({first_alone / alone:.1f}x); bound {bnd[0]:.5f} ms "
+              f"({bnd[2]})")
+    render = t["bins_kernel_ms"] + t["fwd_kernel_ms"] + t["bwd_kernel_ms"]
+    render_first = (t["bins_first_kernel_ms"] + t["fwd_first_kernel_ms"]
+                    + t["bwd_first_chain_ms"])
+    print(f"splat binned: first backward with its scatters "
+          f"{t['bwd_first_chain_ms']:.4f} ms alone; a render's bins, "
+          f"forward and backward alone {render:.4f} ms (first designs "
+          f"{render_first:.4f} ms, {render_first / render:.1f}x)")
     return [
-        dict(name="splat_fwd_binned", max_abs_err=fwd_err, ms=fwd_ms,
-             kernel_ms=fwd_kernel, plain_ms=fwd_plain,
+        dict(name="splat_bins", max_abs_err=bins_err, ms=t["bins_ms"],
+             kernel_ms=t["bins_kernel_ms"], plain_ms=t["bins_first_ms"],
+             bound_ms=bins_bound[0], bound_by=bins_bound[1],
+             bound_what=bins_bound[2], library_ms=None,
+             first_kernel_ms=t["bins_first_kernel_ms"], row_blocks=nb,
+             smax=int(sb.smax), tests=tested),
+        dict(name="splat_fwd_binned", max_abs_err=fwd_err, ms=t["fwd_ms"],
+             kernel_ms=t["fwd_kernel_ms"], plain_ms=fwd_plain,
              bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
-             bound_what=fwd_bound[2], library_ms=None, bins_ms=bins_ms),
-        dict(name="splat_bwd_binned", max_abs_err=bwd_err, ms=bwd_ms,
-             kernel_ms=bwd_kernel, plain_ms=bwd_plain,
+             bound_what=fwd_bound[2], library_ms=None, design="split",
+             slices=slices, first_ms=t["fwd_first_ms"],
+             first_kernel_ms=t["fwd_first_kernel_ms"],
+             max_abs_vs_first=fwd_vs_first, window_pairs=pairs,
+             footprint_pairs=fp_pairs),
+        dict(name="splat_bwd_binned", max_abs_err=bwd_err, ms=t["bwd_ms"],
+             kernel_ms=t["bwd_kernel_ms"], plain_ms=bwd_plain,
              bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
-             bound_what=bwd_bound[2], library_ms=None),
+             bound_what=bwd_bound[2], library_ms=None, design="split",
+             slices=bwd_slices, first_ms=t["bwd_first_ms"],
+             first_kernel_ms=t["bwd_first_kernel_ms"],
+             first_chain_ms=t["bwd_first_chain_ms"],
+             rel_vs_first=bwd_vs_first),
     ]
+
+
+def binned_render_launches(dev, n: int, res: tuple, backward: bool) -> dict:
+    """Device launches (kernels, copies, fills) of one binned render of n
+    seeded points onto res pixels, from the packing to the image and, with
+    `backward`, from the cotangent to the three gradients in the points'
+    own order: through the new designs (the autograd Function's chain:
+    the bins kernel, the split forward and backward) and through the first
+    designs' (compute_bins, the torch gathers, casts and stack, the first
+    forward, the first backward and the torch scatters)."""
+    rng = np.random.RandomState(12)
+    v = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    v[:, 2] += 4.0
+    nrm = rng.randn(n, 3).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    feats = rng.uniform(0, 1, (n, 8)).astype(np.float32)
+    mask = (rng.uniform(size=n) > 0.2).astype(np.float32)
+    v, nrm, feats, mask = (torch.as_tensor(a, device=dev)
+                           for a in (v, nrm, feats, mask))
+    K = torch.as_tensor(rasterer.calibration_matrix(res), device=dev)
+    kg = splat.kinv_pixel_rays(K, splat.pixel_grid(*res, device=dev))
+    bin_px = splat_cuda.bin_policy(kg.shape[0])
+    g = torch.ones(kg.shape[0], 8, device=dev)
+
+    def chain(new):
+        pts = splat_cuda._pack_points(v, nrm, mask)
+        f = feats.float().contiguous()
+        kg4 = splat_cuda._pack_rays(kg)
+        sb = splat_cuda._sort_bins(pts, f, kg4, 0.04, bin_px,
+                                   design="kernel" if new else "first")
+        design = "split" if new else "first"
+        img, m, d, zn = splat_cuda._fwd_binned(
+            sb.pts, sb.feats, kg4, sb.win, bin_px, 0.04, 150.0,
+            design=design)
+        if backward:
+            corr = (g * img).sum(-1, keepdim=True)
+            pix = torch.cat([kg4, m[:, None], d[:, None], zn[:, None], corr,
+                             g], 1).contiguous()
+            splat_cuda._bwd_binned(sb.pts, sb.feats, pix, sb.key, sb.smax,
+                                   sb.order, bin_px, 0.04, 150.0,
+                                   design=design)
+
+    by_kernel = device_launches(lambda: chain(True))
+    first = device_launches(lambda: chain(False))
+    return dict(new=round(sum(by_kernel.values())),
+                first=round(sum(first.values())), by_kernel=by_kernel)
 
 
 def check_ce(dev) -> list[dict]:
@@ -1042,7 +1246,7 @@ def demo_phase(dev, iters: int | None = None):
         assert launched["splat_fwd"] == launched["splat_bwd"] == cfg.iters
         assert launched["nn"] >= cfg.iters
         assert launched["splat_fwd_binned"] == launched["splat_bwd_binned"] \
-            == 0
+            == launched["splat_bins"] == 0
     anno =pipe.kitti_mod.get_annos(cfg.diff_annos, sample)[0]
     rt.reset_rng(1)
     t0 = time.perf_counter()
@@ -1097,7 +1301,7 @@ def full_width_phase(dev, rt_demo, sample, prep, iters: int | None = None):
         assert launched["nn"] >= stock.iters
         # 32x32 crops stay on the dense kernels
         assert launched["splat_fwd_binned"] == launched["splat_bwd_binned"] \
-            == 0
+            == launched["splat_bins"] == 0
         assert launched["stage2_fwd"] == launched["stage2_bwd"] == 0
     return rt, launched, dict(wall_s=wall, iters=stock.iters,
                               loss0=float(loss[0]),
@@ -1178,11 +1382,24 @@ def binned_refine_phase(dev, rt_demo, sample, anno, iters: int = 10):
           f"{loss[0]:.5f} -> {loss[-1]:.5f}, launches {launched}")
     assert np.isfinite(loss[applied]).all()
     assert all(torch.isfinite(t).all() for t in final)
+    summary = dict(wall_s=wall, iters=iters, px=h * w)
     if dev.type == "cuda":
         assert launched["splat_fwd_binned"] == launched["splat_bwd_binned"] \
-            == iters
+            == launched["splat_bins"] == iters
         assert launched["splat_fwd"] == launched["splat_bwd"] == 0
-    return launched, dict(wall_s=wall, iters=iters, px=h * w)
+        summary["render_launches"] = binned_render_launches(
+            dev, rt.surface_capacity, (h, w), backward=True)
+        print_render_launches("binned refine", rt.surface_capacity, (h, w),
+                              summary["render_launches"])
+    return launched, summary
+
+
+def print_render_launches(label: str, n: int, res: tuple,
+                          launches: dict) -> None:
+    print(f"{label}: device launches a binned render of {n} points onto "
+          f"{res[0]}x{res[1]} px: {launches['new']} (the first designs' "
+          f"chain: {launches['first']}); by kernel "
+          f"{json.dumps(launches['by_kernel'])}")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1216,11 +1433,17 @@ def crops_phase(dev, out_dir, n_crops: int = 26, grid: int = 40,
           f"{wall / n_crops * 1e3:.3f} ms/crop, mask pixels min "
           f"{min(on_object)} max {max(on_object)}, launches {launched}")
     assert min(on_object) > 0
+    summary = dict(wall_s=wall, crops=n_crops,
+                   ms_per_crop=wall / n_crops * 1e3)
     if dev.type == "cuda":
-        assert launched["splat_fwd_binned"] == n_crops
+        assert launched["splat_fwd_binned"] == launched["splat_bins"] \
+            == n_crops
         assert launched["splat_fwd"] == launched["splat_bwd_binned"] == 0
-    return crops_dir, launched, dict(wall_s=wall, crops=n_crops,
-                                     ms_per_crop=wall / n_crops * 1e3)
+        summary["render_launches"] = binned_render_launches(
+            dev, capacity, (128, 128), backward=False)
+        print_render_launches("crops", capacity, (128, 128),
+                              summary["render_launches"])
+    return crops_dir, launched, summary
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1228,14 +1451,10 @@ def crops_phase(dev, out_dir, n_crops: int = 26, grid: int = 40,
 def ce_call_launches(dev, reps: int = 10) -> dict:
     """Device launches (kernels, copies, fills) of one fused_cross_entropy
     forward and backward on a u-tower's (13, 256, 128, 128) logits with the
-    train step's int64 targets, by the profiler over `reps` calls (it may
-    drop a launch or two; the count a call is rounded); beside them the
+    train step's int64 targets (device_launches); beside them the
     launches of the first designs' wrapper chain (the targets cast to
     int32, the forward, the partials' sum and division, the scale, the
     backward)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     gen = torch.Generator(device=dev).manual_seed(6)
     x = torch.randn(13, 256, 128, 128, device=dev,
                     generator=gen).requires_grad_(True)
@@ -1255,18 +1474,7 @@ def ce_call_launches(dev, reps: int = 10) -> dict:
 
     launches = {}
     for name, fn in (("split", split), ("first", first)):
-        fn()
-        torch.cuda.synchronize()
-        for _ in range(3):  # a profiler run now and then records nothing
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-            per_call = {e.key: e.count / reps for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA}
-            if per_call:
-                break
-        assert per_call, f"the profiler recorded no launch of the {name} chain"
+        per_call = device_launches(fn, reps)
         launches[name] = round(sum(per_call.values()))
         launches[f"{name}_by_kernel"] = per_call
     print(f"train: device launches per fused_cross_entropy forward + "
@@ -1501,6 +1709,10 @@ def _kernel_group(name: str) -> str:
     # the port's kernels first; a CUTLASS- or CuTe-built kernel of the
     # port would be named here, and cuBLAS's name a gemm
     for key, group in (("splat_fwd_split_kernel", "splat_fwd"),
+                       ("splat_fwd_binned_split_kernel", "splat_fwd"),
+                       ("splat_bwd_binned_split_kernel", "splat_bwd"),
+                       ("splat_bwd_binned_kernel", "splat_bwd"),
+                       ("splat_bins", "splat_bins"),
                        ("splat_fwd_kernel", "splat_fwd"),
                        ("splat_bwd_split_kernel", "splat_bwd"),
                        ("splat_bwd_kernel", "splat_bwd"),

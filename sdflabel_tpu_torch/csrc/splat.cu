@@ -45,8 +45,8 @@
 //   first design (splat_fwd_kernel): one thread per pixel over all points;
 //             pass 1 reduces the z-norm, pass 2 runs the online softmax
 //             with the running max, denominator and 8 feature accumulators
-//             in registers. The binned forward runs it with windows; dense,
-//             it is the split design's yardstick (splat_fwd_first).
+//             in registers. The yardstick of both split forwards: dense
+//             (splat_fwd_first) and with windows (splat_fwd_binned).
 //   dense backward, split design (splat_bwd_split_kernel, every dense
 //             render's VJP): point-major, but the pixels are split too, as
 //             the forward's points are: grid (point blocks, S), the S <= 8
@@ -67,17 +67,35 @@
 //             yardstick, splat_bwd_first): one thread per point looping
 //             over all pixel chunks; 64 CTAs of 4 warps for 8192 points.
 //
-// Row binning (renders of >= 4096 px, ops/splat_cuda.py::compute_bins):
-// the points arrive sorted by the first bin_px-pixel row block their
-// footprint can touch, and block b may only meet the sorted window
-// [start_b, end_b). The forward runs the dense kernel with each thread
-// block's loop cut to its row block's window (bin_px is a multiple of the
-// 64 pixels of a thread block, so a thread block lies in one row block).
-// The binned backward gives sorted point j exactly the pairs the forward
-// visited: the row blocks [key_j, key_j + smax]. Each thread block stages
-// the pixels of the union of its points' ranges; each thread skips pixels
-// outside its own. The footprint test stays exact per pair, so binning
-// changes only the order of the sums.
+// Row binning (renders of >= 4096 px): the points arrive sorted by the
+// first bin_px-pixel row block their footprint can touch (csrc/splat_bins.cu,
+// the bins of ops/splat_cuda.py::compute_bins built on the card), and block
+// b may only meet the sorted window [start_b, end_b). The footprint test
+// stays exact on every pair a kernel visits, so binning changes only the
+// order of the sums.
+//   binned forward, split design (splat_fwd_binned_split_kernel): the dense
+//             split forward's tile (fwd_tile, shared) on its row block's
+//             window (bin_px is a multiple of the 64 pixels of a tile, so a
+//             tile lies in one row block), split over a cluster of S CTAs
+//             when the tiles alone leave SMs idle (binned_split_slices; the
+//             windows' lengths are on the card, so the rule takes n / nb
+//             points a window). At 128x128 px the 256 tiles of 16 warps
+//             already fill the card (S = 1) and the window's points are
+//             shared by 8 threads a pixel where the first design gave one.
+//   binned backward, split design (splat_bwd_binned_split_kernel): the
+//             dense split backward's block of 64 sorted points (bwd_block,
+//             shared) on the union of its points' rows, [key_first *
+//             bin_px, min((key_last + smax + 1) * bin_px, p)), split over
+//             a cluster of S CTAs (bwd_binned_split_slices; 4096 points:
+//             64 blocks x 5, where the first design had 32 CTAs of 4 warps
+//             on 132 SMs). Each thread adds only the rows of its point's
+//             blocks [key_j, key_j + smax], exactly the pairs the forward
+//             visited, and writes its point's gradient row to the point's
+//             own slot order[j]: no scatter after the kernel.
+//   first designs, the yardsticks (splat_fwd_binned, splat_bwd_binned):
+//             splat_fwd_kernel with windows; splat_bwd_binned_kernel, one
+//             thread per sorted point over its rows, outputs in sorted
+//             order.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -298,38 +316,33 @@ __device__ __forceinline__ void merge_partials(int count, Part part,
   }
 }
 
-// The dense forward split over the points. Grid (pixel tiles, S): the S
-// CTAs of one tile form a cluster and take contiguous slices of `per`
-// points; in a CTA, SPLIT_T threads share each pixel, thread k on the
-// slice's points k, k + SPLIT_T, ... Each CTA stages its slice (up to
-// SPLIT_CAP points; larger slices in chunks) in shared memory once for
-// both passes. Pass 1: the z-norm's sums of squares, merged over the
-// threads in order, then every CTA reads every rank's through distributed
-// shared memory in rank order, so all hold the same zn. Pass 2: each
-// thread's online softmax, merged over the threads in order into the
-// CTA's partial; rank 0 merges the S partials in rank order and writes
-// img, m, d, zn. The per-pair arithmetic is splat_fwd_kernel's; only the
-// order of the sums differs.
-__global__ void __launch_bounds__(SPLIT_THREADS, 2)
-splat_fwd_split_kernel(const float* __restrict__ pts,
-                       const float* __restrict__ feats,
-                       const float* __restrict__ kg, int n, int p, int per,
-                       float diam, float dc, float* __restrict__ img,
-                       float* __restrict__ m_out, float* __restrict__ d_out,
-                       float* __restrict__ zn_out) {
-  extern __shared__ float4 smem4[];
-  float* s_pts = reinterpret_cast<float*>(smem4);  // SPLIT_CAP x 8
-  float* s_feat = s_pts + SPLIT_CAP * 8;           // SPLIT_CAP x NF
+// One 64-pixel tile of the split forward, on the points [lo, hi) of this
+// CTA's slice; the cluster's S CTAs share the tile. In a CTA, SPLIT_T
+// threads share each pixel, thread k on the slice's points k, k + SPLIT_T,
+// ... Each CTA stages its slice (up to SPLIT_CAP points; larger slices in
+// chunks) in shared memory once for both passes. Pass 1: the z-norm's sums
+// of squares, merged over the threads in order, then every CTA reads every
+// rank's through distributed shared memory in rank order, so all hold the
+// same zn. Pass 2: each thread's online softmax, merged over the threads
+// in order into the CTA's partial; rank 0 merges the S partials in rank
+// order and writes img, m, d, zn. The per-pair arithmetic is
+// splat_fwd_kernel's; only the order of the sums differs.
+__device__ __forceinline__ void fwd_tile(
+    const float* __restrict__ pts, const float* __restrict__ feats,
+    const float* __restrict__ kg, int p, int lo, int hi, float diam,
+    float dc, float* smem, cg::cluster_group& cluster,
+    float* __restrict__ img, float* __restrict__ m_out,
+    float* __restrict__ d_out, float* __restrict__ zn_out) {
+  float* s_pts = smem;                     // SPLIT_CAP x 8
+  float* s_feat = s_pts + SPLIT_CAP * 8;   // SPLIT_CAP x NF
   float* s_red = s_feat + SPLIT_CAP * NF;  // per thread: SPLIT_T x PART x px
   float* s_ssq = s_red + SPLIT_T * PART * SPLIT_PX;  // the CTA's, per px
   float* s_part = s_ssq + SPLIT_PX;                  // PART x px
-  cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int slices = (int)cluster.num_blocks();
   const int px = threadIdx.x % SPLIT_PX, k = threadIdx.x / SPLIT_PX;
   const int pix = blockIdx.x * SPLIT_PX + px;
   const bool active = pix < p;
-  const int lo = min(n, rank * per), hi = min(n, lo + per);
   const bool resident = hi - lo <= SPLIT_CAP;
   float gx = 0.f, gy = 0.f, gz = 0.f;
   if (active) {
@@ -437,6 +450,49 @@ splat_fwd_split_kernel(const float* __restrict__ pts,
   cluster.sync();  // no CTA leaves while rank 0 may still read it
 }
 
+// The dense forward split over the points. Grid (pixel tiles, S): the S
+// CTAs of one tile form a cluster and take contiguous slices of `per`
+// points (fwd_tile).
+__global__ void __launch_bounds__(SPLIT_THREADS, 2)
+splat_fwd_split_kernel(const float* __restrict__ pts,
+                       const float* __restrict__ feats,
+                       const float* __restrict__ kg, int n, int p, int per,
+                       float diam, float dc, float* __restrict__ img,
+                       float* __restrict__ m_out, float* __restrict__ d_out,
+                       float* __restrict__ zn_out) {
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int lo = min(n, (int)cluster.block_rank() * per);
+  fwd_tile(pts, feats, kg, p, lo, min(n, lo + per), diam, dc,
+           reinterpret_cast<float*>(smem4), cluster, img, m_out, d_out,
+           zn_out);
+}
+
+// The binned forward on the split forward's tile. The points arrive sorted
+// by row block (splat_bins.cu); a tile lies in one row block b (bin_px is
+// a multiple of SPLIT_PX) and meets exactly its window [start_b, end_b),
+// which the S CTAs of its cluster split into contiguous slices.
+__global__ void __launch_bounds__(SPLIT_THREADS, 2)
+splat_fwd_binned_split_kernel(const float* __restrict__ pts,
+                              const float* __restrict__ feats,
+                              const float* __restrict__ kg, int p,
+                              const int* __restrict__ win, int bin_px,
+                              float diam, float dc, float* __restrict__ img,
+                              float* __restrict__ m_out,
+                              float* __restrict__ d_out,
+                              float* __restrict__ zn_out) {
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int b = (blockIdx.x * SPLIT_PX) / bin_px;
+  const int start = win[2 * b], end = max(win[2 * b + 1], start);
+  const int slices = (int)cluster.num_blocks();
+  const int per = (end - start + slices - 1) / slices;
+  const int lo = min(end, start + (int)cluster.block_rank() * per);
+  fwd_tile(pts, feats, kg, p, lo, min(end, lo + per), diam, dc,
+           reinterpret_cast<float*>(smem4), cluster, img, m_out, d_out,
+           zn_out);
+}
+
 // Slices S of the split forward for n points onto p pixels: enough CTAs
 // to give each SM of the card one, at most SPLIT_MAX, and slices of at
 // least SPLIT_MIN_PTS points; 1 when the pixel tiles alone fill the card.
@@ -478,30 +534,27 @@ splat_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ feats,
   if (active) acc.store(q, i, dv, dn, df);
 }
 
-// The dense backward split over the pixels. Grid (point blocks, S): the S
-// CTAs of a block of BSPLIT_PTS points form a cluster and take contiguous
-// slices of `per` pixel rows; thread t is point t % BSPLIT_PTS of the
-// block in group g = t / BSPLIT_PTS, and group g takes the g-th contiguous
-// part (ceil(cn / BSPLIT_T) rows) of each staged chunk of cn rows. Each
-// thread's PointGrads partial is added over the groups in order, then over
-// the ranks in rank order; rank r stores the r-th share of the points.
-__global__ void __launch_bounds__(BSPLIT_THREADS, 3)
-splat_bwd_split_kernel(const float* __restrict__ pts,
-                       const float* __restrict__ feats,
-                       const float* __restrict__ pix, int n, int p, int per,
-                       float diam, float dc, float* __restrict__ dv,
-                       float* __restrict__ dn, float* __restrict__ df) {
-  __shared__ float4 s_pix4[BSPLIT_CAP * PIX_W / 4];
-  __shared__ float s_part[BSPLIT_T * NG * BSPLIT_PTS];
-  __shared__ float s_sum[NG * BSPLIT_PTS];
+// One block of BSPLIT_PTS points of the split backward, on the pixel rows
+// [lo, hi) of this CTA's slice; the cluster's S CTAs share the block.
+// Thread t is point t % BSPLIT_PTS of the block in group g = t /
+// BSPLIT_PTS, and group g takes the g-th contiguous part (ceil(cn /
+// BSPLIT_T) rows) of each staged chunk of cn rows, of which the thread adds
+// only the rows of [q_lo, q_hi), its own point's. Each thread's PointGrads
+// partial is added over the groups in order, then over the ranks in rank
+// order; rank r stores the r-th share of the points, point j at row
+// order[j] of the outputs (j itself when order is null).
+__device__ __forceinline__ void bwd_block(
+    const float* __restrict__ pts, const float* __restrict__ feats,
+    const float* __restrict__ pix, int n, int lo, int hi, int q_lo,
+    int q_hi, const int* __restrict__ order, float diam, float dc,
+    float4* s_pix4, float* s_part, float* s_sum, cg::cluster_group& cluster,
+    float* __restrict__ dv, float* __restrict__ dn, float* __restrict__ df) {
   const float* s_pix = reinterpret_cast<const float*>(s_pix4);
-  cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int slices = (int)cluster.num_blocks();
   const int pt = threadIdx.x % BSPLIT_PTS, grp = threadIdx.x / BSPLIT_PTS;
   const int i = blockIdx.x * BSPLIT_PTS + pt;
   const bool active = i < n;
-  const int lo = min(p, rank * per), hi = min(p, lo + per);
   float q[8], fi[NF];
 #pragma unroll
   for (int k = 0; k < 8; ++k) q[k] = active ? pts[(size_t)i * 8 + k] : 0.f;
@@ -519,7 +572,8 @@ splat_bwd_split_kernel(const float* __restrict__ pts,
     __syncthreads();
     if (!active) continue;
     const int sub = (cn + BSPLIT_T - 1) / BSPLIT_T;
-    const int j0 = grp * sub, j1 = min(cn, j0 + sub);
+    const int j0 = max(grp * sub, q_lo - c0);
+    const int j1 = min(min(cn, grp * sub + sub), q_hi - c0);
     for (int j = j0; j < j1; ++j) acc.add(q, fi, &s_pix[j * PIX_W], diam, dc);
   }
 #pragma unroll
@@ -553,9 +607,79 @@ splat_bwd_split_kernel(const float* __restrict__ pts,
     float qj[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) qj[k] = pts[(size_t)ij * 8 + k];
-    total.store(qj, ij, dv, dn, df);
+    total.store(qj, order != nullptr ? order[ij] : ij, dv, dn, df);
   }
   cluster.sync();  // no CTA leaves while a peer may still read it
+}
+
+// The dense backward split over the pixels. Grid (point blocks, S): the S
+// CTAs of a block of BSPLIT_PTS points form a cluster and take contiguous
+// slices of `per` pixel rows (bwd_block), every row for every point.
+__global__ void __launch_bounds__(BSPLIT_THREADS, 3)
+splat_bwd_split_kernel(const float* __restrict__ pts,
+                       const float* __restrict__ feats,
+                       const float* __restrict__ pix, int n, int p, int per,
+                       float diam, float dc, float* __restrict__ dv,
+                       float* __restrict__ dn, float* __restrict__ df) {
+  __shared__ float4 s_pix4[BSPLIT_CAP * PIX_W / 4];
+  __shared__ float s_part[BSPLIT_T * NG * BSPLIT_PTS];
+  __shared__ float s_sum[NG * BSPLIT_PTS];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int lo = min(p, (int)cluster.block_rank() * per);
+  bwd_block(pts, feats, pix, n, lo, min(p, lo + per), 0, p, nullptr, diam,
+            dc, s_pix4, s_part, s_sum, cluster, dv, dn, df);
+}
+
+// The binned backward on the split backward's design, over points sorted
+// as the binned forward saw them. key (n,) is each sorted point's first row
+// block (nb: touches none), smax points at the widest span: sorted point j
+// meets exactly the rows of the blocks [key_j, key_j + smax] (the pairs the
+// forward visited), and a block of points the union of its points' rows,
+// [key_first * bin_px, min((key_last + smax + 1) * bin_px, p)) with keys
+// ascending in the block, which its cluster splits into contiguous slices.
+// Each gradient row goes to the point's own slot order[j].
+__global__ void __launch_bounds__(BSPLIT_THREADS, 3)
+splat_bwd_binned_split_kernel(const float* __restrict__ pts,
+                              const float* __restrict__ feats,
+                              const float* __restrict__ pix,
+                              const int* __restrict__ key,
+                              const int* __restrict__ smax_p,
+                              const int* __restrict__ order, int n, int p,
+                              int bin_px, float diam, float dc,
+                              float* __restrict__ dv, float* __restrict__ dn,
+                              float* __restrict__ df) {
+  __shared__ float4 s_pix4[BSPLIT_CAP * PIX_W / 4];
+  __shared__ float s_part[BSPLIT_T * NG * BSPLIT_PTS];
+  __shared__ float s_sum[NG * BSPLIT_PTS];
+  __shared__ int s_kmax[BSPLIT_PTS / 32];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nb = (p + bin_px - 1) / bin_px;
+  const int smax = *smax_p;
+  const int i = blockIdx.x * BSPLIT_PTS + (int)threadIdx.x % BSPLIT_PTS;
+  const int ki = i < n ? key[i] : nb;
+  if ((int)threadIdx.x < BSPLIT_PTS) {  // the block's last live key
+    const int v = __reduce_max_sync(0xffffffffu, ki < nb ? ki : -1);
+    if (threadIdx.x % 32 == 0) s_kmax[threadIdx.x / 32] = v;
+  }
+  __syncthreads();
+  const int k_first = key[blockIdx.x * BSPLIT_PTS];
+  int k_last = s_kmax[0];
+  for (int w = 1; w < BSPLIT_PTS / 32; ++w) k_last = max(k_last, s_kmax[w]);
+  int u_lo = 0, u_hi = 0;
+  if (k_first < nb) {
+    u_lo = k_first * bin_px;
+    u_hi = min((k_last + smax + 1) * bin_px, p);
+  }
+  const int slices = (int)cluster.num_blocks();
+  const int per = (u_hi - u_lo + slices - 1) / slices;
+  const int lo = min(u_hi, u_lo + (int)cluster.block_rank() * per);
+  int q_lo = 0, q_hi = 0;
+  if (ki < nb) {
+    q_lo = ki * bin_px;
+    q_hi = min((ki + smax + 1) * bin_px, p);
+  }
+  bwd_block(pts, feats, pix, n, lo, min(u_hi, lo + per), q_lo, q_hi, order,
+            diam, dc, s_pix4, s_part, s_sum, cluster, dv, dn, df);
 }
 
 // Slices S of the split backward for n points onto p pixels: enough CTAs
@@ -570,6 +694,25 @@ int bwd_split_slices(int n, int p) {
   s = min(s, SPLIT_MAX);
   s = min(s, (p + BSPLIT_MIN_PX - 1) / BSPLIT_MIN_PX);
   return max(s, 1);
+}
+
+// Slices S of the binned split forward for n points onto p pixels in
+// row blocks of bin_px: split_slices' rule with the windows' length
+// unknown to the host (it is on the card), each window taken as n / nb
+// points, what a row block holds when the keys spread evenly; a window is
+// longer by the blocks within smax before it, so this errs towards fewer
+// CTAs. 128x128 px (256 tiles), 81x112 (142) and 320x320 px (1600): S = 1,
+// the tiles already give every SM one; 64x64 px with 3000 points: 2.
+int binned_split_slices(int n, int p, int bin_px) {
+  const int nb = max((p + bin_px - 1) / bin_px, 1);
+  return split_slices((n + nb - 1) / nb, p);
+}
+
+// Slices S of the binned split backward: bwd_split_slices' rule on the
+// least union of rows a live block of points meets, one row block (the
+// host does not know smax). 4096 points (64 blocks): S = 5.
+int bwd_binned_split_slices(int n, int p, int bin_px) {
+  return bwd_split_slices(n, min(bin_px, p));
 }
 
 // Binned backward over points sorted as the binned forward saw them. key
@@ -680,8 +823,50 @@ int splat_fwd_first(const void* pts, const void* feats, const void* kg, int n,
   return (int)cudaGetLastError();
 }
 
-// As splat_fwd over points sorted by row block; win (nb, 2) int32 holds
-// each row block's [start, end) in the sorted points, bin_px % 64 == 0.
+// Point slices of splat_fwd_binned_split for n points onto p pixels.
+int splat_fwd_binned_slices(int n, int p, int bin_px) {
+  return binned_split_slices(n, p, bin_px);
+}
+
+// As splat_fwd over points sorted by row block (splat_bins.cu); win (nb, 2)
+// int32 holds each row block's [start, end) in the sorted points, bin_px %
+// 64 == 0. The split design; `slices` > 0 forces the cluster size (1..8), 0
+// takes binned_split_slices.
+int splat_fwd_binned_split(const void* pts, const void* feats, const void* kg,
+                           int n, int p, const void* win, int bin_px,
+                           int slices, float diam, float depth_constant,
+                           void* img, void* m, void* d, void* zn,
+                           void* stream) {
+  if (p <= 0) return 0;
+  if (bin_px <= 0 || bin_px % SPLIT_PX != 0 || slices > SPLIT_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      splat_fwd_binned_split_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SPLIT_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  if (slices <= 0) slices = binned_split_slices(n, p, bin_px);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((p + SPLIT_PX - 1) / SPLIT_PX, slices);
+  cfg.blockDim = dim3(SPLIT_THREADS);
+  cfg.dynamicSmemBytes = SPLIT_SMEM;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = slices;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, splat_fwd_binned_split_kernel, (const float*)pts,
+      (const float*)feats, (const float*)kg, p, (const int*)win, bin_px,
+      diam, depth_constant, (float*)img, (float*)m, (float*)d, (float*)zn);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// As splat_fwd_binned_split, through the first design: one thread per
+// pixel over its window (splat_fwd_kernel with windows).
 int splat_fwd_binned(const void* pts, const void* feats, const void* kg, int n,
                      int p, const void* win, int bin_px, float diam,
                      float depth_constant, void* img, void* m, void* d,
@@ -741,8 +926,47 @@ int splat_bwd_first(const void* pts, const void* feats, const void* pix,
   return (int)cudaGetLastError();
 }
 
-// Sorted pts, feats as splat_fwd_binned; key (n,) int32 sorted first row
-// blocks, smax (1,) int32 -> dv, dn, df in sorted order.
+// Pixel slices of splat_bwd_binned_split for n points onto p pixels.
+int splat_bwd_binned_slices(int n, int p, int bin_px) {
+  return bwd_binned_split_slices(n, p, bin_px);
+}
+
+// Sorted pts, feats as splat_fwd_binned_split; key (n,) int32 sorted first
+// row blocks, smax (1,) int32, order (n,) int32 sorted position -> point
+// -> dv, dn, df in the points' own order (row order[j] for sorted point
+// j). The split design; `slices` as in splat_bwd.
+int splat_bwd_binned_split(const void* pts, const void* feats,
+                           const void* pix, const void* key, const void* smax,
+                           const void* order, int n, int p, int bin_px,
+                           int slices, float diam, float depth_constant,
+                           void* dv, void* dn, void* df, void* stream) {
+  if (n <= 0) return 0;
+  if (bin_px <= 0 || slices > SPLIT_MAX) return (int)cudaErrorInvalidValue;
+  if (slices <= 0) slices = bwd_binned_split_slices(n, p, bin_px);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + BSPLIT_PTS - 1) / BSPLIT_PTS, slices);
+  cfg.blockDim = dim3(BSPLIT_THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = slices;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, splat_bwd_binned_split_kernel, (const float*)pts,
+      (const float*)feats, (const float*)pix, (const int*)key,
+      (const int*)smax, (const int*)order, n, p, bin_px, diam,
+      depth_constant, (float*)dv, (float*)dn, (float*)df);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// As splat_bwd_binned_split without order, through the first design (one
+// thread per sorted point, splat_bwd_binned_kernel): outputs in sorted
+// order.
 int splat_bwd_binned(const void* pts, const void* feats, const void* pix,
                      const void* key, const void* smax, int n, int p,
                      int bin_px, float diam, float depth_constant, void* dv,

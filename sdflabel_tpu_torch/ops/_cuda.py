@@ -34,7 +34,7 @@ _COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  # no a*b+c -> fma contraction: the kernels repeat the plain
                  # versions' separately rounded products and sums
                  "-fmad=false"]
-SOURCES = ("splat", "nn", "select_mlp", "ce", "stage2_mlp")
+SOURCES = ("splat", "splat_bins", "nn", "select_mlp", "ce", "stage2_mlp")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -12,22 +12,32 @@ The dense forward has two designs in csrc/splat.cu: the split design
 (``SPLAT_FWD``, every dense render), which splits the points over a
 cluster of up to 8 CTAs per 64-pixel tile and merges their softmax
 partials in one launch, and the first design (``SPLAT_FWD_FIRST``), one
-thread per pixel over all points, kept as the yardstick and as the
-binned forward's kernel. :func:`split_slices` says how many CTAs share a
-tile. The dense backward likewise: the split design (``SPLAT_BWD``, every
-dense VJP) splits the pixels over a cluster of up to 8 CTAs per block of
-64 points and adds their per-point partial gradients in rank order
-(:func:`bwd_split_slices` CTAs a block); the first design
-(``SPLAT_BWD_FIRST``, one thread per point over all pixels) is the
-yardstick, launched only by measurements and tests.
+thread per pixel over all points, kept as the yardstick.
+:func:`split_slices` says how many CTAs share a tile. The dense backward
+likewise: the split design (``SPLAT_BWD``, every dense VJP) splits the
+pixels over a cluster of up to 8 CTAs per block of 64 points and adds
+their per-point partial gradients in rank order (:func:`bwd_split_slices`
+CTAs a block); the first design (``SPLAT_BWD_FIRST``, one thread per point
+over all pixels) is the yardstick, launched only by measurements and
+tests.
 
 Binning (splat_pallas.py:211-292) sorts the points by the first
 ``bin_px``-pixel row block their footprint can touch; each row block then
-meets only a window of the sorted points. :func:`compute_bins` repeats the
-JAX arithmetic in fp32 operation for operation, because the windows are
-right only while the row bound stays conservative. The kernels take the
+meets only a window of the sorted points. On the card a binned render is
+three kernels: the bins (``SPLAT_BINS``, csrc/splat_bins.cu: keys, a
+stable counting sort, the windows and the sorted points in two launches),
+the forward on the split forward's tile over each tile's window
+(``SPLAT_FWD_BINNED``) and, in the VJP, the backward on the split
+backward's blocks over their rows, writing each point's gradient to its
+own slot (``SPLAT_BWD_BINNED``). :func:`compute_bins` is the plain version
+of the bins: it repeats the JAX arithmetic in fp32 operation for
+operation, because the windows are right only while the row bound stays
+conservative, and the kernel equals it bit for bit. The kernels take the
 windows at point granularity; the TPU's rounding to point chunks only
-widens them.
+widens them. The first designs (``compute_bins`` with torch gathers,
+``SPLAT_FWD_BINNED_FIRST``, ``SPLAT_BWD_BINNED_FIRST`` with torch scatters)
+are the yardsticks, reached only through the ``design`` argument of
+:func:`_sort_bins`, :func:`_fwd_binned` and :func:`_bwd_binned`.
 
 Tolerance against the plain version: the kernels take the plain
 version's explicit footprint distance ||v - g z|| (the TPU kernel's
@@ -64,12 +74,21 @@ SPLAT_BWD = _cuda.CudaKernel("splat", "splat_bwd", [
 SPLAT_BWD_FIRST = _cuda.CudaKernel("splat", "splat_bwd_first", [
     _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.F, _cuda.F,
     _cuda.P, _cuda.P, _cuda.P, _cuda.P])
-SPLAT_FWD_BINNED = _cuda.CudaKernel("splat", "splat_fwd_binned", [
+SPLAT_FWD_BINNED = _cuda.CudaKernel("splat", "splat_fwd_binned_split", [
+    _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.P, _cuda.I, _cuda.I,
+    _cuda.F, _cuda.F, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P])
+SPLAT_FWD_BINNED_FIRST = _cuda.CudaKernel("splat", "splat_fwd_binned", [
     _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.P, _cuda.I, _cuda.F,
     _cuda.F, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P])
-SPLAT_BWD_BINNED = _cuda.CudaKernel("splat", "splat_bwd_binned", [
+SPLAT_BWD_BINNED = _cuda.CudaKernel("splat", "splat_bwd_binned_split", [
+    _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I,
+    _cuda.I, _cuda.I, _cuda.F, _cuda.F, _cuda.P, _cuda.P, _cuda.P, _cuda.P])
+SPLAT_BWD_BINNED_FIRST = _cuda.CudaKernel("splat", "splat_bwd_binned", [
     _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.I,
     _cuda.F, _cuda.F, _cuda.P, _cuda.P, _cuda.P, _cuda.P])
+SPLAT_BINS = _cuda.CudaKernel("splat_bins", "splat_bins", [
+    _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.F,
+    _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P])
 
 BIN_AUTO_PX = 512  # row-block size of the auto policy (splat_pallas.py:64)
 BIN_MIN_PX = 4096  # renders from this many pixels up are binned
@@ -97,11 +116,12 @@ class Bins(NamedTuple):
     count: torch.Tensor  # (nb,) int64 chunks in the window
 
 
-def compute_bins(pts: torch.Tensor, kg: torch.Tensor, diam: float,
-                 bin_px: int, chunk: int = 1) -> Bins:
-    """splat_pallas.py::_compute_bins on the packed points (N, 8)
-    [v, n, mask, 0] and rays (P, 4) [gx, gy, gz, gg]. ``chunk`` = 1 gives
-    the windows at point granularity, as the kernels take them."""
+def bin_keys(pts: torch.Tensor, kg: torch.Tensor, diam: float,
+             bin_px: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each packed point's (N, 8) [v, n, mask, 0] first row block and span
+    on the rays (P, 4) [gx, gy, gz, gg], (N,) int64 each:
+    splat_pallas.py::_compute_bins up to its sort. A point that touches
+    no block has key nb and span 0."""
     p = kg.shape[0]
     nb = -(-p // bin_px)
     g = kg[:, 1:3]
@@ -133,7 +153,16 @@ def compute_bins(pts: torch.Tensor, kg: torch.Tensor, diam: float,
     last = (nb - 1) - ov8.flip(1).argmax(1)
     span = torch.where(any_ov, last - first, 0)
     # points that touch nothing sort past every window
-    key = torch.where(any_ov, first, nb)
+    return torch.where(any_ov, first, nb), span
+
+
+def compute_bins(pts: torch.Tensor, kg: torch.Tensor, diam: float,
+                 bin_px: int, chunk: int = 1) -> Bins:
+    """splat_pallas.py::_compute_bins on the packed points (N, 8)
+    [v, n, mask, 0] and rays (P, 4) [gx, gy, gz, gg]. ``chunk`` = 1 gives
+    the windows at point granularity, as the kernels take them."""
+    nb = -(-kg.shape[0] // bin_px)
+    key, span = bin_keys(pts, kg, diam, bin_px)
     order = torch.argsort(key, stable=True)
     key_sorted = key[order]
     smax = span.max()
@@ -160,6 +189,59 @@ def _pack_rays(kinv_grid):
     return torch.cat([kg, kg.new_zeros(kg.shape[0], 1)], 1).contiguous()
 
 
+class SortedBins(NamedTuple):
+    """What the binned kernels take: a render's points sorted by row block
+    (all on the points' device)."""
+
+    order: torch.Tensor  # (N,) sorted position -> point; int32 (first: int64)
+    key: torch.Tensor  # (N,) int32 sorted first row block; nb = none
+    smax: torch.Tensor  # (1,) int32 widest span
+    win: torch.Tensor  # (nb, 2) int32 [start, end) of each block's window
+    pts: torch.Tensor  # (N, 8) packed points in sorted order
+    feats: torch.Tensor  # (N, 8) features in sorted order
+
+
+@functools.lru_cache(maxsize=64)
+def _bins_work(n: int, nb: int) -> int:
+    """int32 scratch of the bins kernel for n points and nb row blocks."""
+    return _cuda.query("splat_bins", "splat_bins_work", n, nb)
+
+
+def _sort_bins(pts, feats, kg, diam, bin_px,
+               design="kernel") -> SortedBins:
+    """The packed points (N, 8) and features (N, 8) binned onto the rays
+    (P, 4) and sorted: on the card through the bins kernel (two launches)
+    or, with ``design="first"``, through :func:`compute_bins` and torch
+    gathers (the first design, kept as the yardstick)."""
+    dev = pts.device
+    n, p = pts.shape[0], kg.shape[0]
+    nb = -(-p // bin_px)
+    _cuda.check("pts", pts, torch.float32, (n, 8), dev)
+    _cuda.check("feats", feats, torch.float32, (n, NUM_FEATURES), dev)
+    _cuda.check("kg", kg, torch.float32, (p, 4), dev)
+    if design == "first":
+        bins = compute_bins(pts, kg, diam, bin_px)
+        win = torch.stack([bins.start, bins.start + bins.count],
+                          1).to(torch.int32).contiguous()
+        return SortedBins(bins.order, bins.key.to(torch.int32),
+                          bins.smax.reshape(1).to(torch.int32), win,
+                          pts[bins.order].contiguous(),
+                          feats[bins.order].contiguous())
+    if design != "kernel":
+        raise ValueError(f"design: {design!r}, expected 'kernel' or 'first'")
+    if feats.data_ptr() % 16:  # the kernel copies rows as float4
+        feats = feats.clone()
+    ints = torch.empty(2 * n + 1 + 2 * nb, device=dev, dtype=torch.int32)
+    order, key, smax, win = ints.split([n, n, 1, 2 * nb])
+    rows = torch.empty(2, n, 8, device=dev, dtype=torch.float32)
+    work = torch.empty(_bins_work(n, nb), device=dev, dtype=torch.int32)
+    SPLAT_BINS(_cuda.ptr(pts), _cuda.ptr(feats), _cuda.ptr(kg), n, p, bin_px,
+               float(diam), _cuda.ptr(work), _cuda.ptr(order), _cuda.ptr(key),
+               _cuda.ptr(smax), _cuda.ptr(win), _cuda.ptr(rows[0]),
+               _cuda.ptr(rows[1]), _cuda.stream(pts))
+    return SortedBins(order, key, smax, win.view(nb, 2), rows[0], rows[1])
+
+
 def split_slices(n: int, p: int) -> int:
     """CTAs (point slices) that share each 64-pixel tile in the split
     dense forward for n points onto p pixels, on the current card."""
@@ -170,6 +252,18 @@ def bwd_split_slices(n: int, p: int) -> int:
     """CTAs (pixel slices) that share each block of 64 points in the split
     dense backward for n points onto p pixels, on the current card."""
     return _cuda.query("splat", "splat_bwd_slices", n, p)
+
+
+def binned_slices(n: int, p: int, bin_px: int) -> int:
+    """CTAs (window slices) that share each 64-pixel tile in the binned
+    split forward, on the current card."""
+    return _cuda.query("splat", "splat_fwd_binned_slices", n, p, bin_px)
+
+
+def bwd_binned_slices(n: int, p: int, bin_px: int) -> int:
+    """CTAs (row slices) that share each block of 64 sorted points in the
+    binned split backward, on the current card."""
+    return _cuda.query("splat", "splat_bwd_binned_slices", n, p, bin_px)
 
 
 def _fwd(pts, feats, kg, diam, depth_constant, kernel=SPLAT_FWD):
@@ -189,7 +283,11 @@ def _fwd(pts, feats, kg, diam, depth_constant, kernel=SPLAT_FWD):
     return img, m, d, zn
 
 
-def _fwd_binned(pts, feats, kg, win, bin_px, diam, depth_constant):
+def _fwd_binned(pts, feats, kg, win, bin_px, diam, depth_constant,
+                design="split", slices=0):
+    """The binned forward over sorted points and their windows: the split
+    design (`slices` > 0 forces its cluster size) or, with
+    ``design="first"``, the first design."""
     dev = pts.device
     n, p = pts.shape[0], kg.shape[0]
     nb = -(-p // bin_px)
@@ -200,14 +298,22 @@ def _fwd_binned(pts, feats, kg, win, bin_px, diam, depth_constant):
     img = torch.empty(p, NUM_FEATURES, device=dev, dtype=torch.float32)
     m, d, zn = (torch.empty(p, device=dev, dtype=torch.float32)
                 for _ in range(3))
-    SPLAT_FWD_BINNED(_cuda.ptr(pts), _cuda.ptr(feats), _cuda.ptr(kg), n, p,
-                     _cuda.ptr(win), bin_px, diam, float(depth_constant),
-                     _cuda.ptr(img), _cuda.ptr(m), _cuda.ptr(d),
-                     _cuda.ptr(zn), _cuda.stream(pts))
+    extra = (slices,) if design == "split" else ()
+    kernel = {"split": SPLAT_FWD_BINNED,
+              "first": SPLAT_FWD_BINNED_FIRST}[design]
+    kernel(_cuda.ptr(pts), _cuda.ptr(feats), _cuda.ptr(kg), n, p,
+           _cuda.ptr(win), bin_px, *extra, diam, float(depth_constant),
+           _cuda.ptr(img), _cuda.ptr(m), _cuda.ptr(d), _cuda.ptr(zn),
+           _cuda.stream(pts))
     return img, m, d, zn
 
 
-def _bwd_binned(pts, feats, pix, key, smax, bin_px, diam, depth_constant):
+def _bwd_binned(pts, feats, pix, key, smax, order, bin_px, diam,
+                depth_constant, design="split", slices=0):
+    """The binned backward over sorted points -> d_points, d_normals,
+    d_features in the points' own order: the split design writes each row
+    to its slot order[j] (`slices` > 0 forces its cluster size); the first
+    design (``design="first"``) writes sorted rows that torch scatters."""
     dev = pts.device
     n, p = pts.shape[0], pix.shape[0]
     _cuda.check("pts", pts, torch.float32, (n, 8), dev)
@@ -215,14 +321,31 @@ def _bwd_binned(pts, feats, pix, key, smax, bin_px, diam, depth_constant):
     _cuda.check("pix", pix, torch.float32, (p, 16), dev)
     _cuda.check("key", key, torch.int32, (n,), dev)
     _cuda.check("smax", smax, torch.int32, (1,), dev)
-    dv = torch.empty(n, 3, device=dev, dtype=torch.float32)
-    dn = torch.empty(n, 3, device=dev, dtype=torch.float32)
-    df = torch.empty(n, NUM_FEATURES, device=dev, dtype=torch.float32)
-    SPLAT_BWD_BINNED(_cuda.ptr(pts), _cuda.ptr(feats), _cuda.ptr(pix),
-                     _cuda.ptr(key), _cuda.ptr(smax), n, p, bin_px, diam,
-                     float(depth_constant), _cuda.ptr(dv), _cuda.ptr(dn),
-                     _cuda.ptr(df), _cuda.stream(pts))
-    return dv, dn, df
+    # one allocation for the three outputs, each a contiguous part of it
+    dv, dn, df = torch.empty((6 + NUM_FEATURES) * n, device=dev,
+                             dtype=torch.float32).split(
+        [3 * n, 3 * n, NUM_FEATURES * n])
+    dv, dn, df = dv.view(n, 3), dn.view(n, 3), df.view(n, NUM_FEATURES)
+    if design == "split":
+        _cuda.check("order", order, torch.int32, (n,), dev)
+        SPLAT_BWD_BINNED(_cuda.ptr(pts), _cuda.ptr(feats), _cuda.ptr(pix),
+                         _cuda.ptr(key), _cuda.ptr(smax), _cuda.ptr(order),
+                         n, p, bin_px, slices, diam, float(depth_constant),
+                         _cuda.ptr(dv), _cuda.ptr(dn), _cuda.ptr(df),
+                         _cuda.stream(pts))
+        return dv, dn, df
+    if design != "first":
+        raise ValueError(f"design: {design!r}, expected 'split' or 'first'")
+    SPLAT_BWD_BINNED_FIRST(_cuda.ptr(pts), _cuda.ptr(feats), _cuda.ptr(pix),
+                           _cuda.ptr(key), _cuda.ptr(smax), n, p, bin_px,
+                           diam, float(depth_constant), _cuda.ptr(dv),
+                           _cuda.ptr(dn), _cuda.ptr(df), _cuda.stream(pts))
+    out = []
+    for t in (dv, dn, df):  # sorted order -> each point's own slot
+        u = torch.empty_like(t)
+        u[order] = t
+        out.append(u)
+    return tuple(out)
 
 
 def _bwd(pts, feats, pix, diam, depth_constant, kernel=SPLAT_BWD,
@@ -259,16 +382,11 @@ class _SurfelComposite(torch.autograd.Function):
             img, m, d, zn = _fwd(pts, feats, kg, diam, depth_constant)
             ctx.save_for_backward(pts, feats, kg, m, d, zn, img)
             return img
-        bins = compute_bins(pts, kg, diam, bin_px)
-        pts = pts[bins.order].contiguous()
-        feats = feats[bins.order].contiguous()
-        win = torch.stack([bins.start, bins.start + bins.count],
-                          1).to(torch.int32).contiguous()
-        img, m, d, zn = _fwd_binned(pts, feats, kg, win, bin_px, diam,
-                                    depth_constant)
-        ctx.save_for_backward(pts, feats, kg, m, d, zn, img, bins.order,
-                              bins.key.to(torch.int32),
-                              bins.smax.reshape(1).to(torch.int32))
+        sb = _sort_bins(pts, feats, kg, diam, bin_px)
+        img, m, d, zn = _fwd_binned(sb.pts, sb.feats, kg, sb.win, bin_px,
+                                    diam, depth_constant)
+        ctx.save_for_backward(sb.pts, sb.feats, kg, m, d, zn, img, sb.order,
+                              sb.key, sb.smax)
         return img
 
     @staticmethod
@@ -282,16 +400,11 @@ class _SurfelComposite(torch.autograd.Function):
                         1).contiguous()
         if not bin_px:
             dv, dn, df = _bwd(pts, feats, pix, diam, depth_constant)
-            return dv, dn, df, None, None, None, None, None
-        order, key, smax = binned
-        grads = _bwd_binned(pts, feats, pix, key, smax, bin_px, diam,
-                            depth_constant)
-        out = []
-        for t in grads:  # sorted order -> each point's own slot
-            u = torch.empty_like(t)
-            u[order] = t
-            out.append(u)
-        return (*out, None, None, None, None, None)
+        else:
+            order, key, smax = binned
+            dv, dn, df = _bwd_binned(pts, feats, pix, key, smax, order,
+                                     bin_px, diam, depth_constant)
+        return dv, dn, df, None, None, None, None, None
 
 
 def surfel_composite_windowed(points_cam: torch.Tensor,

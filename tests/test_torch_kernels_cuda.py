@@ -33,9 +33,9 @@ def dev():
     return torch.device("cuda")
 
 
-def _splat_scene(dev, n=3000, res=(32, 32), seed=0):
+def _splat_scene(dev, n=3000, res=(32, 32), seed=0, spread=1.0):
     rng = np.random.RandomState(seed)
-    pts = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    pts = rng.uniform(-spread, spread, (n, 3)).astype(np.float32)
     pts[:, 2] += 4.0
     normals = rng.randn(n, 3).astype(np.float32)
     normals /= np.linalg.norm(normals, axis=1, keepdims=True)
@@ -480,6 +480,158 @@ def test_wgmma_bwd_ragged_n(dev, width, n):
     assert torch.isfinite(dpts).all() and torch.isfinite(dcvec).all()
 
 
+def _bins_scene(dev, res, n, case):
+    """A binned render's packed points, features and rays: the splat scene,
+    with degenerate points (behind the camera, on its plane: every row
+    block), every point masked, or neither."""
+    pts, nrm, feats, mask, kg = _splat_scene(dev, n=n, res=res, seed=n)
+    if case == "degenerate":
+        pts[:3, 2] = torch.tensor([-3.0, 0.0, 0.02], device=dev)
+        mask[:3] = True
+    elif case == "masked":
+        mask = torch.zeros_like(mask)
+    return _packed_splat(pts, nrm, feats, mask, kg)
+
+
+BINS_CASES = [((64, 64), 3000, "plain"), ((64, 64), 3000, "degenerate"),
+              ((200, 100), 2000, "degenerate"), ((128, 128), 4096, "plain"),
+              ((128, 128), 4096, "degenerate"), ((320, 320), 8192, "plain"),
+              ((320, 320), 8192, "degenerate"), ((128, 128), 1, "plain"),
+              ((128, 128), 4096, "masked")]
+
+
+@pytest.mark.parametrize("res,n,case", BINS_CASES)
+def test_bins_kernel_equals_compute_bins(dev, res, n, case):
+    # integers and copies: bit for bit, the windows at point granularity
+    pk, fk, kg4 = _bins_scene(dev, res, n, case)
+    bin_px = splat_cuda.bin_policy(kg4.shape[0])
+    assert bin_px == 512
+    b0 = splat_cuda.SPLAT_BINS.launches
+    got = splat_cuda._sort_bins(pk, fk, kg4, 0.04, bin_px)
+    again = splat_cuda._sort_bins(pk, fk, kg4, 0.04, bin_px)
+    want = splat_cuda.compute_bins(pk, kg4, 0.04, bin_px)
+    torch.cuda.synchronize()
+    assert splat_cuda.SPLAT_BINS.launches == b0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got.order.long(), want.order)
+    assert torch.equal(got.key.long(), want.key)
+    assert int(got.smax) == int(want.smax)
+    assert torch.equal(got.win[:, 0].long(), want.start)
+    assert torch.equal(got.win[:, 1].long(), want.start + want.count)
+    assert torch.equal(got.pts, pk[want.order])
+    assert torch.equal(got.feats, fk[want.order])
+    if case == "degenerate":  # a point on the camera plane: every block
+        assert int(got.smax) == -(-kg4.shape[0] // bin_px) - 1
+    if case == "masked":
+        assert int(got.smax) == 0 and bool((got.win == 0).all())
+
+
+def test_bins_kernel_without_points(dev):
+    kg4 = _bins_scene(dev, (64, 64), 10, "plain")[2]
+    empty = torch.empty(0, 8, device=dev)
+    got = splat_cuda._sort_bins(empty, empty, kg4, 0.04, 512)
+    torch.cuda.synchronize()
+    assert got.order.shape == (0,) and int(got.smax) == 0
+    assert got.win.shape == (8, 2) and bool((got.win == 0).all())
+
+
+def _binned_inputs(dev, res, n, seed=0, spread=1.0):
+    """The binned kernels' own inputs on the splat scene, with degenerate
+    points where the points spread over +-1: the sorted bins, the
+    forward's saved statistics (through the split design) and a
+    cotangent's pixel rows; and the plain windowed version's image and
+    gradients of the same cotangent."""
+    pts, nrm, feats, mask, kg = _splat_scene(dev, n=n, res=res, seed=seed,
+                                             spread=spread)
+    if spread == 1.0:
+        pts[:3, 2] = torch.tensor([-3.0, 0.0, 0.02], device=dev)
+    pk, fk, kg4 = _packed_splat(pts, nrm, feats, mask, kg)
+    bin_px = splat_cuda.bin_policy(kg4.shape[0])
+    sb = splat_cuda._sort_bins(pk, fk, kg4, 0.04, bin_px)
+    img, m, d, zn = splat_cuda._fwd_binned(sb.pts, sb.feats, kg4, sb.win,
+                                           bin_px, 0.04, 150.0)
+    g = torch.randn(img.shape, generator=torch.Generator().manual_seed(n)
+                    ).to(dev)
+    corr = (g * img).sum(-1, keepdim=True)
+    pix = torch.cat([kg4, m[:, None], d[:, None], zn[:, None], corr, g],
+                    1).contiguous()
+    args = [t.clone().requires_grad_(True) for t in (pts, nrm, feats)]
+    img_p = splat_cuda.surfel_composite_windowed(*args, kg, mask,
+                                                 bin_px=bin_px)
+    plain = torch.autograd.grad(img_p, args, g)
+    return sb, kg4, bin_px, pix, img_p.detach(), plain
+
+
+@pytest.mark.parametrize("res,n,slices", [
+    ((128, 128), 4096, 0), ((64, 64), 3000, 0), ((200, 100), 2000, 0),
+    *[((64, 64), 3000, s) for s in (1, 2, 3, 8)]])
+def test_binned_split_forward_matches_first_design(dev, res, n, slices):
+    # the split tile over each row block's window: the dense tolerance
+    # against the windowed plain version, within 2e-5 of the first design
+    # (the same pairs, other orders of sums), two launches bit-equal
+    sb, kg4, bin_px, _, img_p, _ = _binned_inputs(dev, res, n)
+    f0 = splat_cuda.SPLAT_FWD_BINNED.launches
+    got = splat_cuda._fwd_binned(sb.pts, sb.feats, kg4, sb.win, bin_px, 0.04,
+                                 150.0, slices=slices)
+    again = splat_cuda._fwd_binned(sb.pts, sb.feats, kg4, sb.win, bin_px,
+                                   0.04, 150.0, slices=slices)
+    first = splat_cuda._fwd_binned(sb.pts, sb.feats, kg4, sb.win, bin_px,
+                                   0.04, 150.0, design="first")
+    torch.cuda.synchronize()
+    assert splat_cuda.SPLAT_FWD_BINNED.launches == f0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    err = (got[0] - img_p).abs().max(-1).values
+    assert (err < 2e-4).float().mean() >= 0.995, err.max()
+    assert (got[0] - first[0]).abs().max() <= 2e-5
+    for a, b in zip(got[1:], first[1:]):  # m, d, zn for the backward
+        assert torch.allclose(a, b, rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("res,n,slices,spread", [
+    ((128, 128), 4096, 0, 1.0), ((64, 64), 3000, 0, 1.0),
+    ((200, 100), 2000, 0, 1.0),
+    # fewer points than a block of 64, spread over +-0.1 so that they
+    # overlap, as in the dense split backward's test: a pixel of one
+    # footprint point alone passes its geometry only a last-ulp gradient,
+    # and 40 isolated points would be all such rows
+    ((128, 128), 40, 0, 0.1),
+    *[((128, 128), 4096, s, 1.0) for s in (1, 2, 3, 8)]])
+def test_binned_split_backward_matches_first_design(dev, res, n, slices,
+                                                    spread):
+    # the split blocks over their union of rows, each point on its own
+    # blocks, rows written to the points' slots: the dense limits against
+    # the windowed plain version, the first design's limits of the dense
+    # split backward (d_normals cancels ~100x, so 5e-5 for it), two
+    # launches bit-equal
+    sb, kg4, bin_px, pix, _, plain = _binned_inputs(dev, res, n,
+                                                    spread=spread)
+    args = (sb.pts, sb.feats, pix, sb.key, sb.smax, sb.order, bin_px, 0.04,
+            150.0)
+    b0 = splat_cuda.SPLAT_BWD_BINNED.launches
+    got = splat_cuda._bwd_binned(*args, slices=slices)
+    again = splat_cuda._bwd_binned(*args, slices=slices)
+    first = splat_cuda._bwd_binned(*args, design="first")
+    torch.cuda.synchronize()
+    assert splat_cuda.SPLAT_BWD_BINNED.launches == b0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    shares = [float((((a - b).abs().max(-1).values
+                      / b.abs().max().clamp(min=1e-6)) < 1e-3).float().mean())
+              for a, b in zip(got, plain)]
+    rel = [float((a - c).abs().max() / c.abs().max().clamp(min=1e-30))
+           for a, c in zip(got, first)]
+    assert min(shares) >= 0.99, shares
+    assert rel[0] <= 1e-5 and rel[1] <= 5e-5 and rel[2] <= 1e-5, rel
+
+
+def test_binned_slices_rules(dev):
+    # the tiles of 128x128, 81x112 and 320x320 px fill the card alone;
+    # 4096 points' 64 blocks take a cluster of 5
+    for n, p in ((4096, 16384), (4096, 9072), (8192, 102400)):
+        assert splat_cuda.binned_slices(n, p, 512) == 1
+    assert splat_cuda.binned_slices(3000, 4096, 512) == 2
+    assert splat_cuda.bwd_binned_slices(4096, 16384, 512) == 5
+
+
 @pytest.mark.parametrize("res,n", [((64, 64), 3000), ((200, 100), 2000),
                                    ((128, 128), 4096)])
 def test_binned_splat_matches_windowed_plain(dev, res, n):
@@ -488,6 +640,7 @@ def test_binned_splat_matches_windowed_plain(dev, res, n):
     pts, nrm, feats, mask, kg = _splat_scene(dev, n=n, res=res)
     pts[:3, 2] = torch.tensor([-3.0, 0.0, 0.02], device=dev)  # degenerate
     assert splat_cuda.bin_policy(kg.shape[0]) == 512
+    bins0 = splat_cuda.SPLAT_BINS.launches
     fwd0 = splat_cuda.SPLAT_FWD_BINNED.launches
     bwd0 = splat_cuda.SPLAT_BWD_BINNED.launches
     args = [t.clone().requires_grad_(True) for t in (pts, nrm, feats)]
@@ -498,6 +651,8 @@ def test_binned_splat_matches_windowed_plain(dev, res, n):
     img_p = splat_cuda.surfel_composite_windowed(*args_p, kg, mask)
     gp = torch.autograd.grad((img_p * g).sum(), args_p)
     torch.cuda.synchronize()
+    # one bins call, one forward and one backward launch a render
+    assert splat_cuda.SPLAT_BINS.launches == bins0 + 1
     assert splat_cuda.SPLAT_FWD_BINNED.launches == fwd0 + 1
     assert splat_cuda.SPLAT_BWD_BINNED.launches == bwd0 + 1
     err = (img_k - img_p).abs().max(-1).values
@@ -506,6 +661,34 @@ def test_binned_splat_matches_windowed_plain(dev, res, n):
         scale = b.abs().max().clamp(min=1e-6)
         close = ((a - b).abs().max(-1).values / scale) < 1e-3
         assert close.float().mean() >= 0.99
+
+
+def test_binned_render_launches_no_sort_gather_or_scatter(dev):
+    # a binned render's device work: the bins kernel's two launches, the
+    # forward and the backward, around the packing and the pixel rows;
+    # no torch sort, searchsorted, gather or scatter
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pts, nrm, feats, mask, kg = _splat_scene(dev, n=4096, res=(128, 128))
+    args = [t.clone().requires_grad_(True) for t in (pts, nrm, feats)]
+
+    def render():
+        img = splat_cuda.surfel_composite(*args, kg, mask.float())
+        torch.autograd.grad(img, args, torch.ones_like(img))
+
+    render()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        render()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    assert any("splat_bins_keys_kernel" in k for k in names), names
+    assert any("splat_bwd_binned_split_kernel" in k for k in names), names
+    torch_ops = [k for k in names if "splat_" not in k]
+    for word in ("sort", "index", "scatter", "gather", "radix"):
+        assert not any(word in k.lower() for k in torch_ops), (word, names)
 
 
 def test_binned_splat_matches_dense_kernel(dev):

@@ -19,7 +19,18 @@ interpret-mode test there: > 99% of gradient rows within 1e-3 of the
 largest, because XLA may round a score at its clamp to x = 0 where the
 plain version gets a last-ulp x > 0, or the other way, and so pass or
 stop one pair's gradient.
+
+The binned split backward (splat_bwd_binned_split_kernel) runs the same
+blocks of 64 points sorted by row block, each over the union of its
+points' rows [key_first * bin_px, min((key_last + smax + 1) * bin_px, P))
+split into S slices, each thread adding only its own point's rows
+[key * bin_px, (key + smax + 1) * bin_px), and each gradient row lands in
+its point's own slot. Its model is held against the windowed plain
+version's autograd and JAX's binned Pallas VJP in interpret mode at the
+same tolerances.
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -28,8 +39,10 @@ import pytest
 import torch
 
 from sdflabel_tpu.ops import splat as jsplat
+from sdflabel_tpu.ops import splat_pallas
 from sdflabel_tpu.renderer import rasterer as jrast
 from sdflabel_tpu_torch.ops import splat as tsplat
+from sdflabel_tpu_torch.ops import splat_cuda
 
 EPS = torch.finfo(torch.float32).eps
 NEG_BIG = -1e30
@@ -74,12 +87,13 @@ def pair_terms(points, normals, feats, kg, mask, g, diam=0.04, dc=150.0):
         prob * g[:, f] for f in range(8)]
 
 
-def _rows(p, slices, groups):
-    """Each rank's groups' pixel rows, in the kernel's order."""
-    per = -(-p // slices)
+def _rows(p, slices, groups, start=0):
+    """Each rank's groups' pixel rows of [start, p), in the kernel's
+    order."""
+    per = -(-(p - start) // slices)
     out = []
     for r in range(slices):
-        lo = min(p, r * per)
+        lo = min(p, start + r * per)
         hi = min(p, lo + per)
         parts = [[] for _ in range(groups)]
         for c0 in range(lo, hi, CAP):
@@ -175,3 +189,103 @@ def test_split_rows_cover_every_pixel_once():
         rows = [r for parts in _rows(p, slices, 4) for grp in parts
                 for r in grp]
         assert sorted(rows) == list(range(p))
+
+
+def binned_split_backward(points, normals, feats, kg, mask, g, bin_px,
+                          slices, groups=4, block=64):
+    """The binned split backward's d_points, d_normals, d_features in the
+    points' own order."""
+    bins = splat_cuda.compute_bins(
+        splat_cuda._pack_points(points, normals, mask),
+        splat_cuda._pack_rays(kg), 0.04, bin_px)
+    o, key, smax = bins.order, bins.key, int(bins.smax)
+    p, n = kg.shape[0], points.shape[0]
+    nb = -(-p // bin_px)
+    terms = pair_terms(points[o], normals[o], feats[o], kg, mask[o], g)
+    # each sorted point meets the rows of its blocks [key, key + smax] only
+    pix = torch.arange(p)
+    own = ((pix[None, :] >= key[:, None] * bin_px)
+           & (pix[None, :] < (key[:, None] + smax + 1) * bin_px)
+           & (key[:, None] < nb))
+    terms = [torch.where(own, t, torch.zeros(())) for t in terms]
+    total = [torch.zeros(n) for _ in terms]
+    for j0 in range(0, n, block):
+        pts_ = slice(j0, min(n, j0 + block))
+        live = key[pts_][key[pts_] < nb]
+        if not len(live):
+            continue  # the block's points touch nothing: zero rows
+        lo = int(live[0]) * bin_px
+        hi = min((int(live[-1]) + smax + 1) * bin_px, p)
+        acc = None
+        for parts in _rows(hi, slices, groups, start=lo):
+            cta = None
+            for rows in parts:
+                idx = torch.as_tensor(rows, dtype=torch.long)
+                part = [t[pts_][:, idx].sum(1) for t in terms]
+                cta = part if cta is None else [a + b
+                                                for a, b in zip(cta, part)]
+            acc = cta if acc is None else [a + b for a, b in zip(acc, cta)]
+        for tot, a in zip(total, acc):
+            tot[pts_] = a
+    dnv, dnk = total[0], torch.stack(total[1:4], 1)
+    grads = (dnv[:, None] * normals[o], dnv[:, None] * points[o] + dnk,
+             torch.stack(total[4:], 1))
+    out = []
+    for t in grads:  # row j to the point's own slot order[j]
+        u = torch.empty_like(t)
+        u[o] = t
+        out.append(u)
+    return out
+
+
+def _interpret_ctx():
+    if jax.default_backend() == "tpu":
+        return contextlib.nullcontext()
+    from jax.experimental.pallas import tpu as pltpu
+
+    return pltpu.force_tpu_interpret_mode()
+
+
+def _jax_binned_vjp(kg, pts, normals, feats, mask, g, bin_px):
+    def img(a, b, c):
+        return splat_pallas.surfel_composite(
+            a, b, c, jnp.asarray(kg), point_mask=jnp.asarray(mask),
+            diam=0.04, bin_px=bin_px)
+
+    with _interpret_ctx():
+        _, vjp = jax.vjp(img, *map(jnp.asarray, (pts, normals, feats)))
+        return [np.asarray(t) for t in vjp(jnp.asarray(g))]
+
+
+@pytest.mark.parametrize("n,res,slices,degenerate,spread", [
+    (301, (64, 64), 1, False, 1.0),   # one CTA a block: the groups alone
+    (301, (64, 64), 5, False, 1.0),   # 5 slices of each block's rows
+    (301, (64, 64), 8, True, 1.0),    # a degenerate point: every window
+    # ragged last row block, a last block of 60 points
+    (380, (200, 100), 3, True, 1.0),
+])
+def test_binned_split_backward_matches_windowed_plain_and_jax(
+        n, res, slices, degenerate, spread):
+    pts, normals, feats, mask, g, K = _scene(n, res, seed=n + slices,
+                                            spread=spread)
+    if degenerate:
+        mask[:3] = True
+    else:
+        pts[:3, 2] = np.float32(4.0)
+    t = [torch.as_tensor(a) for a in (pts, normals, feats, mask, g)]
+    kg = tsplat.kinv_pixel_rays(torch.as_tensor(K), tsplat.pixel_grid(*res))
+    bins = splat_cuda.compute_bins(splat_cuda._pack_points(*t[:2], t[3]),
+                                   splat_cuda._pack_rays(kg), 0.04, 512)
+    assert (int(bins.smax) == bins.count.shape[0] - 1) == degenerate
+    got = binned_split_backward(*t[:3], kg, t[3], t[4], 512, slices)
+    args = [a.clone().requires_grad_(True) for a in t[:3]]
+    img = splat_cuda.surfel_composite_windowed(*args, kg, t[3], bin_px=512)
+    assert float(img[:, 3].detach().sum()) > 1.0  # some pixels are covered
+    plain = torch.autograd.grad(img, args, t[4])
+    want_jax = _jax_binned_vjp(kg.numpy(), pts, normals, feats, mask, g, 512)
+    for a, b, c in zip(got, plain, want_jax):
+        scale = float(b.abs().max())
+        assert scale > 0
+        torch.testing.assert_close(a, b, atol=1e-4 * scale, rtol=0)
+        rows = np.abs(a.numpy() - c).max(-1) / scale
+        assert (rows < 1e-3).mean() > 0.99, rows.max()

@@ -14,17 +14,26 @@ formulas (ops/splat.py::surfel_prob) and merges them as the kernel does.
 Only the order of the sums differs from the plain version, so the
 tolerance is fp32 reassociation: the image to 1e-5, as the plain version
 is held against JAX's dense splat (tests/test_torch_splat.py), and the
-saved statistics m, d, zn to 1e-5 relative.
+saved statistics m, d, zn to 1e-5 relative. The binned split forward
+(splat_fwd_binned_split_kernel) runs the same tile over each row block's
+window: its model is held against the windowed plain version at the same
+tolerances and against JAX's binned Pallas kernels in interpret mode at
+tests/test_torch_splat_binned.py's (>= 99.5% of pixels within 2e-4).
 """
 
+import contextlib
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from sdflabel_tpu.ops import splat as jsplat
+from sdflabel_tpu.ops import splat_pallas
 from sdflabel_tpu.renderer import rasterer as jrast
 from sdflabel_tpu_torch.ops import splat as tsplat
+from sdflabel_tpu_torch.ops import splat_cuda
 
 NEG_BIG = -1e30
 EPS = torch.finfo(torch.float32).eps
@@ -163,3 +172,78 @@ def test_split_merge_of_no_footprint_pair_is_zero(slices):
         slices)
     assert torch.all(img == 0) and torch.all(d == 0) and torch.all(zn == 0)
     assert torch.all(m == NEG_BIG)
+
+
+# The binned split forward (splat_fwd_binned_split_kernel): the same tile
+# over each row block's window of the points sorted by row block
+# (ops/splat_cuda.py::compute_bins, which the bins kernel equals), the
+# window split into S contiguous slices of ceil(len / S) points.
+
+def binned_split_composite(points, normals, feats, kg, mask, bin_px,
+                           slices, diam=0.04):
+    """The binned split forward's img (P, 8), m, d, zn (P,), each row block
+    from split_composite over its window, and the plain windowed version's
+    statistics (_statistics over each window)."""
+    bins = splat_cuda.compute_bins(
+        splat_cuda._pack_points(points, normals, mask),
+        splat_cuda._pack_rays(kg), diam, bin_px)
+    o = bins.order
+    v, nrm, f, msk = points[o], normals[o], feats[o], mask[o]
+    out, stats = [], []
+    for b, (s, c) in enumerate(zip(bins.start.tolist(),
+                                   bins.count.tolist())):
+        rays = kg[b * bin_px:(b + 1) * bin_px]
+        win = slice(s, s + c)
+        out.append(split_composite(v[win], nrm[win], f[win], rays, msk[win],
+                                   slices, diam=diam))
+        stats.append(_statistics(v[win], nrm[win], rays, msk[win], diam))
+    return ([torch.cat(t) for t in zip(*out)],
+            [torch.cat(t) for t in zip(*stats)])
+
+
+def _jax_binned_image(pts, normals, feats, mask, kg, bin_px):
+    with _interpret_ctx():
+        return np.asarray(splat_pallas.surfel_composite(
+            jnp.asarray(pts), jnp.asarray(normals), jnp.asarray(feats),
+            jnp.asarray(kg), point_mask=jnp.asarray(mask), diam=0.04,
+            bin_px=bin_px))
+
+
+def _interpret_ctx():
+    if jax.default_backend() == "tpu":
+        return contextlib.nullcontext()
+    from jax.experimental.pallas import tpu as pltpu
+
+    return pltpu.force_tpu_interpret_mode()
+
+
+@pytest.mark.parametrize("n,res,slices,degenerate", [
+    (420, (64, 64), 1, False),    # one CTA a tile: the threads' merge alone
+    (420, (64, 64), 3, False),
+    (420, (64, 64), 8, True),     # a degenerate point stretches every window
+    (380, (200, 100), 2, True),   # ragged last row block
+])
+def test_binned_split_merge_matches_windowed_plain_and_jax(n, res, slices,
+                                                           degenerate):
+    pts, normals, feats, mask, K, _ = _scene(n, res, seed=n + slices)
+    if not degenerate:
+        pts[:4, 2] = np.float32(4.0)
+    t = [torch.as_tensor(a) for a in (pts, normals, feats, mask)]
+    kg = tsplat.kinv_pixel_rays(torch.as_tensor(K), tsplat.pixel_grid(*res))
+    (img, m, d, zn), stats = binned_split_composite(*t[:3], kg, t[3], 512,
+                                                    slices)
+    bins = splat_cuda.compute_bins(splat_cuda._pack_points(*t[:2], t[3]),
+                                   splat_cuda._pack_rays(kg), 0.04, 512)
+    nb = bins.count.shape[0]
+    assert (int(bins.smax) == nb - 1) == degenerate
+    plain = splat_cuda.surfel_composite_windowed(*t[:3], kg, t[3],
+                                                 bin_px=512)
+    assert bool((plain != 0).any())  # some pixels are covered
+    torch.testing.assert_close(img, plain, atol=1e-5, rtol=0)
+    for got, ref in zip((m, d, zn), stats):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+    # against JAX's binned kernels: their expanded footprint test may flip
+    # a pair at a disc edge
+    want = _jax_binned_image(pts, normals, feats, mask, kg.numpy(), 512)
+    px = np.abs(img.numpy() - want).max(-1)
+    assert (px < 2e-4).mean() >= 0.995, (px < 2e-4).mean()
