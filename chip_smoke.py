@@ -32,7 +32,11 @@ Seven phases; any failure exits non-zero and no phase's error is caught.
    split forward and backward must hold the first designs' limits (those
    of the dense split designs) and give two bit-equal launches; each is
    timed a call and alone beside its first design, with the window pairs
-   and footprint pairs. Every row prints its share of its bound.
+   and footprint pairs. Every row prints its share of its bound. Then
+   the crop axis: kernels 1a, 1b, 2 and 3 each launched once for 4 crops of
+   the main path's shapes, held against their plain versions crop by crop
+   and bit-equal to 4 single-crop launches, timed alone beside those 4
+   launches and beside one crop's.
 3. The demo driver: ``refine_css_demo`` on the bundled data/optimization
    assets with configs/config_demo.ini (viz off); the labels must land on
    the ground-truth annotation, the splat and NN kernels must have run,
@@ -47,7 +51,16 @@ Seven phases; any failure exits non-zero and no phase's error is caught.
    refined at ``rendering_area = 96``, whose renders of >= 4096 pixels
    take the row-binned splat kernels (the bins, the forward and the
    backward), with the device launches of one such render beside those of
-   the first designs' chain.
+   the first designs' chain; (4d) the batched driver's refine of four
+   crops at once (``refine_crops_batched``): phase 3's crop and three made
+   from it (yaw +-0.2 rad, translation +0.3 m, one NOCS target cut smaller
+   so that it letterboxes) under phase 4's runtime; each crop's
+   parameters must track that crop refined alone within 1e-3 over the first
+   30 iterations (its label after 60 is printed beside the crop alone's and
+   beside the crop alone from a start moved by 1e-6), and kernels 1a, 1b,
+   2 and 3 must launch for the batch exactly as often as for phase 4's one
+   crop; ms/iteration, s/crop and device launches per iteration beside
+   phase 4's.
 5. Crops: ``make_crops`` renders 26 crops of 128x128 px (grid 40,
    capacity 4096) from data/quality_nets/deepsdf_quality.pt, each through
    the bins kernel and the binned splat forward; the device launches of
@@ -63,21 +76,25 @@ Seven phases; any failure exits non-zero and no phase's error is caught.
 7. The KITTI driver: ``tools/quality_suite.py`` builds the first 24 frames
    of the v2 quality suite (``--quality-frames 72``: all of it) through
    the binned splat kernel; ``refine_css`` labels them as ``main.py
-   --refine`` does (the settings of scripts/run_quality_benchmark.py, 60
-   iterations, float16, the stock warm band, the committed quality nets),
-   and ``evaluate_dump.evaluate`` scores the dumps: KITTI and nuScenes AP
-   per difficulty. Every car must get a label, and the BEV and 3D AP must
-   lie within 2 and 5 points of the JAX driver's on the same frames
+   --refine`` does, batched (the settings of
+   scripts/run_quality_benchmark.py, 60 iterations, float16, the stock
+   warm band, the committed quality nets), then once more one crop after
+   another (``batched=False``), and ``evaluate_dump.evaluate`` scores each
+   run's dumps: KITTI and nuScenes AP per difficulty. In both runs every
+   car must get a label, and the BEV and 3D AP must lie within 2 and 5
+   points of the JAX driver's on the same frames
    (QUALITY_jax_cpu_v2.json, written by scripts/quality_jax_cpu.py).
 
 Each kernel's launches are counted on the path that runs it (set to 0
 just before the path, read just after): the dense splat, NN and selection
 kernels in phase 4, the stage-2 kernels in 4c, the binned backward in 4b,
-the bins and the binned forward in 5 and the CE kernels in 6. The line
+the bins and the binned forward in 5 and the CE kernels in 6; the
+record of each crop-axis kernel also gives its launches in 4d. The line
 before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Without a card
 the script exits 2 and prints no result. ``--profile DIR`` adds one more
-full-width crop and two train steps under torch.profiler: device time by
+full-width crop, phase 4d's four crops and two train steps under
+torch.profiler: device time by
 kernel group, the device busy time and its share of the wall time, and
 DIR/profile.json and DIR/profile_train.json with every kernel; the same
 crop once more with the first dense splat forward, once with the first
@@ -87,7 +104,7 @@ with the new designs and with the first splat forward and the wmma 4b,
 for comparison; then the train step timed with cuDNN's autotuner on. ``--rehearse-cpu`` runs phases
 3 to 7 on the CPU at a tiny size (2 iterations, 2 suite frames) with the
 kernels' plain versions, then exits 3 without a result: a dry run of the
-control flow for machines without a card.
+control flow for machines without a card (4d included).
 """
 
 from __future__ import annotations
@@ -120,6 +137,7 @@ from sdflabel_tpu_torch.models import deepsdf  # noqa: E402
 from sdflabel_tpu_torch.ops import (  # noqa: E402
     _cuda, ce_cuda, grid as grid_ops, knn, mlp2_cuda, mlp_cuda, nn_cuda,
     splat, splat_cuda)
+from sdflabel_tpu_torch.parallel import batched_refine  # noqa: E402
 from sdflabel_tpu_torch.pipelines import evaluate_dump  # noqa: E402
 from sdflabel_tpu_torch.pipelines import make_crops as crops_pipe  # noqa: E402
 from sdflabel_tpu_torch.pipelines import refine_css as pipe  # noqa: E402
@@ -620,7 +638,8 @@ def check_select(dev) -> dict:
         mlp_cuda.SELECT_MLP_WMMA(
             _cuda.ptr(pts), _cuda.ptr(packed.ws), _cuda.ptr(packed.wx),
             _cuda.ptr(cvec), _cuda.ptr(packed.wlast), _cuda.ptr(packed.scal),
-            n, H, nh, int(packed.use_tanh), _cuda.ptr(out), _cuda.stream(pts))
+            1, 0, n, H, nh, int(packed.use_tanh), _cuda.ptr(out),
+            _cuda.stream(pts))
 
     wmma()
     torch.cuda.synchronize()
@@ -654,6 +673,142 @@ def design_report(row: dict, design: str, wmma_ms: float,
           f"the bf16 matmul chain ({row['library_ms']:.4f} ms); the wmma "
           f"design {wmma_ms:.4f} ms")
     return row
+
+
+# ------------------------------------------------- phase 2, the crop axis
+
+CROPS = 4  # crops of the batched checks and of phase 4d
+
+
+def check_crop_axis(dev) -> dict:
+    """Kernels 1a, 1b, 2 and 3 at B = 4 crops of the main path's shapes
+    (8192 surfels onto 32x32 px with each crop's own intrinsics; 8192 x
+    8192 NN; the 64000-point grid ranked for four latents): each launch of
+    four crops held against its plain version crop by crop (the
+    single-crop tolerances) and bit-equal to four single-crop launches;
+    timed alone (`kernel_ms`, the profiler's device time) beside the four
+    single launches and the B = 1 launch. Returns {kernel: record}."""
+    b, n, res = CROPS, 8192, (32, 32)
+    rng = np.random.RandomState(10)
+    pts = rng.uniform(-1, 1, (b, n, 3)).astype(np.float32)
+    pts[..., 2] += 4.0 + 0.5 * np.arange(b)[:, None]
+    nrm = rng.randn(b, n, 3).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    feats = rng.uniform(0, 1, (b, n, 8)).astype(np.float32)
+    mask = rng.uniform(size=(b, n)) > 0.4
+    Ks = np.stack([rasterer.calibration_matrix(res) for _ in range(b)])
+    Ks[:, 0, 2] += 0.5 * np.arange(b)
+    pts, nrm, feats, mask = (torch.as_tensor(a, device=dev)
+                             for a in (pts, nrm, feats, mask))
+    kg = splat.kinv_pixel_rays(torch.as_tensor(Ks, device=dev),
+                               splat.pixel_grid(*res, device=dev))
+    out = {}
+
+    def record(name, batched, singles, one, err, same, **extra):
+        """Time `batched` (one launch of all crops), `singles` (a launch per
+        crop) and `one` (crop 0 alone) by the device time of `kernel`."""
+        kernel = extra.pop("kernel")
+        b_ms = kernel_ms(batched, kernel)
+        one_ms = kernel_ms(one, kernel)
+        singles_ms = kernel_ms(singles, kernel) * b
+        out[name] = dict(crops=b, max_abs_err=err, bit_equal=same,
+                         kernel_ms=b_ms, singles_kernel_ms=singles_ms,
+                         b1_kernel_ms=one_ms, ms=time_ms(batched),
+                         singles_ms=time_ms(singles), **extra)
+        print(f"crop axis {name}: B = {b} in one launch {b_ms:.4f} ms alone "
+              f"({out[name]['ms']:.4f} a call), {b} single launches "
+              f"{singles_ms:.4f} ms alone ({out[name]['singles_ms']:.4f} a "
+              f"call), B = 1 {one_ms:.4f} ms alone; max_abs_err {err:.3g} "
+              f"against the plain version, bit-equal to single launches: "
+              f"{same}")
+        assert same
+
+    # 1a and 1b: the packed inputs, as the autograd Function builds them
+    pk = splat_cuda._pack_points(pts, nrm, mask)
+    fk = feats.contiguous()
+    kg4 = splat_cuda._pack_rays(kg)
+    img, m, d, zn = splat_cuda._fwd(pk, fk, kg4, 0.04, 150.0)
+    g = torch.randn(img.shape, generator=torch.Generator().manual_seed(3)
+                    ).to(dev)
+    corr = (g * img).sum(-1, keepdim=True)
+    pix = torch.cat([kg4, m[..., None], d[..., None], zn[..., None], corr, g],
+                    -1).contiguous()
+    grads = splat_cuda._bwd(pk, fk, pix, 0.04, 150.0)
+    crops = [[t[i].contiguous() for t in (pk, fk, kg4, pix)]
+             for i in range(b)]
+    fwd_same = bwd_same = True
+    for i, (p_i, f_i, k_i, x_i) in enumerate(crops):
+        fwd_same &= all(torch.equal(a[i], c) for a, c in zip(
+            (img, m, d, zn), splat_cuda._fwd(p_i, f_i, k_i, 0.04, 150.0)))
+        bwd_same &= all(torch.equal(a[i], c) for a, c in zip(
+            grads, splat_cuda._bwd(p_i, f_i, x_i, 0.04, 150.0)))
+    # against the plain version through autograd, crop by crop
+    args_k = [t.clone().requires_grad_(True) for t in (pts, nrm, feats)]
+    img_k = splat_cuda.surfel_composite(*args_k, kg, mask)
+    gk = torch.autograd.grad(img_k, args_k, g)
+    fwd_err = bwd_err = 0.0
+    for i in range(b):
+        args_p = [t[i].clone().requires_grad_(True)
+                  for t in (pts, nrm, feats)]
+        img_p = splat.surfel_composite_dense(*args_p, kg[i], mask[i])
+        gp = torch.autograd.grad(img_p, args_p, g[i])
+        e_f, e_b = splat_agreement(f"crop axis splat, crop {i}", img_k[i],
+                                   img_p, [t[i] for t in gk], gp)
+        fwd_err, bwd_err = max(fwd_err, e_f), max(bwd_err, e_b)
+    record("splat_fwd", lambda: splat_cuda._fwd(pk, fk, kg4, 0.04, 150.0),
+           lambda: [splat_cuda._fwd(*c[:3], 0.04, 150.0) for c in crops],
+           lambda: splat_cuda._fwd(*crops[0][:3], 0.04, 150.0), fwd_err,
+           fwd_same, kernel="splat_fwd_split_kernel")
+    record("splat_bwd", lambda: splat_cuda._bwd(pk, fk, pix, 0.04, 150.0),
+           lambda: [splat_cuda._bwd(c[0], c[1], c[3], 0.04, 150.0)
+                    for c in crops],
+           lambda: splat_cuda._bwd(crops[0][0], crops[0][1], crops[0][3],
+                                   0.04, 150.0), bwd_err, bwd_same,
+           kernel="splat_bwd_split_kernel")
+
+    # 2: 8192 rendered x 8192 frustum points a crop, ties on a lattice
+    q = torch.as_tensor(rng.randint(-8, 9, (b, n, 3)).astype(np.float32)
+                        * 0.25, device=dev)
+    dd = torch.as_tensor(rng.randint(-8, 9, (b, n, 3)).astype(np.float32)
+                         * 0.25, device=dev)
+    dm = torch.as_tensor(rng.uniform(size=(b, n)) > 0.3, device=dev)
+    d2, idx = nn_cuda.nearest_neighbor_fused(q, dd, dm)
+    same, err = True, 0.0
+    for i in range(b):
+        d2_i, idx_i = nn_cuda.nearest_neighbor_fused(q[i], dd[i], dm[i])
+        dp, ip = knn.nearest_neighbor_plain(q[i], dd[i], dm[i])
+        same &= (torch.equal(d2[i], d2_i) and torch.equal(idx[i], idx_i)
+                 and torch.equal(idx[i], ip))
+        err = max(err, float((d2[i] - dp).abs().max()))
+    assert err == 0.0  # tolerance: none
+    record("nn", lambda: nn_cuda.nearest_neighbor_fused(q, dd, dm),
+           lambda: [nn_cuda.nearest_neighbor_fused(q[i], dd[i], dm[i])
+                    for i in range(b)],
+           lambda: nn_cuda.nearest_neighbor_fused(q[0], dd[0], dm[0]), err,
+           same, kernel="nn_split_kernel")
+
+    # 3: the refresh ranks the same grid for every crop's latent
+    cfg, params = decoder_8x512(dev)
+    packed = mlp_cuda.pack_select_mlp(
+        cfg, deepsdf.cast_params(params, torch.bfloat16))
+    grid_pts = grid_ops.generate_point_grid(40, device=dev)
+    lat = torch.nn.functional.normalize(torch.as_tensor(
+        rng.randn(b, 3).astype(np.float32), device=dev), dim=-1)
+    cvec = mlp_cuda._cvec(packed, lat).contiguous()
+    sel = mlp_cuda.select_fwd(packed, cvec, grid_pts)
+    plain = mlp_cuda.emulate_select_mlp(packed, lat, grid_pts)
+    cvecs = [cvec[i].contiguous() for i in range(b)]
+    same = all(torch.equal(sel[i], mlp_cuda.select_fwd(packed, c, grid_pts))
+               for i, c in enumerate(cvecs))
+    errs = (sel - plain).abs()
+    print(f"crop axis select_mlp: max_abs_err {float(errs.max()):.3g} (need "
+          f"< 1e-3), median {float(errs.median()):.3g} (need < 1e-5)")
+    assert float(errs.max()) < 1e-3 and float(errs.median()) < 1e-5
+    record("select_mlp", lambda: mlp_cuda.select_fwd(packed, cvec, grid_pts),
+           lambda: [mlp_cuda.select_fwd(packed, c, grid_pts) for c in cvecs],
+           lambda: mlp_cuda.select_fwd(packed, cvecs[0], grid_pts),
+           float(errs.max()), same, kernel="select_wgmma_kernel")
+    return out
 
 
 def check_stage2(dev) -> list[dict]:
@@ -1308,6 +1463,133 @@ def full_width_phase(dev, rt_demo, sample, prep, iters: int | None = None):
                               location=np.asarray(label["location"]).tolist())
 
 
+def shifted_crops(prep: dict) -> list[dict]:
+    """Phase 3's prepared crop and three made from it: the initial yaw
+    moved by +0.2 and -0.2 rad, the translation by 0.3 m (x, then z), and
+    the last one's NOCS target cut to a smaller (h, w), so that the batch
+    letterboxes it."""
+    p0 = prep["params0"]
+    scale = float(p0.scale[0])
+
+    def moved(dyaw=0.0, dtrans=(0.0, 0.0, 0.0), cut=None):
+        shift = torch.tensor(dtrans, device=p0.trans.device) / scale
+        crop = dict(prep, params0=refine_mod.RefineParams(
+            p0.yaw + dyaw, p0.trans + shift, p0.scale, p0.latent))
+        if cut:
+            h, w = crop["crop_hw"]
+            crop.update(crop_hw=(h - cut[0], w - cut[1]),
+                        nocs_target=np.ascontiguousarray(
+                            prep["nocs_target"][:, :h - cut[0], :w - cut[1]]))
+        return crop
+
+    return [prep, moved(dyaw=0.2), moved(dyaw=-0.2, dtrans=(0.3, 0, 0)),
+            moved(dtrans=(0, 0, 0.3), cut=(6, 8))]
+
+
+TRACK_ITERS = 30  # phase 4d holds each crop's trajectory this far
+
+
+def batched_full_width_phase(dev, rt512, sample, prep, full: dict,
+                             full_launched: dict):
+    """Phase 4d: four crops of phase 4's runtime (shifted_crops) refined at
+    once by the batched driver's refine_crops_batched, timed and counted:
+    each of the crop-axis kernels must launch as often for the batch as for
+    phase 4's one crop. Each crop's parameters must track that crop refined
+    alone through run_refine within 1e-3 at every one of the first
+    TRACK_ITERS iterations. The labels after all iterations are printed
+    beside those of the crop alone and of the crop alone from a start
+    moved by 1e-6: on the seeded random decoder the refine carries an
+    ulp-sized change to centimetres by iteration 60
+    (scripts/batched_vs_alone.py), so they are not held to 1e-3."""
+    crops = shifted_crops(prep)
+    iters = rt512.cfg.iters
+    alone, moved, alone_s = [], [], []
+    for crop in crops:
+        t0 = time.perf_counter()
+        final, hist, ext = rt512.run_refine(crop)
+        label = pipe.finish_label(final, ext, sample, crop["anno"])
+        alone_s.append(time.perf_counter() - t0)  # warm, label read back
+        alone.append((hist.params, label))
+        p0 = crop["params0"]
+        final, _, ext = rt512.run_refine(dict(crop, params0=p0._replace(
+            trans=p0.trans + 1e-6)))
+        moved.append(pipe.finish_label(final, ext, sample, crop["anno"]))
+    bucket, inputs = pipe.batch_inputs(rt512, crops)
+    _, hist = batched_refine.make_batched_refine(
+        rt512.decoder, rt512.refine_config(), rt512.grid_points, bucket,
+        select_decoder=rt512.select_decoder, device=dev)(*inputs)
+    if dev.type == "cuda":
+        pipe.refine_crops_batched(rt512, sample, crops)  # warm-up
+    reset_counts()
+    t0 = time.perf_counter()
+    labels = pipe.refine_crops_batched(rt512, sample, crops)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    assert len(labels) == len(crops)
+
+    def label_gap(a, b):
+        dyaw = abs(float(a["rotation_y"]) - float(b["rotation_y"]))
+        return (float(np.abs(np.asarray(a["location"], float)
+                             - np.asarray(b["location"], float)).max()),
+                min(dyaw, 2 * np.pi - dyaw))
+
+    track, gaps = [], []
+    for i, (got, (params, want), nudged) in enumerate(zip(labels, alone,
+                                                          moved)):
+        k = min(TRACK_ITERS, iters)
+        track.append(max(float((a[:k] - b[i, :k]).abs().max())
+                         for a, b in zip(params, hist.params)))
+        gaps.append((label_gap(got, want), label_gap(nudged, want)))
+        print(f"batched full width: crop {i}: parameters within "
+              f"{track[-1]:.3g} of the crop alone over the first {k} "
+              f"iterations (need <= 1e-3); label after {iters}: location "
+              f"{np.asarray(got['location'])}, alone "
+              f"{np.asarray(want['location'])}, |d location| "
+              f"{gaps[-1][0][0]:.3g} m, |d rotation_y| {gaps[-1][0][1]:.3g} "
+              f"rad; alone from a start moved by 1e-6: {gaps[-1][1][0]:.3g} "
+              f"m, {gaps[-1][1][1]:.3g} rad")
+    alone_mean = statistics.mean(alone_s)
+    summary = dict(crops=len(crops), iters=iters, wall_s=wall,
+                   ms_per_iteration=wall / iters * 1e3,
+                   s_per_crop=wall / len(crops),
+                   s_per_crop_ratio=wall / len(crops) / full["wall_s"],
+                   alone_s_per_crop=alone_mean,
+                   s_per_crop_ratio_alone=wall / len(crops) / alone_mean,
+                   track_iters=min(TRACK_ITERS, iters),
+                   max_track_gap=max(track),
+                   label_gaps=[g[0] for g in gaps],
+                   moved_start_label_gaps=[g[1] for g in gaps])
+    line = (f"batched full width: {len(crops)} crops, {iters} iterations, "
+            f"{wall:.3f} s wall, {summary['ms_per_iteration']:.3f} "
+            f"ms/iteration, {summary['s_per_crop']:.4f} s/crop (phase 4: "
+            f"{full['wall_s'] / iters * 1e3:.3f} ms/iteration, "
+            f"{full['wall_s']:.4f} s/crop, ratio "
+            f"{summary['s_per_crop_ratio']:.3f}; each crop alone, warm: "
+            f"{alone_mean:.4f} s/crop, ratio "
+            f"{summary['s_per_crop_ratio_alone']:.3f}), launches {launched}")
+    if dev.type == "cuda":
+        per_iter = {}
+        for label, fn in (("batched", lambda: pipe.refine_crops_batched(
+                rt512, sample, crops)), ("one crop", lambda: rt512.run_refine(
+                    prep))):
+            per_iter[label] = sum(device_launches(fn, reps=1).values()) / iters
+        summary["device_launches_per_iteration"] = per_iter["batched"]
+        summary["phase4_device_launches_per_iteration"] = per_iter["one crop"]
+        line += (f"; device launches per iteration {per_iter['batched']:.1f} "
+                 f"(phase 4's crop: {per_iter['one crop']:.1f})")
+    print(line)
+    assert max(track) <= 1e-3, track
+    assert all(np.isfinite(g["location"]).all() for g in labels)
+    if dev.type == "cuda":
+        # one launch per iteration (select: per refresh) for the whole batch
+        for name in ("splat_fwd", "splat_bwd", "nn", "select_mlp"):
+            assert launched[name] == full_launched[name] > 0, name
+        assert launched["splat_fwd"] == iters
+    return launched, summary
+
+
 def full_width_stage2_phase(dev, rt512, prep, sample, full: dict):
     """Phase 4's crop and runtime settings with stage2_pallas = True: each
     iteration's stage-2 decode is one launch of kernel 4a and its backward
@@ -1654,53 +1936,63 @@ def kitti_phase(dev, out_dir, n_frames: int = 24, iters: int = 60):
     if dev.type == "cuda":
         assert built["splat_fwd_binned"] > 0
 
-    labels = os.path.join(out_dir, "labels")
-    cfgp = quality_cfgp(suite, labels, iters)
-    route = pipe.setup_runtime(cfgp, device=dev).stage2_route
-    reset_counts()
-    t0 = time.perf_counter()
-    annos, ests = pipe.refine_css(cfgp, device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launched = counts()
-    dumps = sorted(f for f in os.listdir(labels) if f.endswith(".pkl"))
-    n_gt = sum(len(a["location"]) for a in annos.values())
-    n_est = sum(len(e["location"]) for e in ests.values())
-    print(f"driver: stage 2 {route} (the 3x96 quality decoder is outside "
-          f"the packer), {len(dumps)} dumps, {n_gt} crops, {n_est} labels, "
-          f"{wall:.3f} s wall (in-process evaluation included), "
-          f"{wall / max(n_gt, 1):.3f} s/crop, {n_frames / wall:.4f} "
-          f"frames/s, launches {launched}")
-    assert len(dumps) == n_frames == len(annos)
-    assert n_est >= 0.9 * n_gt
-    if dev.type == "cuda":
-        assert launched["splat_fwd"] > 0 and launched["nn"] > 0
-        assert n_est == n_gt, "every car gets a label"
+    route = pipe.setup_runtime(quality_cfgp(suite, out_dir),
+                               device=dev).stage2_route
+    runs = {}
+    # the default (batched, what main.py --refine runs), then one crop
+    # after another over the same frames
+    for mode, batched in (("batched", True), ("sequential", False)):
+        labels = os.path.join(out_dir, f"labels_{mode}")
+        cfgp = quality_cfgp(suite, labels, iters)
+        reset_counts()
+        t0 = time.perf_counter()
+        annos, ests = pipe.refine_css(cfgp, batched=batched, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        dumps = sorted(f for f in os.listdir(labels) if f.endswith(".pkl"))
+        n_gt = sum(len(a["location"]) for a in annos.values())
+        n_est = sum(len(e["location"]) for e in ests.values())
+        print(f"driver, {mode}: stage 2 {route} (the 3x96 quality decoder "
+              f"is outside the packer), {len(dumps)} dumps, {n_gt} crops, "
+              f"{n_est} labels, {wall:.3f} s wall (in-process evaluation "
+              f"included), {wall / max(n_gt, 1):.3f} s/crop, "
+              f"{n_frames / wall:.4f} frames/s, launches {launched}")
+        assert len(dumps) == n_frames == len(annos)
+        assert n_est >= 0.9 * n_gt
+        if dev.type == "cuda":
+            assert launched["splat_fwd"] > 0 and launched["nn"] > 0
+            assert n_est == n_gt, "every car gets a label"
 
-    t0 = time.perf_counter()
-    results = evaluate_dump.evaluate(cfgp, (0, 1, 2), device=dev)
-    eval_s = time.perf_counter() - t0
-    names = ("easy", "moderate", "hard")
+        t0 = time.perf_counter()
+        results = evaluate_dump.evaluate(cfgp, (0, 1, 2), device=dev)
+        eval_s = time.perf_counter() - t0
+        names = ("easy", "moderate", "hard")
 
-    def per_diff(arr):
-        a = np.asarray(arr)
-        return {names[d]: [float(v) for v in a[0, d]] for d in range(3)}
+        def per_diff(arr):
+            a = np.asarray(arr)
+            return {names[d]: [float(v) for v in a[0, d]] for d in range(3)}
 
-    ap = {"kitti_3d_ap": per_diff(results[0]["Box3DAP"]),
-          "bev_ap": per_diff(results[0]["BevAP"]),
-          "aos_iou": per_diff(results[0]["AosAP_iou"]),
-          "nuscenes_3d_ap": per_diff(results[1]["Box3DAP_Nu"])}
-    print(f"evaluation: {eval_s:.3f} s; AP per difficulty (at the two "
-          f"thresholds) {json.dumps(ap)}")
-    if dev.type == "cuda":
-        hold_against_jax(ap, n_frames)
+        ap = {"kitti_3d_ap": per_diff(results[0]["Box3DAP"]),
+              "bev_ap": per_diff(results[0]["BevAP"]),
+              "aos_iou": per_diff(results[0]["AosAP_iou"]),
+              "nuscenes_3d_ap": per_diff(results[1]["Box3DAP_Nu"])}
+        print(f"evaluation, {mode}: {eval_s:.3f} s; AP per difficulty (at "
+              f"the two thresholds) {json.dumps(ap)}")
+        if dev.type == "cuda":
+            hold_against_jax(ap, n_frames)
+        runs[mode] = (launched, dict(
+            driver_s=wall, crops=n_gt, labels=n_est,
+            s_per_crop=wall / max(n_gt, 1), frames_per_s=n_frames / wall,
+            eval_s=eval_s, **ap))
+    print(f"driver: {runs['batched'][1]['s_per_crop']:.4f} s/crop batched, "
+          f"{runs['sequential'][1]['s_per_crop']:.4f} s/crop sequential")
+    launched, batched_summary = runs["batched"]
     return launched, dict(frames=n_frames, cars=meta["objects"],
                           tiers=meta["difficulty_tiers"], build_s=build_s,
-                          driver_s=wall, crops=n_gt, labels=n_est,
-                          s_per_crop=wall / max(n_gt, 1),
-                          frames_per_s=n_frames / wall, eval_s=eval_s,
-                          stage2_route=route, **ap)
+                          stage2_route=route, **batched_summary,
+                          sequential=runs["sequential"][1])
 
 
 # ------------------------------------------------------- --profile (option)
@@ -1807,7 +2099,7 @@ def profile_design(rt, prep, label: str, path: str, patches=()) -> None:
             setattr(mod, name, value)
 
 
-def profile_all(out_dir: str, rt512, rt_stage2, prep, state, fixed,
+def profile_all(out_dir: str, rt512, rt_stage2, prep, sample, state, fixed,
                 summary) -> None:
     """--profile: the full-width crop and two train steps on one fixed
     batch under the profiler, the device busy time of each; the full-width
@@ -1818,6 +2110,11 @@ def profile_all(out_dir: str, rt512, rt_stage2, prep, state, fixed,
     profile_phase("full-width crop", lambda: rt512.run_refine(prep),
                   summary["full_width_crop"]["wall_s"], rt512.cfg.iters,
                   "iteration", os.path.join(out_dir, "profile.json"))
+    crops = shifted_crops(prep)
+    profile_phase("batched full width, 4 crops",
+                  lambda: pipe.refine_crops_batched(rt512, sample, crops),
+                  summary["batched_full_width"]["wall_s"], rt512.cfg.iters,
+                  "iteration", os.path.join(out_dir, "profile_4d.json"))
     first_fwd = (splat_cuda, "_fwd", functools.partial(
         splat_cuda._fwd, kernel=splat_cuda.SPLAT_FWD_FIRST))
     wmma_bwd = (mlp2_cuda, "stage2_bwd_design", lambda packed: "wmma")
@@ -1876,6 +2173,10 @@ def run_paths(dev, out_dir: str, small: bool = False,
                                                   **tiny)
     seconds["4"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    batched_launched, batched = batched_full_width_phase(
+        dev, rt512, sample, prep, full, full_launched)
+    seconds["4d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     rt_stage2, stage2_launched, stage2 = full_width_stage2_phase(
         dev, rt512, prep, sample, full)
     seconds["4c"] = time.perf_counter() - t0
@@ -1901,13 +2202,15 @@ def run_paths(dev, out_dir: str, small: bool = False,
     print(f"phase seconds: {json.dumps(seconds)}")
     launched = {"full_width": full_launched, "binned_refine": binned_launched,
                 "crops": crops_launched, "train": train_launched,
-                "full_width_stage2": stage2_launched, "kitti": kitti_launched}
+                "full_width_stage2": stage2_launched, "kitti": kitti_launched,
+                "batched_full_width": batched_launched}
     summary = {"demo_crop": demo, "full_width_crop": full,
+               "batched_full_width": batched,
                "full_width_stage2": stage2, "binned_refine": binned,
                "crops": crops, "train": train, "kitti_driver": kitti,
                "phase_seconds": seconds}
-    handles = dict(rt512=rt512, rt_stage2=rt_stage2, prep=prep, state=state,
-                   fixed=fixed)
+    handles = dict(rt512=rt512, rt_stage2=rt_stage2, prep=prep,
+                   sample=sample, state=state, fixed=fixed)
     return handles, launched, summary
 
 
@@ -1948,6 +2251,8 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = (check_splat(dev) + [check_nn(dev), check_select(dev)]
             + check_splat_binned(dev) + check_ce(dev) + check_stage2(dev))
+    for name, crop_axis in check_crop_axis(dev).items():
+        next(r for r in rows if r["name"] == name)["crop_axis"] = crop_axis
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
     for row in rows:
         alone = row.get("kernel_ms")
@@ -1967,6 +2272,9 @@ def main() -> int:
         path = PATHS[row["name"]]
         row.update(route="cuda", source=source, replaces=replaces,
                    path=path, launches=launched[path][row["name"]])
+        if "crop_axis" in row:  # its launches on the batched path (4d)
+            row["crop_axis"]["launches"] = \
+                launched["batched_full_width"][row["name"]]
     print(json.dumps({"card": card, **summary}))
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -147,14 +147,15 @@ def main() -> int:
         result = {}
         for name, path in libs.items():
             fn = ctypes.CDLL(path).select_mlp_wgmma
-            fn.argtypes = [_cuda.P] * 6 + [_cuda.I] * 5 + [_cuda.P] * 2
+            fn.argtypes = [_cuda.P] * 6 + [_cuda.I] * 7 + [_cuda.P] * 2
             fn.restype = ctypes.c_int
             result[name] = {}
             for cl in CLUSTERS.get(name, (mlp_cuda.CLUSTER,)):
                 def launch():
                     err = fn(_cuda.ptr(pts), _cuda.ptr(packed.ws_tiles),
                              _cuda.ptr(packed.wx), _cuda.ptr(cvec),
-                             _cuda.ptr(wlast), _cuda.ptr(scal), n, H, nh,
+                             _cuda.ptr(wlast), _cuda.ptr(scal), 1, 0, n,
+                             H, nh,
                              int(packed.use_tanh), cl, _cuda.ptr(out),
                              _cuda.stream(pts))
                     if err:

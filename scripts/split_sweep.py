@@ -95,7 +95,7 @@ def nn_variants(dev, q, d, mask, first) -> dict:
             log = proc.communicate()[0]
             assert proc.returncode == 0, log
             fn = ctypes.CDLL(lib).nn_fwd
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
                 ctypes.c_void_p] * 3
             fn.restype = ctypes.c_int
             n, m = q.shape[0], d.shape[0]
@@ -103,8 +103,9 @@ def nn_variants(dev, q, d, mask, first) -> dict:
             idx = torch.empty(n, device=dev, dtype=torch.int64)
 
             def launch(s):
-                err = fn(q.data_ptr(), d.data_ptr(), mask.data_ptr(), n, m, s,
-                         d2.data_ptr(), idx.data_ptr(), _cuda.stream(q))
+                err = fn(q.data_ptr(), d.data_ptr(), mask.data_ptr(), 1, n,
+                         m, s, d2.data_ptr(), idx.data_ptr(),
+                         _cuda.stream(q))
                 assert err == 0, err
 
             times = {}

@@ -679,18 +679,21 @@ size_t smem_bytes(int nh) {
       .total;
 }
 
-// Launch `kernel` over ceil(n / 64) CTAs rounded up to whole clusters.
+// Launch `kernel` over ceil(n / 64) CTAs rounded up to whole clusters, once
+// for each of `batch` crops on grid rows y (a cluster spans x only, so it
+// stays inside one crop).
 template <typename Kernel, typename... Args>
 int launch_clustered(Kernel kernel, size_t smem, int n, int cluster,
-                     cudaStream_t stream, Args... args) {
-  if (cluster < 1 || cluster > MAX_CLUSTER || smem > SMEM_LIMIT)
+                     int batch, cudaStream_t stream, Args... args) {
+  if (cluster < 1 || cluster > MAX_CLUSTER || smem > SMEM_LIMIT ||
+      batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (n + ROWS - 1) / ROWS;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((tiles + cluster - 1) / cluster * cluster);
+  cfg.gridDim = dim3((tiles + cluster - 1) / cluster * cluster, batch);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;

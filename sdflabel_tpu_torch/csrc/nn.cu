@@ -28,6 +28,12 @@
 //             alone fill the card (RANSAC's 567 x n queries).
 //   first design (nn_kernel, kept as the yardstick): one thread per query
 //             over all data points, 64 threads a block.
+//   crop axis (split design; the batched driver's 3D loss, as the TPU
+//             kernel gains a batch grid axis under vmap): B crops of n
+//             queries against m data points are one launch, crop b on grid
+//             plane z = b over its own queries, data and mask; the cluster
+//             spans only y, so the merge stays inside one crop and each
+//             crop equals its launch alone (B = 1) bit for bit.
 // Both read the (m, 3) points and an optional (m,) bool mask as they are
 // and write the index as int64.
 
@@ -134,6 +140,12 @@ nn_split_kernel(const float* __restrict__ query,
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int slices = (int)cluster.num_blocks();
+  const size_t b = blockIdx.z;  // the crop
+  query += b * n * 3;
+  data += b * m * 3;
+  if (mask != nullptr) mask += b * m;
+  dmin += b * n;
+  idx += b * n;
   const int q_base = blockIdx.x * SPLIT_QB;
   const int lo = min(m, rank * per), hi = min(m, lo + per);
   float q[SPLIT_R][3], best[SPLIT_R];
@@ -217,21 +229,22 @@ const char* sdl_error_string(int err) {
 // Data slices (CTAs per cluster) of nn_fwd for n queries, m data points.
 int nn_slices(int n, int m) { return split_slices(n, m); }
 
-// query (n, 3) f32, data (m, 3) f32, mask (m,) bool or null -> dmin (n,)
-// f32 squared distance, idx (n,) int64. `slices` > 0 forces the cluster
-// size (1..8); 0 takes split_slices(n, m). The split design.
-int nn_fwd(const void* query, const void* data, const void* mask, int n,
-           int m, int slices, void* dmin, void* idx, void* stream) {
-  if (n <= 0) return 0;
+// query (batch, n, 3) f32, data (batch, m, 3) f32, mask (batch, m) bool or
+// null -> dmin (batch, n) f32 squared distance, idx (batch, n) int64, each
+// crop as its launch alone. `slices` > 0 forces the cluster size (1..8); 0
+// takes split_slices(n, m). The split design.
+int nn_fwd(const void* query, const void* data, const void* mask, int batch,
+           int n, int m, int slices, void* dmin, void* idx, void* stream) {
+  if (n <= 0 || batch <= 0) return 0;
   if (slices <= 0) slices = split_slices(n, m);
-  if (slices > SPLIT_MAX) return (int)cudaErrorInvalidValue;
+  if (slices > SPLIT_MAX || batch > 65535) return (int)cudaErrorInvalidValue;
   if (slices > 8) {  // past the portable cluster size
     const cudaError_t err = cudaFuncSetAttribute(
         nn_split_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((n + SPLIT_QB - 1) / SPLIT_QB, slices);
+  cfg.gridDim = dim3((n + SPLIT_QB - 1) / SPLIT_QB, slices, batch);
   cfg.blockDim = dim3(SPLIT_THREADS);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = (cudaStream_t)stream;

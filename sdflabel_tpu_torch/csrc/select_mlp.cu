@@ -8,6 +8,15 @@
 // where c_j = bias_j + latent @ wlat_j is absorbed by the wrapper. The
 // output only ranks |sdf|; it carries no gradient.
 //
+// Crop axis (the batched driver, as the TPU kernel gains a batch grid axis
+// under vmap): B crops rank the same weights with their own latents, so a
+// launch takes B absorbed cvec rows (nh+1, H) and points shared by every
+// crop (crop stride 0, the refresh's 64000 grid points) or their own (crop
+// stride n * 3). Crop b runs on grid row y = b; a cluster spans x only, so
+// a multicast weight slice feeds that crop's tiles, and the L2 serves the
+// same slices to the other crops. Each crop's output is bit-equal to its
+// launch alone (B = 1).
+//
 // Bound on the H100: bf16 tensor-core operations, 2 * nh * H * H per point
 // (235 GFLOP for 64000 points through the 8x512 decoder); bytes are the
 // points, the 3.7 MB weight stack and the output. Two designs, chosen by
@@ -50,10 +59,14 @@ select_mlp_kernel(const float* __restrict__ xyz,
                   const __nv_bfloat16* __restrict__ ws,
                   const float* __restrict__ wx, const float* __restrict__ cvec,
                   const float* __restrict__ wlast,
-                  const float* __restrict__ scal, int n, int H, int nh,
-                  int use_tanh, float* __restrict__ out) {
+                  const float* __restrict__ scal, int xyz_stride, int n,
+                  int H, int nh, int use_tanh, float* __restrict__ out) {
   constexpr int R = RT * 16;  // points per block
   extern __shared__ __align__(128) unsigned char smem[];
+  const size_t b = blockIdx.y;  // the crop
+  xyz += b * xyz_stride;
+  cvec += b * (nh + 1) * H;
+  out += b * n;
   float* acc = reinterpret_cast<float*>(smem);                       // R x H
   __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(acc + R * H);  // R x H
   float* sx = reinterpret_cast<float*>(h + R * H);                   // R x 3
@@ -137,19 +150,20 @@ select_mlp_kernel(const float* __restrict__ xyz,
 
 template <int RT>
 int launch(const void* xyz, const void* ws, const void* wx, const void* cvec,
-           const void* wlast, const void* scal, int n, int H, int nh,
-           int use_tanh, void* out, cudaStream_t stream) {
+           const void* wlast, const void* scal, int batch, int xyz_stride,
+           int n, int H, int nh, int use_tanh, void* out,
+           cudaStream_t stream) {
   constexpr int R = RT * 16;
   const size_t smem = (size_t)R * H * (4 + 2) + R * 3 * 4;
   cudaError_t err = cudaFuncSetAttribute(
       select_mlp_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + R - 1) / R;
+  const dim3 blocks((n + R - 1) / R, batch);
   select_mlp_kernel<RT><<<blocks, THREADS, smem, stream>>>(
       (const float*)xyz, (const __nv_bfloat16*)ws, (const float*)wx,
-      (const float*)cvec, (const float*)wlast, (const float*)scal, n, H, nh,
-      use_tanh, (float*)out);
+      (const float*)cvec, (const float*)wlast, (const float*)scal,
+      xyz_stride, n, H, nh, use_tanh, (float*)out);
   return (int)cudaGetLastError();
 }
 
@@ -162,24 +176,26 @@ select_wgmma_kernel(const float* __restrict__ xyz,
                     const float* __restrict__ wx,
                     const float* __restrict__ cvec,
                     const float* __restrict__ wlast,
-                    const float* __restrict__ scal, int n, int nh,
-                    int use_tanh, float* __restrict__ out) {
+                    const float* __restrict__ scal, int xyz_stride, int n,
+                    int nh, int use_tanh, float* __restrict__ out) {
+  const size_t b = blockIdx.y;  // the crop
   mlpw::mlp_body<H, SELECT_STAGES, mlpw::Mode::SELECT>(
-      xyz, tiles, nullptr, wx, cvec, wlast, scal, nullptr, n, nh, use_tanh,
-      out, nullptr);
+      xyz + b * xyz_stride, tiles, nullptr, wx, cvec + b * (nh + 1) * H,
+      wlast, scal, nullptr, n, nh, use_tanh, out + b * n, nullptr);
 }
 
 template <int H>
 int launch_wgmma(const void* xyz, const void* tiles, const void* wx,
                  const void* cvec, const void* wlast, const void* scal,
-                 int n, int nh, int use_tanh, int cluster, void* out,
-                 cudaStream_t stream) {
+                 int batch, int xyz_stride, int n, int nh, int use_tanh,
+                 int cluster, void* out, cudaStream_t stream) {
   return mlpw::launch_clustered(
       select_wgmma_kernel<H>,
       mlpw::smem_bytes<H, SELECT_STAGES, mlpw::Mode::SELECT>(nh),
-      n, cluster, stream, (const float*)xyz, (const __nv_bfloat16*)tiles,
-      (const float*)wx, (const float*)cvec, (const float*)wlast,
-      (const float*)scal, n, nh, use_tanh, (float*)out);
+      n, cluster, batch, stream, (const float*)xyz,
+      (const __nv_bfloat16*)tiles, (const float*)wx, (const float*)cvec,
+      (const float*)wlast, (const float*)scal, xyz_stride, n, nh, use_tanh,
+      (float*)out);
 }
 
 }  // namespace
@@ -199,25 +215,28 @@ int select_mlp_tile(int H) {
   return 0;
 }
 
-// The wmma design. xyz (n, 3) f32; ws (nh, H, H) bf16 [in, out]; wx
-// (nh+1, 4, H) f32; cvec (nh+1, H) f32; wlast (H,) f32; scal (4,) f32 ->
-// out (n,) f32.
+// The wmma design. xyz: crop b's (n, 3) f32 points at xyz + b *
+// xyz_stride (0: one set for every crop); ws (nh, H, H) bf16 [in, out]; wx
+// (nh+1, 4, H) f32; cvec (batch, nh+1, H) f32; wlast (H,) f32; scal (4,)
+// f32 -> out (batch, n) f32.
 int select_mlp(const void* xyz, const void* ws, const void* wx,
-               const void* cvec, const void* wlast, const void* scal, int n,
-               int H, int nh, int use_tanh, void* out, void* stream) {
-  if (n <= 0) return 0;
-  if (H % 16 != 0 || nh < 1) return (int)cudaErrorInvalidValue;
+               const void* cvec, const void* wlast, const void* scal,
+               int batch, int xyz_stride, int n, int H, int nh, int use_tanh,
+               void* out, void* stream) {
+  if (n <= 0 || batch <= 0) return 0;
+  if (H % 16 != 0 || nh < 1 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (select_mlp_tile(H)) {
     case 64:
-      return launch<4>(xyz, ws, wx, cvec, wlast, scal, n, H, nh, use_tanh,
-                       out, s);
+      return launch<4>(xyz, ws, wx, cvec, wlast, scal, batch, xyz_stride, n,
+                       H, nh, use_tanh, out, s);
     case 32:
-      return launch<2>(xyz, ws, wx, cvec, wlast, scal, n, H, nh, use_tanh,
-                       out, s);
+      return launch<2>(xyz, ws, wx, cvec, wlast, scal, batch, xyz_stride, n,
+                       H, nh, use_tanh, out, s);
     case 16:
-      return launch<1>(xyz, ws, wx, cvec, wlast, scal, n, H, nh, use_tanh,
-                       out, s);
+      return launch<1>(xyz, ws, wx, cvec, wlast, scal, batch, xyz_stride, n,
+                       H, nh, use_tanh, out, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -235,30 +254,30 @@ int select_mlp_wgmma_smem(int H) {
   return (int)mlpw::Smem(H, SELECT_STAGES, 0).total;
 }
 
-// The wgmma design. xyz (n, 3) f32; tiles (nh, H / 32, 32 * H) bf16, the
-// packed slices of ops/mlp_cuda.py tile_stack; wx, cvec, wlast, scal as
-// select_mlp; cluster CTAs (1..4) share each slice -> out (n,) f32.
+// The wgmma design. tiles (nh, H / 32, 32 * H) bf16, the packed slices of
+// ops/mlp_cuda.py tile_stack; xyz, xyz_stride, wx, cvec, wlast, scal as
+// select_mlp; cluster CTAs (1..4) share each slice -> out (batch, n) f32.
 int select_mlp_wgmma(const void* xyz, const void* tiles, const void* wx,
                      const void* cvec, const void* wlast, const void* scal,
-                     int n, int H, int nh, int use_tanh, int cluster,
-                     void* out, void* stream) {
-  if (n <= 0) return 0;
+                     int batch, int xyz_stride, int n, int H, int nh,
+                     int use_tanh, int cluster, void* out, void* stream) {
+  if (n <= 0 || batch <= 0) return 0;
   if (nh < 1 || !select_mlp_wgmma_fits(H))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (H) {
     case 128:
-      return launch_wgmma<128>(xyz, tiles, wx, cvec, wlast, scal, n, nh,
-                               use_tanh, cluster, out, s);
+      return launch_wgmma<128>(xyz, tiles, wx, cvec, wlast, scal, batch,
+                               xyz_stride, n, nh, use_tanh, cluster, out, s);
     case 256:
-      return launch_wgmma<256>(xyz, tiles, wx, cvec, wlast, scal, n, nh,
-                               use_tanh, cluster, out, s);
+      return launch_wgmma<256>(xyz, tiles, wx, cvec, wlast, scal, batch,
+                               xyz_stride, n, nh, use_tanh, cluster, out, s);
     case 384:
-      return launch_wgmma<384>(xyz, tiles, wx, cvec, wlast, scal, n, nh,
-                               use_tanh, cluster, out, s);
+      return launch_wgmma<384>(xyz, tiles, wx, cvec, wlast, scal, batch,
+                               xyz_stride, n, nh, use_tanh, cluster, out, s);
     default:
-      return launch_wgmma<512>(xyz, tiles, wx, cvec, wlast, scal, n, nh,
-                               use_tanh, cluster, out, s);
+      return launch_wgmma<512>(xyz, tiles, wx, cvec, wlast, scal, batch,
+                               xyz_stride, n, nh, use_tanh, cluster, out, s);
   }
 }
 

@@ -66,6 +66,14 @@
 //   dense backward, first design (splat_bwd_kernel, the split design's
 //             yardstick, splat_bwd_first): one thread per point looping
 //             over all pixel chunks; 64 CTAs of 4 warps for 8192 points.
+//   crop axis (both split designs; the batched driver, as the TPU kernels
+//             gain a batch grid axis under vmap): a batch of B crops of the
+//             same n points and p pixels is one launch, crop b on grid
+//             plane z = b over its own points, rays and outputs. A cluster
+//             spans only y, so every distributed-shared-memory merge stays
+//             inside one crop, and the slice count depends on n and p
+//             alone: each crop's result is bit-equal to its launch alone
+//             (B = 1, the single-crop path).
 //
 // Row binning (renders of >= 4096 px): the points arrive sorted by the
 // first bin_px-pixel row block their footprint can touch (csrc/splat_bins.cu,
@@ -462,10 +470,12 @@ splat_fwd_split_kernel(const float* __restrict__ pts,
                        float* __restrict__ zn_out) {
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
+  const size_t b = blockIdx.z;  // the crop: its own points, rays and image
   const int lo = min(n, (int)cluster.block_rank() * per);
-  fwd_tile(pts, feats, kg, p, lo, min(n, lo + per), diam, dc,
-           reinterpret_cast<float*>(smem4), cluster, img, m_out, d_out,
-           zn_out);
+  fwd_tile(pts + b * n * 8, feats + b * n * NF, kg + b * p * 4, p, lo,
+           min(n, lo + per), diam, dc, reinterpret_cast<float*>(smem4),
+           cluster, img + b * p * NF, m_out + b * p, d_out + b * p,
+           zn_out + b * p);
 }
 
 // The binned forward on the split forward's tile. The points arrive sorted
@@ -625,9 +635,11 @@ splat_bwd_split_kernel(const float* __restrict__ pts,
   __shared__ float s_part[BSPLIT_T * NG * BSPLIT_PTS];
   __shared__ float s_sum[NG * BSPLIT_PTS];
   cg::cluster_group cluster = cg::this_cluster();
+  const size_t b = blockIdx.z;  // the crop: its own points and pixel rows
   const int lo = min(p, (int)cluster.block_rank() * per);
-  bwd_block(pts, feats, pix, n, lo, min(p, lo + per), 0, p, nullptr, diam,
-            dc, s_pix4, s_part, s_sum, cluster, dv, dn, df);
+  bwd_block(pts + b * n * 8, feats + b * n * NF, pix + b * p * PIX_W, n, lo,
+            min(p, lo + per), 0, p, nullptr, diam, dc, s_pix4, s_part, s_sum,
+            cluster, dv + b * n * 3, dn + b * n * 3, df + b * n * NF);
 }
 
 // The binned backward on the split backward's design, over points sorted
@@ -779,19 +791,22 @@ const char* sdl_error_string(int err) {
 // Point slices (CTAs per cluster) of splat_fwd for n points onto p pixels.
 int splat_fwd_slices(int n, int p) { return split_slices(n, p); }
 
-// pts (n, 8) [v, n, mask, 0], feats (n, 8), kg (p, 4) [g, 0] float32 ->
-// img (p, 8), m, d, zn (p,) float32. The split design.
-int splat_fwd(const void* pts, const void* feats, const void* kg, int n, int p,
-              float diam, float depth_constant, void* img, void* m, void* d,
-              void* zn, void* stream) {
-  if (p <= 0) return 0;
+// pts (batch, n, 8) [v, n, mask, 0], feats (batch, n, 8), kg (batch, p, 4)
+// [g, 0] float32 -> img (batch, p, 8), m, d, zn (batch, p) float32: each
+// crop of the batch on its own grid plane, its result bit-equal to a launch
+// of that crop alone (batch 1). The split design.
+int splat_fwd(const void* pts, const void* feats, const void* kg, int batch,
+              int n, int p, float diam, float depth_constant, void* img,
+              void* m, void* d, void* zn, void* stream) {
+  if (p <= 0 || batch <= 0) return 0;
+  if (batch > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       splat_fwd_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)SPLIT_SMEM);
   if (err != cudaSuccess) return (int)err;
   const int slices = split_slices(n, p);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((p + SPLIT_PX - 1) / SPLIT_PX, slices);
+  cfg.gridDim = dim3((p + SPLIT_PX - 1) / SPLIT_PX, slices, batch);
   cfg.blockDim = dim3(SPLIT_THREADS);
   cfg.dynamicSmemBytes = SPLIT_SMEM;
   cfg.stream = (cudaStream_t)stream;
@@ -885,17 +900,18 @@ int splat_fwd_binned(const void* pts, const void* feats, const void* kg, int n,
 // Pixel slices (CTAs per cluster) of splat_bwd for n points onto p pixels.
 int splat_bwd_slices(int n, int p) { return bwd_split_slices(n, p); }
 
-// pts, feats as above; pix (p, 16) -> dv (n, 3), dn (n, 3), df (n, 8). The
-// split design; `slices` > 0 forces the cluster size (1..8), 0 takes
+// pts, feats as above; pix (batch, p, 16) -> dv (batch, n, 3), dn (batch,
+// n, 3), df (batch, n, 8), each crop as a launch of it alone. The split
+// design; `slices` > 0 forces the cluster size (1..8), 0 takes
 // bwd_split_slices(n, p).
-int splat_bwd(const void* pts, const void* feats, const void* pix, int n,
-              int p, int slices, float diam, float depth_constant, void* dv,
-              void* dn, void* df, void* stream) {
-  if (n <= 0) return 0;
+int splat_bwd(const void* pts, const void* feats, const void* pix, int batch,
+              int n, int p, int slices, float diam, float depth_constant,
+              void* dv, void* dn, void* df, void* stream) {
+  if (n <= 0 || batch <= 0) return 0;
   if (slices <= 0) slices = bwd_split_slices(n, p);
-  if (slices > SPLIT_MAX) return (int)cudaErrorInvalidValue;
+  if (slices > SPLIT_MAX || batch > 65535) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((n + BSPLIT_PTS - 1) / BSPLIT_PTS, slices);
+  cfg.gridDim = dim3((n + BSPLIT_PTS - 1) / BSPLIT_PTS, slices, batch);
   cfg.blockDim = dim3(BSPLIT_THREADS);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = (cudaStream_t)stream;

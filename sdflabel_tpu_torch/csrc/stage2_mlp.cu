@@ -377,7 +377,7 @@ int launch_wgmma(const void* xyz, const void* tiles, const void* tiles_t,
   return mlpw::launch_clustered(
       stage2_fwd_wgmma_kernel<H>,
       mlpw::smem_bytes<H, STAGE2_STAGES, Mode::STAGE2_FWD>(nh), n, cluster,
-      stream, (const float*)xyz, (const __nv_bfloat16*)tiles,
+      1, stream, (const float*)xyz, (const __nv_bfloat16*)tiles,
       (const __nv_bfloat16*)tiles_t, (const float*)wx, (const float*)cvec,
       (const float*)wlast, (const float*)scal, n, nh, use_tanh, (float*)out);
 }
@@ -391,7 +391,7 @@ int launch_wgmma_bwd(const void* xyz, const void* tiles, const void* tiles_t,
   return mlpw::launch_clustered(
       stage2_bwd_wgmma_kernel<H>,
       mlpw::smem_bytes<H, STAGE2_STAGES, Mode::STAGE2_BWD>(nh), n, cluster,
-      stream, (const float*)xyz, (const __nv_bfloat16*)tiles,
+      1, stream, (const float*)xyz, (const __nv_bfloat16*)tiles,
       (const __nv_bfloat16*)tiles_t, (const float*)wx, (const float*)cvec,
       (const float*)wlast, (const float*)scal, (const float*)ct, n, nh,
       use_tanh, (float*)dxyz, (float*)partial);

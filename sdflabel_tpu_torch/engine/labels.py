@@ -18,7 +18,8 @@ from sdflabel_tpu_torch.ops import geometry, grid as grid_ops
 
 
 class SurfaceExtents(NamedTuple):
-    """Masked min/max of the unscaled surface band (model frame)."""
+    """Masked min/max of the unscaled surface band (model frame), after
+    the crop axis if any."""
 
     mn: torch.Tensor  # (3,) +inf where the band is empty
     mx: torch.Tensor  # (3,) -inf where the band is empty
@@ -28,17 +29,19 @@ class SurfaceExtents(NamedTuple):
 def surface_extents(sdf_decoder, grid_points, latent, capacity: int = 4096,
                     threshold: float = 0.03) -> SurfaceExtents:
     """Surface-band bounding box at the raw (unnormalized) `latent`
-    (refinement.py:516-529)."""
+    (refinement.py:516-529); (B, L) latents give one box per crop."""
+    if latent.dim() != 2:
+        latent = latent.reshape(-1)
     with torch.no_grad():
         surf, _ = grid_ops.surface_from_decoder(
-            sdf_decoder, latent.reshape(-1), grid_points, capacity=capacity,
+            sdf_decoder, latent, grid_points, capacity=capacity,
             threshold=threshold)
     pts = surf.points.detach()
-    mask = surf.mask[:, None]
+    mask = surf.mask[..., None]
     big = torch.full_like(pts, float("inf"))
-    mn = torch.where(mask, pts, big).min(0).values
-    mx = torch.where(mask, pts, -big).max(0).values
-    return SurfaceExtents(mn=mn, mx=mx, valid=surf.mask.any())
+    mn = torch.where(mask, pts, big).min(-2).values
+    mx = torch.where(mask, pts, -big).max(-2).values
+    return SurfaceExtents(mn=mn, mx=mx, valid=surf.mask.any(-1))
 
 
 def kitti_label_from_extents(yaw, scale, trans, mn, mx, p_wc: np.ndarray,

@@ -8,6 +8,15 @@ latent renormalized to the unit sphere, the band selection (warm-started
 in the stock config), the exact stage-2 decode with autograd normals, the
 surfel render, the 3D NN loss plus the 2D NOCS loss, and the step behind
 the NaN/zero guard. The JAX ``lax.scan`` becomes a Python loop.
+
+``make_refine_batch_fn`` refines B crops at once, as ``jax.vmap`` of the
+JAX refine does (parallel/batched_refine.py builds on it): one iteration
+body serves both, with a leading crop axis on every tensor. The guard is
+per crop, and so is the optimizer state: optax keeps Adam's step count as a
+lane of its state and ``jnp.where(ok, new, old)`` freezes a guarded crop's
+count and moments, which ``torch.optim.Adam`` (one count per tensor) cannot
+express, so the batched loop writes the Adam and SGD updates itself. It
+reads nothing back to the host inside the loop.
 """
 
 from __future__ import annotations
@@ -45,6 +54,8 @@ class RefineConfig:
 
 
 class RefineParams(NamedTuple):
+    """One crop's parameters; the batched loop's lead with a crop axis."""
+
     yaw: torch.Tensor  # (1,)
     trans: torch.Tensor  # (3,)
     scale: torch.Tensor  # (1,)
@@ -63,19 +74,22 @@ class RefineStepOut(NamedTuple):
 
 def build_render_pose(yaw: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
     """4x4 render pose: rotation from yaw with its Y row flipped, then the
-    translation, whose y keeps its sign (optimizer.py:87-90)."""
+    translation, whose y keeps its sign (optimizer.py:87-90). (B, 1) yaws
+    and (B, 3) translations give (B, 4, 4)."""
     rot = geometry.rot_from_yaw(yaw).to(trans.dtype)
     rot = rot * torch.tensor([1.0, -1.0, 1.0], device=trans.device,
                              dtype=trans.dtype)[:, None]
-    top = torch.cat([rot, trans.reshape(3, 1)], dim=1)
+    top = torch.cat([rot, trans[..., :, None]], dim=-1)
     bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=trans.device,
-                          dtype=trans.dtype)
-    return torch.cat([top, bottom], dim=0)
+                          dtype=trans.dtype).expand(*top.shape[:-2], 1, 4)
+    return torch.cat([top, bottom], dim=-2)
 
 
 def _normalize_latent(latent: torch.Tensor) -> torch.Tensor:
-    # F.normalize (optimizer.py:96) with a NaN-free gradient at zero
-    return latent / torch.sqrt(torch.clamp(latent.square().sum(), min=1e-24))
+    # F.normalize (optimizer.py:96) with a NaN-free gradient at zero, per
+    # crop
+    return latent / torch.sqrt(torch.clamp(
+        latent.square().sum(-1, keepdim=True), min=1e-24))
 
 
 def _device(device) -> torch.device:
@@ -85,36 +99,30 @@ def _device(device) -> torch.device:
     return device
 
 
-def make_refine_fn(sdf_decoder, cfg: RefineConfig, grid_points: torch.Tensor,
-                   K: torch.Tensor, crop_hw: tuple[int, int],
-                   select_decoder=None, stage2_fn=None, device="cuda"):
-    """Build refine(params0, nocs_target, frustum_pts, frustum_mask,
-    pixel_mask=None) -> (final RefineParams, RefineStepOut) for one crop
-    geometry.
+def _check_warm(cfg: RefineConfig) -> bool:
+    """Whether the warm band is on; raises on an unusable setting."""
+    if cfg.warm_band <= 0:
+        return False
+    if cfg.warm_band < cfg.surface_capacity:
+        raise ValueError(f"warm_band {cfg.warm_band} must be >= "
+                         f"surface_capacity {cfg.surface_capacity}")
+    if cfg.warm_refresh < 1:
+        raise ValueError(f"warm_refresh must be >= 1 (got "
+                         f"{cfg.warm_refresh})")
+    return True
 
-    sdf_decoder(latent, points) -> (N,) sdf, differentiable; select_decoder:
-    optional rank-only decoder for the selection passes (the selection
-    kernel); stage2_fn: optional fused stage-2 decode and normals
-    (ops/mlp2_cuda.py). nocs_target (3, h, w); frustum (M, 3) with its
-    (M,) mask.
-    """
-    device = _device(device)
+
+def _make_iteration(sdf_decoder, cfg: RefineConfig, grid_points, crop_hw,
+                    select_decoder, stage2_fn):
+    """One iteration's loss, for one crop or for a crop axis on every
+    argument: iteration(params, K, nocs_target, frustum_pts, frustum_mask,
+    pixel_mask, cand_idx) -> (loss, loss_2d, loss_3d)."""
     h, w = crop_hw
     use_warm = cfg.warm_band > 0
-    if use_warm:
-        if cfg.warm_band < cfg.surface_capacity:
-            raise ValueError(f"warm_band {cfg.warm_band} must be >= "
-                             f"surface_capacity {cfg.surface_capacity}")
-        if cfg.warm_refresh < 1:
-            raise ValueError(f"warm_refresh must be >= 1 (got "
-                             f"{cfg.warm_refresh})")
-    grid_points = grid_points.to(device)
-    K = torch.as_tensor(K, dtype=torch.float32).to(device)
-    sel = select_decoder if select_decoder is not None else sdf_decoder
 
-    def iteration(params: RefineParams, nocs_target, frustum_pts,
+    def iteration(params: RefineParams, K, nocs_target, frustum_pts,
                   frustum_mask, pixel_mask, cand_idx):
-        scene = frustum_pts / params.scale.reshape(())
+        scene = frustum_pts / params.scale[..., None, :]
         pose = build_render_pose(params.yaw, params.trans)
         latent = _normalize_latent(params.latent)
         if use_warm:
@@ -142,6 +150,31 @@ def make_refine_fn(sdf_decoder, cfg: RefineConfig, grid_points: torch.Tensor,
                              pixel_mask=pixel_mask)
         return cfg.weight_3d * l3d + cfg.weight_2d * l2d, l2d, l3d
 
+    return iteration
+
+
+def make_refine_fn(sdf_decoder, cfg: RefineConfig, grid_points: torch.Tensor,
+                   K: torch.Tensor, crop_hw: tuple[int, int],
+                   select_decoder=None, stage2_fn=None, device="cuda"):
+    """Build refine(params0, nocs_target, frustum_pts, frustum_mask,
+    pixel_mask=None) -> (final RefineParams, RefineStepOut) for one crop
+    geometry.
+
+    sdf_decoder(latent, points) -> (N,) sdf, differentiable; select_decoder:
+    optional rank-only decoder for the selection passes (the selection
+    kernel); stage2_fn: optional fused stage-2 decode and normals
+    (ops/mlp2_cuda.py). nocs_target (3, h, w); frustum (M, 3) with its
+    (M,) mask.
+    """
+    device = _device(device)
+    h, w = crop_hw
+    use_warm = _check_warm(cfg)
+    grid_points = grid_points.to(device)
+    K = torch.as_tensor(K, dtype=torch.float32).to(device)
+    sel = select_decoder if select_decoder is not None else sdf_decoder
+    iteration = _make_iteration(sdf_decoder, cfg, grid_points, crop_hw,
+                                select_decoder, stage2_fn)
+
     def refine(params0: RefineParams, nocs_target, frustum_pts,
                frustum_mask, pixel_mask=None):
         params = RefineParams(*(torch.as_tensor(p, dtype=torch.float32)
@@ -168,7 +201,7 @@ def make_refine_fn(sdf_decoder, cfg: RefineConfig, grid_points: torch.Tensor,
                 cand_idx = grid_ops.band_candidates(
                     sel, _normalize_latent(params.latent.detach()),
                     grid_points, cfg.warm_band)
-            loss, l2d, l3d = iteration(params, nocs_target, frustum_pts,
+            loss, l2d, l3d = iteration(params, K, nocs_target, frustum_pts,
                                        frustum_mask, pixel_mask, cand_idx)
             grads = torch.autograd.grad(loss, list(params), allow_unused=True)
             used = RefineParams(*(p.detach().clone() for p in params))
@@ -196,6 +229,117 @@ def make_refine_fn(sdf_decoder, cfg: RefineConfig, grid_points: torch.Tensor,
                                   for i in range(4))))
 
     return refine
+
+
+class BatchOptState(NamedTuple):
+    """optax's state of make_optimizer for B crops: Adam's `count` is one
+    lane per crop, as under vmap; SGD keeps none."""
+
+    count: torch.Tensor  # (B,) int32, the Adam steps each crop has taken
+    mu: tuple  # Adam's first moments of (yaw, trans)
+    nu: tuple  # Adam's second moments of (yaw, trans)
+
+
+def init_batch_opt_state(params: RefineParams) -> BatchOptState:
+    zeros = tuple(torch.zeros_like(p) for p in params[:2])
+    return BatchOptState(torch.zeros(params.yaw.shape[0], dtype=torch.int32,
+                                     device=params.yaw.device), zeros, zeros)
+
+
+def batch_step(cfg: RefineConfig, params: RefineParams, grads, ok,
+               state: BatchOptState) -> tuple[RefineParams, BatchOptState]:
+    """One guarded step of B crops, as the JAX step under vmap: a leaf
+    whose gradient is not all finite in a crop steps on zero; Adam(yaw),
+    Adam(trans) (optax scale_by_adam, then scale(-lr)) and SGD(scale),
+    SGD(latent); then crops where `ok` (B,) is False keep their parameters
+    and their whole optimizer state, count included."""
+    grads = [torch.where((ok & torch.isfinite(g).all(-1))[:, None], g,
+                         torch.zeros_like(g)) for g in grads]
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    count = state.count + 1
+    bc1 = (1.0 - b1 ** count.float())[:, None]
+    bc2 = (1.0 - b2 ** count.float())[:, None]
+    mu = tuple((1.0 - b1) * g + b1 * m for g, m in zip(grads, state.mu))
+    nu = tuple((1.0 - b2) * (g * g) + b2 * v
+               for g, v in zip(grads, state.nu))
+    updates = [(m / bc1) / (torch.sqrt(v / bc2) + eps) * -lr
+               for m, v, lr in zip(mu, nu, (cfg.lr_yaw, cfg.lr_trans))]
+    updates += [g * -lr for g, lr in zip(grads[2:],
+                                         (cfg.lr_scale, cfg.lr_latent))]
+    keep = ok[:, None]
+    new = RefineParams(*(torch.where(keep, p + u, p)
+                         for p, u in zip(params, updates)))
+    return new, BatchOptState(
+        torch.where(ok, count, state.count),
+        tuple(torch.where(keep, a, o) for a, o in zip(mu, state.mu)),
+        tuple(torch.where(keep, a, o) for a, o in zip(nu, state.nu)))
+
+
+def make_refine_batch_fn(sdf_decoder, cfg: RefineConfig,
+                         grid_points: torch.Tensor, crop_hw: tuple[int, int],
+                         select_decoder=None, stage2_fn=None, device="cuda"):
+    """Build refine_batch(params0, K, nocs_target, frustum_pts,
+    frustum_mask, pixel_mask) -> (final RefineParams, RefineStepOut) for B
+    crops of one render bucket `crop_hw`: the counterpart of ``jax.vmap``
+    over the JAX refine (parallel/batched_refine.py).
+
+    Every argument carries a leading crop axis: RefineParams of (B, 1),
+    (B, 3), (B, 1), (B, L); K (B, 3, 3), each crop's own intrinsics;
+    nocs_target (B, 3, h, w); frustum (B, M, 3) with its (B, M) mask;
+    pixel_mask (B, h, w), required. The result's leaves are (B, ·) and the
+    history's (B, iters, ·), as vmap's. Per crop, the guard (a finite,
+    nonzero loss; a leaf whose gradient is not all finite steps on zero)
+    and the optimizer state are the sequential loop's; the warm refresh
+    (`it % warm_refresh == 0`) is the same for every crop, as under vmap.
+    """
+    device = _device(device)
+    use_warm = _check_warm(cfg)
+    grid_points = grid_points.to(device)
+    sel = select_decoder if select_decoder is not None else sdf_decoder
+    iteration = _make_iteration(sdf_decoder, cfg, grid_points, crop_hw,
+                                select_decoder, stage2_fn)
+
+    def refine_batch(params0: RefineParams, K, nocs_target, frustum_pts,
+                     frustum_mask, pixel_mask):
+        params = RefineParams(*(torch.as_tensor(p, dtype=torch.float32)
+                                .to(device).detach().clone()
+                                for p in params0))
+        K = torch.as_tensor(K, dtype=torch.float32).to(device)
+        nocs_target = torch.as_tensor(nocs_target).to(device)
+        frustum_pts = torch.as_tensor(frustum_pts).to(device)
+        frustum_mask = torch.as_tensor(frustum_mask).to(device).bool()
+        pixel_mask = torch.as_tensor(pixel_mask).to(device).bool()
+        state = init_batch_opt_state(params)
+        cand_idx = None
+        hist = []
+        for it in range(cfg.iters):
+            if use_warm and it % cfg.warm_refresh == 0:
+                cand_idx = grid_ops.band_candidates(
+                    sel, _normalize_latent(params.latent),
+                    grid_points, cfg.warm_band)
+            leaves = RefineParams(*(p.requires_grad_(True) for p in params))
+            loss, l2d, l3d = iteration(leaves, K, nocs_target, frustum_pts,
+                                       frustum_mask, pixel_mask, cand_idx)
+            # crops do not couple: the gradient of the sum is each crop's
+            grads = torch.autograd.grad(loss.sum(), list(leaves),
+                                        allow_unused=True)
+            params = RefineParams(*(p.detach() for p in leaves))
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(params, grads)]
+            # the guard, per crop and on the card: no host read
+            ok = torch.isfinite(loss) & (loss != 0.0)
+            hist.append((loss.detach(), l2d.detach(), l3d.detach(), ok,
+                         params))
+            params, state = batch_step(cfg, params, grads, ok, state)
+        return params, RefineStepOut(
+            loss=torch.stack([x[0] for x in hist], 1),
+            loss_2d=torch.stack([x[1] for x in hist], 1),
+            loss_3d=torch.stack([x[2] for x in hist], 1),
+            applied=torch.stack([x[3] for x in hist], 1),
+            params=RefineParams(*(torch.stack([x[4][i] for x in hist], 1)
+                                  for i in range(4))))
+
+    return refine_batch
 
 
 def init_refine_params(yaw: float, trans, scale: float, latent,

@@ -119,7 +119,7 @@ def _layer_norm(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def apply_sdf(cfg: DeepSDFConfig, params: dict,
               inputs: torch.Tensor) -> torch.Tensor:
-    """Eval-mode SDF MLP on (N, latent+3) inputs -> (N,) sdf
+    """Eval-mode SDF MLP on (..., N, latent+3) inputs -> (..., N) sdf
     (deep_sdf_decoder_scale.py:78-107)."""
     x = inputs
     last = cfg.num_layers - 2
@@ -127,7 +127,7 @@ def apply_sdf(cfg: DeepSDFConfig, params: dict,
         if l in cfg.latent_in:
             x = torch.cat([x, inputs], dim=-1)
         elif l != 0 and cfg.xyz_in_all:
-            x = torch.cat([x, inputs[:, -3:]], dim=-1)
+            x = torch.cat([x, inputs[..., -3:]], dim=-1)
         x = _linear(params[f"lin{l}"], x)
         if l == last and cfg.use_tanh:
             x = torch.tanh(x)
@@ -135,7 +135,7 @@ def apply_sdf(cfg: DeepSDFConfig, params: dict,
             if (not cfg.weight_norm) and l in cfg.norm_layers:
                 x = _layer_norm(params[f"ln{l}"], x)
             x = torch.relu(x)
-    return torch.tanh(x).reshape(-1)
+    return torch.tanh(x)[..., 0]
 
 
 def apply_scale(cfg: DeepSDFConfig, params: dict,
@@ -150,11 +150,17 @@ def apply_scale(cfg: DeepSDFConfig, params: dict,
 
 
 def sdf_fn(cfg: DeepSDFConfig, params: dict):
-    """decoder_fn(latent, points) -> (N,) for ops.grid."""
+    """decoder_fn(latent, points) -> (N,) for ops.grid. (B, L) latents, one
+    per crop, decode (N, 3) points shared by every crop or their own
+    (B, N, 3) -> (B, N); the products stay plain matmuls, as JAX computes
+    them outside any kernel."""
 
     def fn(latent, points):
-        lat = latent[None, :].expand(points.shape[0], latent.shape[0])
-        return apply_sdf(cfg, params, torch.cat([lat, points], dim=-1))
+        batch = torch.broadcast_shapes(latent.shape[:-1], points.shape[:-2])
+        lat = latent[..., None, :].expand(*batch, points.shape[-2],
+                                          latent.shape[-1])
+        pts = points.expand(*batch, *points.shape[-2:])
+        return apply_sdf(cfg, params, torch.cat([lat, pts], dim=-1))
 
     return fn
 

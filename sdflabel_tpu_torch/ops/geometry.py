@@ -14,11 +14,13 @@ import torch
 
 
 def rot_from_yaw(yaw: torch.Tensor) -> torch.Tensor:
-    """Yaw -> 3x3 rotation about +Y (refinement.py:108-125)."""
-    yaw = yaw.reshape(())
+    """Yaw -> 3x3 rotation about +Y (refinement.py:108-125); (B, 1) yaws,
+    one per crop, give (B, 3, 3)."""
+    yaw = yaw[:, 0] if yaw.dim() == 2 else yaw.reshape(())
     c, s = torch.cos(yaw), torch.sin(yaw)
     z, o = torch.zeros_like(yaw), torch.ones_like(yaw)
-    return torch.stack([c, z, s, z, o, z, -s, z, c]).reshape(3, 3)
+    return torch.stack([c, z, s, z, o, z, -s, z, c], -1).reshape(
+        *yaw.shape, 3, 3)
 
 
 def rot_from_yaw_np(yaw: float) -> np.ndarray:

@@ -8,6 +8,12 @@ K selected points are decoded again differentiably (stage 2) and their
 normals are the autograd gradient of the SDF w.r.t. the points, detached.
 Top-k results are sets: the order of ties in torch.topk is unspecified,
 and nothing downstream depends on order.
+
+The batched driver passes (B, L) latents, one per crop: every function
+then keeps a leading crop axis (top-k per crop, the selected points
+(B, K, 3)), as ``jax.vmap`` of the JAX functions does. The grid stays one
+(N, 3) set shared by every crop. Autograd normals come from d(sum of every
+crop's sdf)/dp, exact because crops do not couple.
 """
 
 from __future__ import annotations
@@ -40,7 +46,8 @@ def generate_point_grid(density: int, device="cpu",
 
 
 class SurfacePoints(NamedTuple):
-    """Fixed-capacity surface point set (leading dim K everywhere).
+    """Fixed-capacity surface point set (dim K everywhere, after the crop
+    axis if any).
 
     points (K,3) projected p - sdf * n; nocs (K,3) (p + 1) / 2;
     normals (K,3) unit SDF gradients; mask (K,) |sdf| < threshold.
@@ -72,10 +79,20 @@ def isosurface_project(points: torch.Tensor, sdf: torch.Tensor,
 
 
 def _select(sel_fn, latent, points, k) -> torch.Tensor:
-    """Indices of the k smallest |sdf| (no gradient: selection only)."""
+    """Indices of the k smallest |sdf| (no gradient: selection only), per
+    crop for (B, L) latents."""
     with torch.no_grad():
-        sdf = sel_fn(latent.detach(), points).reshape(-1).float()
+        sdf = sel_fn(latent.detach(), points).reshape(
+            *latent.shape[:-1], -1).float()
     return torch.topk(-sdf.abs(), k).indices
+
+
+def _take(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows `idx` (..., K) of points (N, 3) shared by every crop or
+    (B, N, 3) of their own -> (..., K, 3)."""
+    if points.dim() == 2:
+        return points[idx]
+    return torch.take_along_dim(points, idx[..., None], dim=-2)
 
 
 def _stage2_surface(decoder_fn, latent, pts_sel, threshold,
@@ -87,16 +104,20 @@ def _stage2_surface(decoder_fn, latent, pts_sel, threshold,
     raw normals)`, e.g. the fused kernels of ops/mlp2_cuda.py, replaces
     the decode and the autograd normals."""
     pts_sel = pts_sel.detach()
-    if stage2_fn is not None:
+    if stage2_fn is not None and latent.dim() == 2:
+        # kernels 4a and 4b take one crop: one launch each per crop
+        sdf, grads = (torch.stack(t) for t in zip(*(
+            stage2_fn(lat, p) for lat, p in zip(latent, pts_sel))))
+    elif stage2_fn is not None:
         sdf, grads = stage2_fn(latent, pts_sel)
-        sdf = sdf.reshape(-1)
     else:
         with torch.enable_grad():
             p = pts_sel.clone().requires_grad_(True)
-            sdf = decoder_fn(latent, p).reshape(-1)
+            sdf = decoder_fn(latent, p)
             (grads,) = torch.autograd.grad(sdf.sum(), p, retain_graph=True)
+    sdf = sdf.reshape(pts_sel.shape[:-1])
     normals_unit = _unit(grads.detach())
-    projected = pts_sel - sdf[:, None] * normals_unit
+    projected = pts_sel - sdf[..., None] * normals_unit
     return SurfacePoints(points=projected, nocs=(projected + 1.0) / 2.0,
                          normals=normals_unit, mask=sdf.abs() < threshold)
 
@@ -113,7 +134,8 @@ def surface_from_decoder(decoder_fn, latent: torch.Tensor,
     sel_fn = select_decoder_fn if select_decoder_fn is not None \
         else decoder_fn
     with torch.no_grad():
-        sdf_all = sel_fn(latent.detach(), points).reshape(-1).float()
+        sdf_all = sel_fn(latent.detach(), points).reshape(
+            *latent.shape[:-1], -1).float()
     idx = torch.topk(-sdf_all.abs(), capacity).indices
     return _stage2_surface(decoder_fn, latent, points[idx], threshold,
                            stage2_fn), sdf_all
@@ -128,12 +150,13 @@ def surface_from_candidates(decoder_fn, latent: torch.Tensor,
     With exactly `capacity` candidates all are kept and stage 1 is
     skipped: the surface is a set and stage 2 computes the mask."""
     pts_cand = points[cand_idx]
-    if cand_idx.shape[0] == capacity:
+    if cand_idx.shape[-1] == capacity:
         pts_sel = pts_cand
     else:
         sel_fn = select_decoder_fn if select_decoder_fn is not None \
             else decoder_fn
-        pts_sel = pts_cand[_select(sel_fn, latent, pts_cand, capacity)]
+        pts_sel = _take(pts_cand, _select(sel_fn, latent, pts_cand,
+                                          capacity))
     return _stage2_surface(decoder_fn, latent, pts_sel, threshold,
                            stage2_fn)
 

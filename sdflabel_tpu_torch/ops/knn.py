@@ -50,9 +50,16 @@ def nearest_neighbor(query: torch.Tensor, data: torch.Tensor,
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-1 NN of each query point: (euclidean distance (N,), index (N,)).
     Masked data points are excluded; a row with no valid data point gets
-    distance inf and index 0. Carries no gradient."""
+    distance inf and index 0. Carries no gradient. With a crop axis,
+    (B, N, 3) queries against (B, M, 3) data and a (B, M) mask give (B, N)
+    results, crop by crop: on the card one launch for all crops."""
     query, data = query.detach(), data.detach()
     if query.device.type == "cpu":
+        if query.dim() == 3:
+            out = [nearest_neighbor(query[b], data[b], None if data_mask
+                                    is None else data_mask[b])
+                   for b in range(query.shape[0])]
+            return tuple(torch.stack(t) for t in zip(*out))
         d2, idx = nearest_neighbor_plain(query, data, data_mask)
         return torch.sqrt(d2), idx
     d2, idx = nn_cuda.nearest_neighbor_fused(query, data, data_mask)

@@ -12,11 +12,17 @@ and the first, wmma design for wider layers. Each counts its own launches;
 
 Selection only ranks |sdf|: every selected point is decoded again exactly
 in stage 2, so the kernel runs under ``torch.no_grad`` and has no VJP.
+
+Both designs take a crop axis (the batched driver, as the TPU kernel gains
+a batch grid axis under vmap): B latents, each absorbed into its own cvec,
+rank points shared by every crop or their own in one launch, each crop's
+output bit-equal to its launch alone.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -38,9 +44,9 @@ KS = 32  # K rows of one packed slice: one 64-byte swizzle row of bf16
 CLUSTER = 2
 
 SELECT_MLP_WMMA = _cuda.CudaKernel("select_mlp", "select_mlp", [
-    _cuda.P] * 6 + [_cuda.I] * 4 + [_cuda.P, _cuda.P])
+    _cuda.P] * 6 + [_cuda.I] * 6 + [_cuda.P, _cuda.P])
 SELECT_MLP_WGMMA = _cuda.CudaKernel("select_mlp", "select_mlp_wgmma", [
-    _cuda.P] * 6 + [_cuda.I] * 5 + [_cuda.P, _cuda.P])
+    _cuda.P] * 6 + [_cuda.I] * 7 + [_cuda.P, _cuda.P])
 SELECT_MLP = _cuda.KernelGroup(wgmma=SELECT_MLP_WGMMA, wmma=SELECT_MLP_WMMA)
 
 
@@ -177,7 +183,10 @@ def pack_select_mlp(cfg: deepsdf.DeepSDFConfig,
 
 
 def _cvec(packed: PackedSelectMLP, latent: torch.Tensor) -> torch.Tensor:
-    # per-call latent absorption c_j = b_j + latent @ Wlat_j
+    """Per-call latent absorption c_j = b_j + latent @ Wlat_j: (nh+1, H),
+    or (B, nh+1, H) for (B, L) latents, each crop as its call alone."""
+    if latent.dim() == 2:
+        return torch.stack([_cvec(packed, lat) for lat in latent])
     return packed.bias + torch.einsum("l,jlh->jh", latent.float(),
                                       packed.wlat)
 
@@ -185,13 +194,18 @@ def _cvec(packed: PackedSelectMLP, latent: torch.Tensor) -> torch.Tensor:
 def emulate_select_mlp(packed: PackedSelectMLP, latent: torch.Tensor,
                        points: torch.Tensor) -> torch.Tensor:
     """Plain version of the kernel (mlp_pallas.py:275-299): same casts,
-    same order of operations.
+    same order of operations. (B, L) latents rank (N, 3) points shared
+    by every crop or their own (B, N, 3) -> (B, N), crop by crop.
 
     The hidden products take bf16-rounded operands with fp32 accumulation.
     A bf16 x bf16 torch.matmul would round its result to bf16, so the
     operands are rounded to bf16 and then upcast: the fp32 product of two
     bf16 values is exact, and the sum accumulates in fp32 as on the card.
     """
+    if latent.dim() == 2:
+        return torch.stack([emulate_select_mlp(
+            packed, lat, points[b] if points.dim() == 3 else points)
+            for b, lat in enumerate(latent)])
     xyz = points.float()
     cvec = _cvec(packed, latent)
     x = [xyz[:, k:k + 1] for k in range(3)]
@@ -231,21 +245,27 @@ def select_fwd(packed: PackedSelectMLP, cvec: torch.Tensor,
                xyz: torch.Tensor) -> torch.Tensor:
     """Kernel 3 on CUDA tensors: (N, 3) float32 points and the absorbed
     (nh+1, H) cvec -> (N,) float32, through ``select_design``'s kernel; the
-    wgmma design shares each weight slice among CLUSTER CTAs."""
+    wgmma design shares each weight slice among CLUSTER CTAs. A crop axis,
+    (B, nh+1, H) cvec with (N, 3) points shared by every crop or (B, N, 3)
+    points of their own, gives (B, N) in one launch."""
     dev = xyz.device
     H, nh = packed.width, packed.n_hidden
     wlast = packed.wlast.reshape(-1)
     scal = packed.scal.reshape(-1)
-    n = xyz.shape[0]
-    _cuda.check("points", xyz, torch.float32, (n, 3), dev)
+    lead = tuple(cvec.shape[:-2])
+    n = xyz.shape[-2]
+    shared = xyz.dim() == 2
+    _cuda.check("points", xyz, torch.float32,
+                (n, 3) if shared else (*lead, n, 3), dev)
     _cuda.check("ws", packed.ws, torch.bfloat16, (nh, H, H), dev)
     _cuda.check("wx", packed.wx, torch.float32, (nh + 1, 4, H), dev)
-    _cuda.check("cvec", cvec, torch.float32, (nh + 1, H), dev)
+    _cuda.check("cvec", cvec, torch.float32, (*lead, nh + 1, H), dev)
     _cuda.check("wlast", wlast, torch.float32, (H,), dev)
     _cuda.check("scal", scal, torch.float32, (4,), dev)
-    out = torch.empty(n, device=dev, dtype=torch.float32)
+    out = torch.empty(*lead, n, device=dev, dtype=torch.float32)
     args = (_cuda.ptr(packed.wx), _cuda.ptr(cvec), _cuda.ptr(wlast),
-            _cuda.ptr(scal), n, H, nh, int(packed.use_tanh))
+            _cuda.ptr(scal), math.prod(lead), 0 if shared else n * 3, n, H,
+            nh, int(packed.use_tanh))
     if select_design(packed) == "wgmma":
         _cuda.check("ws_tiles", packed.ws_tiles, torch.bfloat16,
                     (nh, H // KS, KS * H), dev)
@@ -259,8 +279,10 @@ def select_fwd(packed: PackedSelectMLP, cvec: torch.Tensor,
 
 def select_mlp_apply(packed: PackedSelectMLP, latent: torch.Tensor,
                      points: torch.Tensor) -> torch.Tensor:
-    """(N, 3) points -> (N,) float32 sdf ranks. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (``select_fwd``)."""
+    """(N, 3) points -> (N,) float32 sdf ranks; (B, L) latents with shared
+    (N, 3) or own (B, N, 3) points -> (B, N). CPU tensors take the plain
+    version; CUDA tensors launch the kernel (``select_fwd``), once for all
+    crops."""
     if points.device.type == "cpu":
         return emulate_select_mlp(packed, latent, points)
     return select_fwd(packed, _cvec(packed, latent).contiguous(),

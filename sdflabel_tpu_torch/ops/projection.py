@@ -2,7 +2,9 @@
 
 Counterpart of sdflabel_tpu/ops/projection.py (projection.py:7-199):
 back-face culling gives a boolean ``front_mask`` instead of a dynamic
-masked_select, so shapes stay fixed. All products run in fp32.
+masked_select, so shapes stay fixed. All products run in fp32. The DCM
+variant also takes a crop axis: (B, 3, 3) intrinsics, (B, 4, 4) poses and
+(B, N, 3) points, each crop projected by its own camera.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ def qrot(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 class ProjectedPoints(NamedTuple):
+    """Per point; a crop axis leads every field when the inputs carry one."""
+
     points_3d: torch.Tensor  # (N, 3) camera-frame points
     normals_3d: torch.Tensor  # (N, 3) rotated normals
     colors_3d: torch.Tensor  # (N, 3) colors (NOCS coords if output_nocs)
@@ -32,10 +36,10 @@ class ProjectedPoints(NamedTuple):
 def _project_pixels(K, points_cam, resolution_px):
     res_x, res_y = resolution_px
     eps = torch.finfo(K.dtype).eps
-    p2h = points_cam @ K.T
-    p2 = p2h[:, :2] / (p2h[:, 2:3] + eps)
-    x = torch.clamp(p2[:, 0:1], -1.0, float(res_x))
-    y = torch.clamp(p2[:, 1:2], -1.0, float(res_y))
+    p2h = points_cam @ K.transpose(-1, -2)
+    p2 = p2h[..., :2] / (p2h[..., 2:3] + eps)
+    x = torch.clamp(p2[..., 0:1], -1.0, float(res_x))
+    y = torch.clamp(p2[..., 1:2], -1.0, float(res_y))
     return torch.cat([x, y], dim=-1)
 
 
@@ -43,9 +47,9 @@ def project_dcm(K, camera_pose, points, normals, colors, resolution_px,
                 output_nocs: bool = True) -> ProjectedPoints:
     """(4, 4) camera matrix projection (projection.py:7-101); with
     output_nocs the colors become the x-flipped object coordinates."""
-    rot = camera_pose[:3, :3]
-    points_cam = points @ rot.T + camera_pose[:3, 3]
-    normals_cam = normals @ rot.T
+    rot_t = camera_pose[..., :3, :3].transpose(-1, -2)
+    points_cam = points @ rot_t + camera_pose[..., None, :3, 3]
+    normals_cam = normals @ rot_t
     if output_nocs:
         flip = torch.tensor([-1.0, 1.0, 1.0], device=points.device,
                             dtype=points.dtype)

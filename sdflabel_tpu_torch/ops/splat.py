@@ -29,11 +29,12 @@ def pixel_grid(res_x: int, res_y: int, device="cpu",
 
 def kinv_pixel_rays(K: torch.Tensor, grid_2d: torch.Tensor) -> torch.Tensor:
     """(P, 3) per-pixel camera rays [grid | 1] @ inv(K).T in fp32 — the one
-    definition shared by the dense version and the kernel."""
+    definition shared by the dense version and the kernel. (B, 3, 3)
+    intrinsics, one per crop, give (B, P, 3)."""
     ones = torch.ones(grid_2d.shape[0], 1, device=grid_2d.device,
                       dtype=torch.float32)
     kinv = torch.linalg.inv(K.float())
-    return torch.cat([grid_2d.float(), ones], dim=-1) @ kinv.T
+    return torch.cat([grid_2d.float(), ones], dim=-1) @ kinv.transpose(-1, -2)
 
 
 def surfel_prob(kinv_grid: torch.Tensor, vertex_3d: torch.Tensor,

@@ -21,6 +21,12 @@ CTAs a block); the first design (``SPLAT_BWD_FIRST``, one thread per point
 over all pixels) is the yardstick, launched only by measurements and
 tests.
 
+Both split designs take a crop axis (the batched driver, as the TPU
+kernels gain a batch grid axis under vmap): B crops of the same N points
+and P pixels, each with its own rays, go through one launch each way, and
+each crop's result is bit-equal to its launch alone; the single-crop path
+is the same kernel with B = 1.
+
 Binning (splat_pallas.py:211-292) sorts the points by the first
 ``bin_px``-pixel row block their footprint can touch; each row block then
 meets only a window of the sorted points. On the card a binned render is
@@ -53,6 +59,7 @@ dense kernel they differ by fp32 reassociation only.
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -63,14 +70,14 @@ from sdflabel_tpu_torch.ops import splat as splat_ops
 NUM_FEATURES = 8  # [color(3) | mask(1) | depth(1) | normal(3)]
 
 SPLAT_FWD = _cuda.CudaKernel("splat", "splat_fwd", [
-    _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.F, _cuda.F,
+    _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.F,
     _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P])
 SPLAT_FWD_FIRST = _cuda.CudaKernel("splat", "splat_fwd_first", [
     _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.F, _cuda.F,
     _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P])
 SPLAT_BWD = _cuda.CudaKernel("splat", "splat_bwd", [
-    _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.F,
-    _cuda.P, _cuda.P, _cuda.P, _cuda.P])
+    _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F,
+    _cuda.F, _cuda.P, _cuda.P, _cuda.P, _cuda.P])
 SPLAT_BWD_FIRST = _cuda.CudaKernel("splat", "splat_bwd_first", [
     _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.F, _cuda.F,
     _cuda.P, _cuda.P, _cuda.P, _cuda.P])
@@ -176,17 +183,19 @@ def compute_bins(pts: torch.Tensor, kg: torch.Tensor, diam: float,
 
 
 def _pack_points(points_cam, normals_cam, mask):
-    n = points_cam.shape[0]
+    """(..., N, 3) points and normals, (..., N) mask -> the kernels'
+    (..., N, 8) rows [v, n, mask, 0]."""
     return torch.cat([points_cam.float(), normals_cam.float(),
-                      mask.float()[:, None],
-                      points_cam.new_zeros(n, 1, dtype=torch.float32)],
-                     1).contiguous()
+                      mask.float()[..., None],
+                      points_cam.new_zeros(*points_cam.shape[:-1], 1,
+                                           dtype=torch.float32)],
+                     -1).contiguous()
 
 
 def _pack_rays(kinv_grid):
-    """(P, 3) rays -> the kernels' (P, 4) rows [gx, gy, gz, 0]."""
+    """(..., P, 3) rays -> the kernels' (..., P, 4) rows [gx, gy, gz, 0]."""
     kg = kinv_grid.float()
-    return torch.cat([kg, kg.new_zeros(kg.shape[0], 1)], 1).contiguous()
+    return torch.cat([kg, kg.new_zeros(*kg.shape[:-1], 1)], -1).contiguous()
 
 
 class SortedBins(NamedTuple):
@@ -266,19 +275,34 @@ def bwd_binned_slices(n: int, p: int, bin_px: int) -> int:
     return _cuda.query("splat", "splat_bwd_binned_slices", n, p, bin_px)
 
 
+def _batch(pts, kernel, split_kernel) -> tuple[tuple, tuple]:
+    """(leading crop dims of the packed points (N, 8) or (B, N, 8), the
+    launcher's crop-count argument): the split designs take a crop axis,
+    the first designs one crop."""
+    lead = tuple(pts.shape[:-2])
+    if kernel is split_kernel:
+        return lead, (math.prod(lead),)
+    if lead:
+        raise ValueError(f"{kernel.symbol} takes one crop, got {lead}")
+    return lead, ()
+
+
 def _fwd(pts, feats, kg, diam, depth_constant, kernel=SPLAT_FWD):
-    """The dense forward through `kernel`: SPLAT_FWD (the split design)
-    or SPLAT_FWD_FIRST."""
+    """The dense forward through `kernel`: SPLAT_FWD (the split design,
+    one crop (N, 8) or a crop axis (B, N, 8) with rays (B, P, 4), one
+    launch for all crops) or SPLAT_FWD_FIRST (one crop)."""
     dev = pts.device
-    n, p = pts.shape[0], kg.shape[0]
-    _cuda.check("pts", pts, torch.float32, (n, 8), dev)
-    _cuda.check("feats", feats, torch.float32, (n, NUM_FEATURES), dev)
-    _cuda.check("kg", kg, torch.float32, (p, 4), dev)
-    img = torch.empty(p, NUM_FEATURES, device=dev, dtype=torch.float32)
-    m, d, zn = (torch.empty(p, device=dev, dtype=torch.float32)
+    lead, batch = _batch(pts, kernel, SPLAT_FWD)
+    n, p = pts.shape[-2], kg.shape[-2]
+    _cuda.check("pts", pts, torch.float32, (*lead, n, 8), dev)
+    _cuda.check("feats", feats, torch.float32, (*lead, n, NUM_FEATURES), dev)
+    _cuda.check("kg", kg, torch.float32, (*lead, p, 4), dev)
+    img = torch.empty(*lead, p, NUM_FEATURES, device=dev,
+                      dtype=torch.float32)
+    m, d, zn = (torch.empty(*lead, p, device=dev, dtype=torch.float32)
                 for _ in range(3))
-    kernel(_cuda.ptr(pts), _cuda.ptr(feats), _cuda.ptr(kg), n, p, diam,
-           float(depth_constant), _cuda.ptr(img), _cuda.ptr(m),
+    kernel(_cuda.ptr(pts), _cuda.ptr(feats), _cuda.ptr(kg), *batch, n, p,
+           diam, float(depth_constant), _cuda.ptr(img), _cuda.ptr(m),
            _cuda.ptr(d), _cuda.ptr(zn), _cuda.stream(pts))
     return img, m, d, zn
 
@@ -350,21 +374,25 @@ def _bwd_binned(pts, feats, pix, key, smax, order, bin_px, diam,
 
 def _bwd(pts, feats, pix, diam, depth_constant, kernel=SPLAT_BWD,
          slices=0):
-    """The dense backward through `kernel`: SPLAT_BWD (the split design;
-    `slices` > 0 forces its cluster size) or SPLAT_BWD_FIRST."""
+    """The dense backward through `kernel`: SPLAT_BWD (the split design,
+    one crop or a crop axis as :func:`_fwd`; `slices` > 0 forces its
+    cluster size) or SPLAT_BWD_FIRST (one crop)."""
     dev = pts.device
-    n, p = pts.shape[0], pix.shape[0]
-    _cuda.check("pts", pts, torch.float32, (n, 8), dev)
-    _cuda.check("feats", feats, torch.float32, (n, NUM_FEATURES), dev)
-    _cuda.check("pix", pix, torch.float32, (p, 16), dev)
+    lead, batch = _batch(pts, kernel, SPLAT_BWD)
+    n, p = pts.shape[-2], pix.shape[-2]
+    _cuda.check("pts", pts, torch.float32, (*lead, n, 8), dev)
+    _cuda.check("feats", feats, torch.float32, (*lead, n, NUM_FEATURES), dev)
+    _cuda.check("pix", pix, torch.float32, (*lead, p, 16), dev)
     # one allocation for the three outputs, each a contiguous part of it
-    dv, dn, df = torch.empty((6 + NUM_FEATURES) * n, device=dev,
+    b = math.prod(lead)
+    dv, dn, df = torch.empty((6 + NUM_FEATURES) * b * n, device=dev,
                              dtype=torch.float32).split(
-        [3 * n, 3 * n, NUM_FEATURES * n])
-    dv, dn, df = dv.view(n, 3), dn.view(n, 3), df.view(n, NUM_FEATURES)
+        [3 * b * n, 3 * b * n, NUM_FEATURES * b * n])
+    dv, dn, df = (dv.view(*lead, n, 3), dn.view(*lead, n, 3),
+                  df.view(*lead, n, NUM_FEATURES))
     extra = (slices,) if kernel is SPLAT_BWD else ()
-    kernel(_cuda.ptr(pts), _cuda.ptr(feats), _cuda.ptr(pix), n, p, *extra,
-           diam, float(depth_constant), _cuda.ptr(dv), _cuda.ptr(dn),
+    kernel(_cuda.ptr(pts), _cuda.ptr(feats), _cuda.ptr(pix), *batch, n, p,
+           *extra, diam, float(depth_constant), _cuda.ptr(dv), _cuda.ptr(dn),
            _cuda.ptr(df), _cuda.stream(pts))
     return dv, dn, df
 
@@ -396,8 +424,8 @@ class _SurfelComposite(torch.autograd.Function):
         g = g_img.float()
         # softmax correction sum_i p_ip (g_p . f_i) == g_p . img_p
         corr = (g * img).sum(-1, keepdim=True)
-        pix = torch.cat([kg, m[:, None], d[:, None], zn[:, None], corr, g],
-                        1).contiguous()
+        pix = torch.cat([kg, m[..., None], d[..., None], zn[..., None], corr,
+                         g], -1).contiguous()
         if not bin_px:
             dv, dn, df = _bwd(pts, feats, pix, diam, depth_constant)
         else:
@@ -445,17 +473,29 @@ def surfel_composite(points_cam: torch.Tensor, normals_cam: torch.Tensor,
     """Fused splat_surfel(softclamp=False, add_bg=False) + prob.T @ feats:
     (N,3) points, (N,3) normals, (N,8) features, (P,3) pixel rays ->
     (P, 8). Gradients reach points, normals and features, not the rays.
-    `bin_px` follows :func:`bin_policy` (None: auto)."""
+    `bin_px` follows :func:`bin_policy` (None: auto).
+
+    With a crop axis, (B, N, ·) points, normals and features, (B, P, 3)
+    rays and a (B, N) mask give (B, P, 8): each crop is composited on its
+    own, as B calls would. The dense kernels take all crops in one launch
+    each way; the plain versions and the binned kernels run crop by
+    crop."""
     if features.shape[-1] != NUM_FEATURES:
         raise ValueError(f"features: {features.shape[-1]} channels, "
                          f"expected {NUM_FEATURES}")
-    bin_px = bin_policy(kinv_grid.shape[0], bin_px)
-    if points_cam.device.type == "cpu":
+    bin_px = bin_policy(kinv_grid.shape[-2], bin_px)
+    cpu = points_cam.device.type == "cpu"
+    if points_cam.dim() == 3 and (cpu or bin_px):
+        return torch.stack([surfel_composite(
+            points_cam[b], normals_cam[b], features[b], kinv_grid[b],
+            None if point_mask is None else point_mask[b], diam,
+            depth_constant, bin_px) for b in range(points_cam.shape[0])])
+    if cpu:
         plain = (splat_ops.surfel_composite_dense if not bin_px else
                  functools.partial(surfel_composite_windowed, bin_px=bin_px))
         return plain(points_cam, normals_cam, features, kinv_grid,
                      point_mask, diam, depth_constant)
-    mask = (torch.ones(points_cam.shape[0], device=points_cam.device)
+    mask = (torch.ones(points_cam.shape[:-1], device=points_cam.device)
             if point_mask is None else point_mask.detach())
     return _SurfelComposite.apply(points_cam, normals_cam, features,
                                   kinv_grid.detach(), mask, diam,

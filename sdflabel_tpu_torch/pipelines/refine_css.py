@@ -5,16 +5,18 @@ refine_css.py:26-263 and refine_css_demo.py:23-204). Per annotation: crop
 + intrinsics (the MaskRCNN instance mask multiplies the crop), CSS
 forward, DeepSDF surface decode, NOCS reprojection, RANSAC pose init,
 azimuth constraint + height re-estimation, the refine loop, and the KITTI
-label. ``refine_css`` runs that over the frames of a KITTI tree, one crop
-after another as the reference's loop does, dumps one ``<frame>.pkl`` per
-frame and evaluates the labels (KITTI and nuScenes AP). Everything from the
-CSS forward to the label extents runs on `device` (the card by default);
-the reference's host-side numpy steps (reprojection, label math) stay
-numpy.
+label. ``refine_css`` runs that over the frames of a KITTI tree, dumps one
+``<frame>.pkl`` per frame and evaluates the labels (KITTI and nuScenes
+AP). By default, as in JAX, it refines all of a frame's prepared crops at
+once (``refine_crops_batched``: letterboxed into one render bucket, one
+refine loop with a crop axis, one host read at the end); ``batched=False``
+refines one crop after another, as the reference's loop does. Everything
+from the CSS forward to the label extents runs on `device` (the card by
+default); the reference's host-side numpy steps (reprojection, label
+math) stay numpy.
 
-Not ported yet, and refused with NotImplementedError: batched crops
-(``refine_css(batched=True)``), visualization, PnP pose init, coarse cells
-and select_bf16.
+Not ported yet, and refused with NotImplementedError: visualization, PnP
+pose init, coarse cells and select_bf16.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from sdflabel_tpu_torch.models import deepsdf
 from sdflabel_tpu_torch.ops import geometry, grid as grid_ops, mlp2_cuda
 from sdflabel_tpu_torch.ops import mlp_cuda
 from sdflabel_tpu_torch.ops import ransac
+from sdflabel_tpu_torch.parallel import batched_refine
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -347,10 +350,12 @@ def finish_label(final: refine_mod.RefineParams,
                  extents: labels_mod.SurfaceExtents, sample: dict,
                  anno: dict):
     """KITTI label from the final parameters (refine_css.py:228-236), or
-    None when the final latent decodes to an empty band (QUIRKS #15)."""
+    None when the final latent decodes to an empty band (QUIRKS #15).
+    Takes tensors or host arrays."""
     if not bool(extents.valid):
         return None
-    host = [t.detach().double().cpu().numpy() for t in
+    host = [np.asarray(t.detach().double().cpu() if torch.is_tensor(t)
+                       else t, np.float64) for t in
             (final.yaw, final.scale, final.trans, extents.mn, extents.mx)]
     return labels_mod.kitti_label_from_extents(
         *host, sample["world_to_cam"], anno["bbox"])
@@ -374,6 +379,72 @@ def refine_annotation(rt: RefineRuntime, sample: dict, anno: dict,
     return finish_label(final, ext, sample, prep["anno"])
 
 
+def batch_inputs(rt: RefineRuntime, preps: list):
+    """The batched refine's inputs for a frame's prepared crops, as JAX's
+    refine_crops_batched builds them (refine_css.py:762-802): each crop's
+    NOCS target letterboxed with a pixel mask into one bucket, the largest
+    h and w rounded up to ``render_bucket``, and the batch padded to the
+    next power of two with copies of the last crop (the padded lanes cost
+    time but change no real crop, and keep the set of shapes small).
+    Returns ((bh, bw), (params0, K, nocs, frustum, fmask, pixel_mask)) on
+    the runtime's device."""
+    bucket = rt.cfg.render_bucket or 1
+    bh = -(-max(p["crop_hw"][0] for p in preps) // bucket) * bucket
+    bw = -(-max(p["crop_hw"][1] for p in preps) // bucket) * bucket
+    pb = 1
+    while pb < len(preps):
+        pb *= 2
+    lanes = preps + [preps[-1]] * (pb - len(preps))
+    nocs = np.zeros((pb, 3, bh, bw), np.float32)
+    pmask = np.zeros((pb, bh, bw), bool)
+    for i, p in enumerate(lanes):
+        h, w = p["crop_hw"]
+        nocs[i, :, :h, :w] = p["nocs_target"]
+        pmask[i, :h, :w] = True
+    dev = rt.device
+    params0 = refine_mod.RefineParams(*(
+        torch.stack([p["params0"][k] for p in lanes]).to(dev)
+        for k in range(4)))
+    host = [np.stack([p[k] for p in lanes])
+            for k in ("intrinsics", "frustum", "fmask")]
+    K, frustum, fmask = (torch.as_tensor(a).to(dev) for a in host)
+    return (bh, bw), (params0, K, torch.as_tensor(nocs).to(dev), frustum,
+                      fmask, torch.as_tensor(pmask).to(dev))
+
+
+def refine_crops_batched(rt: RefineRuntime, sample: dict,
+                         preps: list) -> list:
+    """Refine a frame's prepared crops at once (refine_css.py:741-848), on
+    the inputs of :func:`batch_inputs`. One host read at the end fetches
+    every crop's parameters and extents; the labels (None dropped) in the
+    crops' order."""
+    if not preps:
+        return []
+    bucket, args = batch_inputs(rt, preps)
+    fn = batched_refine.make_batched_refine(
+        rt.decoder, rt.refine_config(), rt.grid_points, bucket,
+        select_decoder=rt.select_decoder, stage2_fn=rt.stage2_fn,
+        with_extents=True, device=rt.device)
+    final, _, ext = fn(*args)
+    # one read for every crop's label inputs: yaw, scale, trans, latent,
+    # the extents and their validity
+    parts = (final.yaw, final.scale, final.trans, final.latent, ext.mn,
+             ext.mx, ext.valid[:, None].float())
+    rows = torch.cat(parts, 1).cpu().numpy()
+    cols = np.cumsum([0] + [t.shape[1] for t in parts])
+    yaw, scale, trans, lat, mn, mx, valid = (
+        rows[:, a:z] for a, z in zip(cols[:-1], cols[1:]))
+    labels = []
+    for i, p in enumerate(preps):
+        label = finish_label(
+            refine_mod.RefineParams(yaw[i], trans[i], scale[i], lat[i]),
+            labels_mod.SurfaceExtents(mn[i], mx[i], valid[i, 0] > 0.5),
+            sample, p["anno"])
+        if label is not None:
+            labels.append(label)
+    return labels
+
+
 def _fuse_maskrcnn(anno, maskrcnn_labels, min_iou=0.5):
     """(box, index) of the MaskRCNN box of largest IoU with the annotation,
     or (None, None) below `min_iou` (refine_css.py:100-114)."""
@@ -393,15 +464,15 @@ def _stack_frame(frame_annos, frame_estimations):
         frame_estimations[key] = np.asarray(frame_estimations[key])
 
 
-def refine_css(cfgp, subset_frames=None, batched=False, device="cuda"):
+def refine_css(cfgp, subset_frames=None, batched=True, device="cuda"):
     """The KITTI autolabeling driver (refine_css.py:26): every frame of
-    ``[input] kitti_path`` with a car, one annotation after another; one
-    ``<frame>.pkl`` of [annotations, estimations] per frame in
-    ``[output] labels`` (a frame whose dump exists is skipped), then the
-    KITTI and nuScenes evaluation of this run's frames. Returns
-    (annotations, estimations), each an OrderedDict by frame index."""
-    if batched:
-        _refuse("refine_css(batched=True), the batched crops")
+    ``[input] kitti_path`` with a car; one ``<frame>.pkl`` of [annotations,
+    estimations] per frame in ``[output] labels`` (a frame whose dump
+    exists is skipped), then the KITTI and nuScenes evaluation of this
+    run's frames. `batched` (the default, as in JAX) refines all of a
+    frame's prepared crops at once (``refine_crops_batched``); False
+    refines one annotation after another. Returns (annotations,
+    estimations), each an OrderedDict by frame index."""
     np.random.seed(1)
     cfg = (cfgp if isinstance(cfgp, cfg_mod.RefineCfg)
            else cfg_mod.RefineCfg.from_ini(cfgp))
@@ -437,6 +508,7 @@ def refine_css(cfgp, subset_frames=None, batched=False, device="cuda"):
                                          weights_only=False)
 
         frame_annos, frame_estimations = defaultdict(list), defaultdict(list)
+        preps, labels = [], []
         for anno in kitti_mod.get_annos(cfg.diff_annos, sample):
             for key, value in anno.items():
                 frame_annos[key].append(value)
@@ -447,10 +519,18 @@ def refine_css(cfgp, subset_frames=None, batched=False, device="cuda"):
                     print("Skip frame!")
                     continue
                 anno = dict(anno, bbox=bbox)
-            label = refine_annotation(rt, sample, anno, maskrcnn_labels,
-                                      bbox_max_id)
-            if label is None:  # no pose, or an empty band (QUIRKS #15)
-                continue
+            if batched:
+                prep = prepare_crop(rt, sample, anno, maskrcnn_labels,
+                                    bbox_max_id)
+                if prep is not None:
+                    preps.append(prep)
+            else:
+                labels.append(refine_annotation(rt, sample, anno,
+                                                maskrcnn_labels, bbox_max_id))
+        if batched:
+            labels = refine_crops_batched(rt, sample, preps)
+        # None: no pose, or an empty band (QUIRKS #15)
+        for label in filter(None, labels):
             for key, value in label.items():
                 frame_estimations[key].append(value)
         if not frame_annos:

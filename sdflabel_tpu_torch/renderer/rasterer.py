@@ -4,7 +4,10 @@ Counterpart of sdflabel_tpu/renderer/rasterer.py::render for the paths the
 refinement loop and the crop generator take: 'disc' surfels without a
 background. Per-point
 features [color(3) | 1 | z | normal(3)] composite in one call of kernel 1
-(ops/splat_cuda.py), which takes its plain version on CPU tensors.
+(ops/splat_cuda.py), which takes its plain version on CPU tensors. The
+batched driver renders B crops at once (``rot='dcm'``): (B, 3, 3)
+intrinsics, (B, 4, 4) poses and (B, N, ·) points give images and points
+with a leading crop axis, as ``jax.vmap`` of the JAX render does.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ def calibration_matrix(resolution_px, diagonal_mm=20.0, focal_len_mm=70.0,
 
 
 class Rendering(NamedTuple):
-    """Rendered images, channel first (C, H, W)."""
+    """Rendered images, channel first (C, H, W), after the crop axis if
+    any."""
 
     color: torch.Tensor  # (3, H, W), clamped to <= 1
     mask: torch.Tensor  # (1, H, W)
@@ -51,23 +55,26 @@ def splat_inputs(K: torch.Tensor, resolution_px: tuple[int, int],
                  rot: str = "quat", output_nocs: bool = False):
     """The projection and what :func:`render` composites: (projected
     points, (N, 8) features [color(3) | 1 | z | normal(3)], (P, 3) pixel
-    rays)."""
+    rays), each after the crop axis if any."""
     res_x, res_y = resolution_px
     dev = coords.device
     if rot == "dcm":
         proj = project_dcm(K, camera_pose, coords, normals, colors,
                            resolution_px, output_nocs=output_nocs)
     elif rot == "quat":
+        if coords.dim() != 2:
+            raise NotImplementedError("the quaternion projection takes one "
+                                      "crop")
         proj = project_quat(K, camera_pose, coords, normals, colors,
                             resolution_px, output_nocs=output_nocs)
     else:
         raise ValueError(f"unknown rot {rot!r}")
     v3d, nrm, clr = proj.points_3d, proj.normals_3d, proj.colors_3d
-    n = v3d.shape[0]
     colors_ext = (clr + 1.0) / 2.0 if output_nocs else clr
     feats = torch.cat([colors_ext,
-                       torch.ones(n, 1, device=dev, dtype=coords.dtype),
-                       v3d[:, 2:3], (nrm + 1.0) / 2.0], dim=-1)
+                       torch.ones(*v3d.shape[:-1], 1, device=dev,
+                                  dtype=coords.dtype),
+                       v3d[..., 2:3], (nrm + 1.0) / 2.0], dim=-1)
     kinv_grid = splat_ops.kinv_pixel_rays(
         K, splat_ops.pixel_grid(res_x, res_y, device=dev))
     return proj, feats, kinv_grid
@@ -96,16 +103,15 @@ def render(K: torch.Tensor, resolution_px: tuple[int, int],
                                           colors, camera_pose, rot,
                                           output_nocs)
     v3d, nrm, clr = proj.points_3d, proj.normals_3d, proj.colors_3d
-    n = v3d.shape[0]
     img = splat_cuda.surfel_composite(v3d, nrm, feats, kinv_grid,
                                       point_mask=point_mask, diam=0.04,
                                       bin_px=bin_px)
-    img = img.T.reshape(8, res_y, res_x)
-    rendering = Rendering(color=torch.clamp(img[0:3], max=1.0),
-                          mask=torch.clamp(img[3:4], max=1.0),
-                          depth=img[4:5],
-                          normals=torch.clamp(img[5:8], max=1.0))
-    valid = (torch.ones(n, dtype=torch.bool, device=dev)
+    img = img.transpose(-1, -2).reshape(*img.shape[:-2], 8, res_y, res_x)
+    rendering = Rendering(color=torch.clamp(img[..., 0:3, :, :], max=1.0),
+                          mask=torch.clamp(img[..., 3:4, :, :], max=1.0),
+                          depth=img[..., 4:5, :, :],
+                          normals=torch.clamp(img[..., 5:8, :, :], max=1.0))
+    valid = (torch.ones(v3d.shape[:-1], dtype=torch.bool, device=dev)
              if point_mask is None else point_mask.bool())
     points = RenderedPoints(xyz=v3d, rgb=(clr + 1.0) / 2.0, mask=valid,
                             front_mask=valid & proj.front_mask)

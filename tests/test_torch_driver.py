@@ -1,9 +1,10 @@
 """The KITTI driver as a whole: the port's refine_css against sdflabel_tpu's
 on two frames of the v2 quality suite written by the JAX package's own
 builder (scripts/make_quality_suite.py), with the committed quality nets,
-3 iterations, fp32 and the same RANSAC ranks; each package's evaluation
-of the other's dumps; the MaskRCNN demo branch; and the main CLI's
---evaluate."""
+3 iterations, fp32 and the same RANSAC ranks, both one crop after
+another and batched (JAX's default: all of a frame's crops in one refine
+with a crop axis); each package's evaluation of the other's dumps; the
+MaskRCNN demo branch; and the main CLI's --evaluate."""
 
 import configparser
 import os
@@ -76,14 +77,14 @@ def _cfgp(suite, labels, iters=3):
     return cfgp
 
 
-@pytest.fixture(scope="module")
-def runs(suite, tmp_path_factory):
+def _both_drivers(suite, tmp_path_factory, batched):
     """Both drivers over the suite: {package: (cfgp, annos, estimations)}."""
     out = {}
-    jdir = str(tmp_path_factory.mktemp("labels_jax"))
+    tag = "batched" if batched else "sequential"
+    jdir = str(tmp_path_factory.mktemp(f"labels_jax_{tag}"))
     cfgp = _cfgp(suite, jdir)
-    out["jax"] = (cfgp, *jpipe.refine_css(cfgp, batched=False))
-    tdir = str(tmp_path_factory.mktemp("labels_torch"))
+    out["jax"] = (cfgp, *jpipe.refine_css(cfgp, batched=batched))
+    tdir = str(tmp_path_factory.mktemp(f"labels_torch_{tag}"))
     cfgp = _cfgp(suite, tdir)
     real_setup = tpipe.setup_runtime
 
@@ -95,13 +96,26 @@ def runs(suite, tmp_path_factory):
     mp = pytest.MonkeyPatch()
     mp.setattr(tpipe, "setup_runtime", setup_with_jax_ranks)
     try:
-        out["torch"] = (cfgp, *tpipe.refine_css(cfgp, device="cpu"))
+        out["torch"] = (cfgp, *tpipe.refine_css(cfgp, batched=batched,
+                                                device="cpu"))
     finally:
         mp.undo()
     return out
 
 
-def test_driver_labels_match_jax(runs):
+@pytest.fixture(scope="module")
+def runs(suite, tmp_path_factory):
+    """Both drivers, one crop after another."""
+    return _both_drivers(suite, tmp_path_factory, batched=False)
+
+
+@pytest.fixture(scope="module")
+def batched_runs(suite, tmp_path_factory):
+    """Both drivers with their default, the batched crops."""
+    return _both_drivers(suite, tmp_path_factory, batched=True)
+
+
+def _assert_labels_match(runs):
     _, jannos, jests = runs["jax"]
     _, tannos, tests_ = runs["torch"]
     assert list(tannos) == list(jannos) == [0, 1]
@@ -124,6 +138,28 @@ def test_driver_labels_match_jax(runs):
                 atol=1e-3 if k == "location" else 1e-4,
                 err_msg=f"frame {frame} {k}")
     assert n >= 2  # labels were made
+
+
+def test_driver_labels_match_jax(runs):
+    _assert_labels_match(runs)
+
+
+def test_batched_driver_labels_match_jax(batched_runs):
+    _assert_labels_match(batched_runs)
+
+
+def test_batched_driver_labels_match_sequential(runs, batched_runs):
+    # the same crops, letterboxed into one bucket per frame in place of
+    # each crop's own: the labels within the tolerances above
+    seq, bat = runs["torch"][2], batched_runs["torch"][2]
+    assert list(seq) == list(bat)
+    for frame in seq:
+        for k in LABEL_KEYS:
+            np.testing.assert_allclose(
+                np.asarray(bat[frame][k], np.float64),
+                np.asarray(seq[frame][k], np.float64),
+                atol=1e-3 if k == "location" else 1e-4,
+                err_msg=f"frame {frame} {k}")
 
 
 def test_dumps_and_idempotent_rerun(runs):

@@ -314,7 +314,8 @@ def _wgmma_entry_points(cluster):
                 _cuda.ptr(packed.wlast), _cuda.ptr(packed.scal), n,
                 packed.width, packed.n_hidden, int(packed.use_tanh), cluster)
         mlp_cuda.SELECT_MLP_WGMMA(_cuda.ptr(pts), _cuda.ptr(packed.ws_tiles),
-                                  *args, _cuda.ptr(sel), _cuda.stream(pts))
+                                  *args[:4], 1, 0, *args[4:], _cuda.ptr(sel),
+                                  _cuda.stream(pts))
         mlp2_cuda.STAGE2_FWD_WGMMA(
             _cuda.ptr(pts), _cuda.ptr(packed.ws_tiles),
             _cuda.ptr(packed.ws_tiles_t), *args, _cuda.ptr(fwd),

@@ -40,6 +40,7 @@ EXPECTED = tuple("sdflabel_tpu_torch." + m for m in (
     "data.kitti",
     "ops.splat_cuda",
     "pipelines.train_css",
+    "parallel.batched_refine",
 ))
 
 
