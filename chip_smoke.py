@@ -36,11 +36,22 @@ Seven phases; any failure exits non-zero and no phase's error is caught.
    the crop axis: kernels 1a, 1b, 2 and 3 each launched once for 4 crops of
    the main path's shapes, held against their plain versions crop by crop
    and bit-equal to 4 single-crop launches, timed alone beside those 4
-   launches and beside one crop's.
+   launches and beside one crop's. Kernel 3 at the coarse cells' shapes:
+   the 9261-point corner lattice and 16384 cell points a crop, one crop
+   and four, against the plain version; the cells the card ranks, ties in
+   index order, equal to the CPU's ranking.
 3. The demo driver: ``refine_css_demo`` on the bundled data/optimization
    assets with configs/config_demo.ini (viz off); the labels must land on
    the ground-truth annotation, the splat and NN kernels must have run,
-   and no computation on the path may take CPU tensors.
+   and no computation on the path may take CPU tensors. (3b) The stock
+   demo command as written (viz_type 3d, the output directory moved to a
+   temporary one): every PNG must decode and hold nonzero pixels, every
+   HTML scene its point sets, kernels 1a and 2 must launch inside
+   ``render_trajectory`` once per drawn iteration, and the labels must
+   equal phase 3's to 1e-6; the viz wall is printed apart. (3c) The demo
+   crop with ``pose_estimator = pnp`` (ops/pnp.py on the card, no CPU
+   operator; its reprojection RMS) and with ``select_bf16``, labels beside
+   phase 3's.
 4. Full width: phase 3's prepared crop refined under the stock
    configs/config_refine.ini settings (60 iterations, float16 -> bf16,
    warm band 8192 refreshed every 10, the selection kernel, grid 40)
@@ -55,12 +66,16 @@ Seven phases; any failure exits non-zero and no phase's error is caught.
    crops at once (``refine_crops_batched``): phase 3's crop and three made
    from it (yaw +-0.2 rad, translation +0.3 m, one NOCS target cut smaller
    so that it letterboxes) under phase 4's runtime; each crop's
-   parameters must track that crop refined alone within 1e-3 over the first
-   30 iterations (its label after 60 is printed beside the crop alone's and
+   parameters must track that crop refined alone within 1e-3 at every
+   iteration and its label land within 1e-3 of the crop alone's (printed
    beside the crop alone from a start moved by 1e-6), and kernels 1a, 1b,
    2 and 3 must launch for the batch exactly as often as for phase 4's one
    crop; ms/iteration, s/crop and device launches per iteration beside
-   phase 4's.
+   phase 4's; (4e) phase 4's crop with ``warm_refresh_cells = 2048``, then
+   with ``coarse_cells = 2048`` (the warm band off), and 4d's four crops
+   with ``warm_refresh_cells``: kernel 3 launches twice a refresh (or an
+   iteration), on the shared corner lattice and on the cells' points,
+   once for all four crops; ms/iteration and labels beside phase 4's.
 5. Crops: ``make_crops`` renders 26 crops of 128x128 px (grid 40,
    capacity 4096) from data/quality_nets/deepsdf_quality.pt, each through
    the bins kernel and the binned splat forward; the device launches of
@@ -89,7 +104,8 @@ Each kernel's launches are counted on the path that runs it (set to 0
 just before the path, read just after): the dense splat, NN and selection
 kernels in phase 4, the stage-2 kernels in 4c, the binned backward in 4b,
 the bins and the binned forward in 5 and the CE kernels in 6; the
-record of each crop-axis kernel also gives its launches in 4d. The line
+record of each crop-axis kernel also gives its launches in 4d, and
+``launches_by_path`` those on the paths of 3b (the viz) and 4e. The line
 before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Without a card
 the script exits 2 and prints no result. ``--profile DIR`` adds one more
@@ -655,6 +671,92 @@ def check_select(dev) -> dict:
                    packed, lat, pts)),
                bound_ms=b[0], bound_by=b[1], library_ms=time_ms(chain))
     return design_report(row, design, time_ms(wmma), float(wmma_err.max()))
+
+
+def check_select_cells(dev) -> dict:
+    """Kernel 3 at the coarse cells' shapes through the 8x512 decoder: the
+    corner lattice of grid 40 ((40/2+1)^3 = 9261 points shared by every
+    crop) and the points of CELLS cells (16384 a crop), for one crop and
+    four, against the plain version with kernel 3's limits. The cells
+    ranked on the card from the plain version's scores must equal the
+    CPU's ranking, ties (every crossed cell scores 0) in index order; the
+    candidates from the kernel's corner values must equal those from the
+    plain version's, but for cells whose plain score lies within the
+    kernel's largest error of the cut-off (or of a sign change). One launch
+    at each shape timed (the latent absorbed) beside its bound."""
+    cfg, params = decoder_8x512(dev)
+    packed = mlp_cuda.pack_select_mlp(
+        cfg, deepsdf.cast_params(params, torch.bfloat16))
+    pts = grid_ops.generate_point_grid(40, device=dev)
+    lattice = pts[torch.as_tensor(grid_ops._cell_corner_lattice_np(40, 2)[0],
+                                  device=dev, dtype=torch.long)].contiguous()
+
+    def kernel(lat, p):
+        return mlp_cuda.select_mlp_apply(packed, lat, p)
+
+    def plain(lat, p):
+        return mlp_cuda.emulate_select_mlp(packed, lat, p)
+
+    rng = np.random.RandomState(12)
+    H, nh = packed.width, packed.n_hidden
+    out = {"cells": CELLS, "lattice_points": lattice.shape[0]}
+    for b in (1, 4):
+        lat = torch.nn.functional.normalize(torch.as_tensor(
+            rng.randn(b, 3).astype(np.float32), device=dev), dim=-1)
+        cand = grid_ops._coarse_cell_candidates(plain, lat, pts, 2, CELLS,
+                                                8192)
+        cpts = pts[cand].contiguous()
+        assert cpts.shape == (b, 8 * CELLS, 3)
+        worst = 0.0
+        for shape, p in (("lattice", lattice), ("cells", cpts)):
+            got, want = kernel(lat, p), plain(lat, p)
+            err = (got - want).abs()
+            print(f"select_mlp, {shape} ({b} crops x {p.shape[-2]} "
+                  f"points): max_abs_err {float(err.max()):.3g} (need < "
+                  f"1e-3), median {float(err.median()):.3g} (need < 1e-5)")
+            assert float(err.max()) < 1e-3 and float(err.median()) < 1e-5
+            worst = max(worst, float(err.max()))
+            cvec = mlp_cuda._cvec(packed, lat).contiguous()
+            n = p.shape[-2]
+            own = b if p.dim() == 3 else 1
+            bnd = bound(own * n * 12 + nh * H * H * 2 + b * n * 4,
+                        2 * b * n * nh * H * H, BF16_TENSOR_FLOPS)
+            out[f"{shape}_b{b}"] = dict(
+                points=n, crops=b, max_abs_err=float(err.max()),
+                ms=time_ms(lambda: mlp_cuda.select_fwd(packed, cvec, p)),
+                kernel_ms=kernel_ms(lambda: mlp_cuda.select_fwd(
+                    packed, cvec, p), "select_wgmma_kernel"),
+                plain_ms=time_ms(lambda: plain(lat, p), reps=5),
+                bound_ms=bnd[0], bound_by=bnd[1])
+            row = out[f"{shape}_b{b}"]
+            print(f"select_mlp, {shape} ({b} x {n}): {row['ms']:.4f} ms a "
+                  f"call, {row['kernel_ms']:.4f} ms alone, bound "
+                  f"{row['bound_ms']:.4f} ms ({bnd[2]}), plain "
+                  f"{row['plain_ms']:.3f} ms")
+        # the ranking on the card against the CPU's, from the same scores
+        score = grid_ops.cell_scores(plain, lat, pts, 2)
+        got_rank = grid_ops._smallest(score, CELLS)[1]
+        want_rank = grid_ops._smallest(score.cpu(), CELLS)[1]
+        zeros = int((score == 0).sum())
+        assert torch.equal(got_rank.cpu(), want_rank), "tie order"
+        # the cells the kernel's corner values keep
+        kept = grid_ops._smallest(grid_ops.cell_scores(kernel, lat, pts, 2),
+                                  CELLS)[1]
+        cut = torch.sort(score, -1).values[:, CELLS - 1]
+        differ = [(i, c) for i in range(b) for c in set(
+            got_rank[i].tolist()) ^ set(kept[i].tolist())]
+        borderline = all(abs(float(score[i, c] - cut[i])) <= 2 * worst
+                         or float(score[i, c]) <= worst for i, c in differ)
+        out[f"candidates_b{b}"] = dict(crossed_cells=zeros,
+                                       differing_cells=len(differ),
+                                       tie_order_equal=True)
+        print(f"select_mlp, cells ({b} crops): {zeros} cells crossed (score "
+              f"0); the card's ranking of the plain scores equals the "
+              f"CPU's, ties included; the kernel's candidates differ from "
+              f"the plain version's in {len(differ)} cells (each within "
+              f"the kernel's error of the cut-off: {borderline})")
+        assert borderline
+    return out
 
 
 def design_report(row: dict, design: str, wmma_ms: float,
@@ -1412,7 +1514,204 @@ def demo_phase(dev, iters: int | None = None):
     assert prep is not None
     print(f"demo: prepare_crop (crop, CSS, surface, RANSAC) {prep_s:.3f} s")
     return rt, sample, prep, dict(wall_s=wall, iters=cfg.iters,
-                                  prepare_crop_s=prep_s)
+                                  prepare_crop_s=prep_s,
+                                  labels=_label_fields(ests))
+
+
+def _label_fields(ests) -> dict:
+    return {k: np.asarray(ests[k], np.float64).tolist()
+            for k in ("location", "dimensions", "rotation_y", "alpha")}
+
+
+def _label_gap(a: dict, b: dict) -> float:
+    """The largest difference between two label_fields."""
+    return max(float(np.abs(np.asarray(a[k]) - np.asarray(b[k])).max())
+               for k in a)
+
+
+def scene_layers(path: str) -> dict:
+    """{layer name: point or segment count} of an export_scene_html file."""
+    with open(path) as f:
+        scene = json.loads(re.search(r"const SCENE = (\{.*?\});\n",
+                                     f.read()).group(1))
+    return {layer["name"]: len(layer.get("pts", layer.get("segs", [])))
+            for layer in scene["layers"]}
+
+
+def demo_viz_phase(dev, out_dir: str, demo: dict, iters: int | None = None):
+    """Phase 3b: the stock demo command as written: refine_css_demo on
+    configs/config_demo.ini unchanged (viz_type 3d) but for the output
+    directory, on the card. Every PNG it writes must decode with
+    utils/png.py and hold nonzero pixels, every HTML scene its point sets;
+    the splat forward (1a) and the NN (2) must launch inside
+    render_trajectory, once per drawn iteration; the labels must equal
+    phase 3's (viz off) to 1e-6. The viz wall is timed apart."""
+    cfg = cfg_mod.RefineCfg.from_ini(cfg_mod.load_ini(
+        os.path.join(ROOT, "configs", "config_demo.ini")))
+    assert cfg.viz_type == "3d"
+    labels_out = os.path.join(out_dir, "demo_out")
+    cfg = dataclasses.replace(cfg, labels_out=labels_out,
+                              **({"iters": iters} if iters else {}))
+    rt = pipe.setup_runtime(cfg, device=dev)
+    sample = pipe.load_demo_sample(os.path.join(ROOT, "data",
+                                                "optimization"))
+    viz_s, viz_launched = [], collections.Counter()
+    originals = {name: getattr(pipe, name)
+                 for name in ("render_trajectory", "demo_views")}
+
+    def timed(fn):
+        def run(*args, **kw):
+            before = counts()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            viz_s.append(time.perf_counter() - t0)
+            viz_launched.update({k: v - before[k]
+                                 for k, v in counts().items()})
+            return out
+        return run
+
+    for name, fn in originals.items():
+        setattr(pipe, name, timed(fn))
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        annos, ests = pipe.refine_css_demo(cfg, sample=sample, device=dev,
+                                           rt=rt)
+    finally:
+        for name, fn in originals.items():
+            setattr(pipe, name, fn)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    files = sorted(os.path.relpath(os.path.join(d, f), labels_out)
+                   for d, _, fs in os.walk(labels_out) for f in fs)
+    pngs = [f for f in files if f.endswith(".png")]
+    htmls = [f for f in files if f.endswith(".html")]
+    frames = len([f for f in pngs if f.endswith("_patches.png")])
+    for f in pngs:
+        img = png.read(os.path.join(labels_out, f))
+        assert img.ndim == 3 and img.shape[2] == 3 and img.any(), f
+    scenes = {f: scene_layers(os.path.join(labels_out, f)) for f in htmls}
+    assert scenes["demo_scene3d.html"]["lidar"] > 0
+    assert scenes["demo_scene3d.html"]["est cuboids"] == 12
+    assert scenes["demo_scene3d.html"]["gt cuboids"] == 12
+    trajectory = [f for f in htmls if f.startswith("viz/")]
+    assert len(trajectory) == 1
+    assert all(scenes[trajectory[0]][k] > 0
+               for k in ("scene", "model", "correspondences"))
+    gap = _label_gap(_label_fields(ests), demo["labels"])
+    viz_wall = sum(viz_s)
+    print(f"demo as written (viz_type 3d): {cfg.iters} iterations, "
+          f"{wall:.3f} s wall: refine {wall - viz_wall:.3f} s, viz "
+          f"{viz_wall:.3f} s ({frames} drawn iterations, "
+          f"{len(pngs)} PNG, {len(htmls)} HTML); labels within {gap:.3g} "
+          f"of phase 3's (need <= 1e-6); launches inside the viz "
+          f"{dict(viz_launched)}, in all {launched}; scenes {scenes}")
+    assert len(annos["location"]) == len(ests["location"]) == 1
+    assert frames == min(8, cfg.iters) and len(pngs) == 3 * frames + 1
+    assert gap <= 1e-6
+    if dev.type == "cuda":
+        # every drawn iteration: one render (1a) and one NN (2), no
+        # backward
+        assert viz_launched["splat_fwd"] == viz_launched["nn"] == frames
+        assert viz_launched["splat_bwd"] == 0
+        assert launched["splat_fwd"] == cfg.iters + frames
+    return dict(viz_launched), dict(
+        wall_s=wall, viz_s=viz_wall, refine_s=wall - viz_wall,
+        drawn_iterations=frames, pngs=len(pngs), htmls=len(htmls),
+        label_gap=gap)
+
+
+def pnp_bf16_phase(dev, demo: dict, iters: int | None = None):
+    """Phase 3c: the demo crop initialized by pose_estimator = pnp
+    (ops/pnp.py on the card's tensors; its reprojection RMS over every
+    correspondence and over those within 1 px), then refined with
+    select_bf16 (precision float32; the demo's 3x64 net is outside the
+    selection kernel's packer, so the bf16 twin ranks the band). Both
+    labels beside phase 3's."""
+    base = cfg_mod.RefineCfg.from_ini(cfg_mod.load_ini(
+        os.path.join(ROOT, "configs", "config_demo.ini")))
+    base = dataclasses.replace(base, viz_type="none",
+                               **({"iters": iters} if iters else {}))
+    sample = pipe.load_demo_sample(os.path.join(ROOT, "data",
+                                                "optimization"))
+    seen = {}
+    inner = pipe.pnp.init_pose_2d
+
+    def spy(cam, nocs, *args, **kw):
+        t0 = time.perf_counter()
+        pose = inner(cam, nocs, *args, **kw)
+        # a copy: prepare_crop constrains the rotation in place
+        seen.update(K=np.asarray(cam), nocs=np.asarray(nocs),
+                    pose={k: np.array(v) for k, v in pose.items()},
+                    s=time.perf_counter() - t0, device=str(kw["device"]))
+        return pose
+
+    out = {}
+    cfg = dataclasses.replace(base, pose_estimator="pnp")
+    rt = pipe.setup_runtime(cfg, device=dev)
+    watch = _cpu_op_watch()
+    pipe.pnp.init_pose_2d = spy
+    reset_counts()
+    try:
+        with watch:
+            _, ests = pipe.refine_css_demo(cfg, sample=sample, device=dev,
+                                           rt=rt)
+    finally:
+        pipe.pnp.init_pose_2d = inner
+    # once more on the same inputs: the first call also loads the card's
+    # linear-algebra libraries
+    t0 = time.perf_counter()
+    inner(seen["K"], seen["nocs"], 2.0, device=dev,
+          generator=torch.Generator(device=dev).manual_seed(1))
+    warm_s = time.perf_counter() - t0
+    mask = seen["nocs"][0] > 0
+    obj = (np.transpose(seen["nocs"], (1, 2, 0))[mask] * 2 - 1) * 2.0
+    rows, cols = np.nonzero(mask)
+    cam = obj @ seen["pose"]["rot"].T + seen["pose"]["tra"]
+    uv = cam @ seen["K"].T
+    err = np.linalg.norm(uv[:, :2] / uv[:, 2:] - np.stack([cols, rows], 1),
+                         axis=1)
+    inl = err <= 1.0
+    out["pnp"] = dict(
+        correspondences=int(mask.sum()), inliers_1px=int(inl.sum()),
+        rms_px=float(np.sqrt(np.mean(err ** 2))),
+        inlier_rms_px=float(np.sqrt(np.mean(err[inl] ** 2))),
+        pnp_s=seen["s"], pnp_warm_s=warm_s, labels=_label_fields(ests),
+        label_gap=_label_gap(_label_fields(ests), demo["labels"]))
+    print(f"demo, pose_estimator pnp on {seen['device']}: "
+          f"{out['pnp']['correspondences']} correspondences, "
+          f"{out['pnp']['inliers_1px']} within 1 px, reprojection RMS "
+          f"{out['pnp']['rms_px']:.4f} px ({out['pnp']['inlier_rms_px']:.4f}"
+          f" px within 1 px), {seen['s']:.3f} s (again on the same inputs "
+          f"{warm_s:.3f} s); label location "
+          f"{out['pnp']['labels']['location']}, phase 3's "
+          f"{demo['labels']['location']}")
+    assert seen["device"] == str(dev) and len(ests["location"]) == 1
+    assert np.isfinite(out["pnp"]["labels"]["location"]).all()
+    if dev.type == "cuda":
+        print(f"demo, pnp: CPU operators on the path: {dict(watch.cpu_ops)}")
+        assert not watch.cpu_ops
+
+    cfg = dataclasses.replace(base, precision="float32", select_bf16=True)
+    rt = pipe.setup_runtime(cfg, device=dev)
+    assert rt.select_decoder is not None and mlp_cuda.select_fn(
+        rt.dsdf_cfg, rt.dsdf_params) is None
+    reset_counts()
+    _, ests = pipe.refine_css_demo(cfg, sample=sample, device=dev, rt=rt)
+    launched = counts()
+    out["select_bf16"] = dict(labels=_label_fields(ests),
+                              label_gap=_label_gap(_label_fields(ests),
+                                                   demo["labels"]))
+    print(f"demo, select_bf16: label location "
+          f"{out['select_bf16']['labels']['location']}, "
+          f"{out['select_bf16']['label_gap']:.4g} from phase 3's; launches "
+          f"{launched}")
+    assert len(ests["location"]) == 1 and launched["select_mlp"] == 0
+    return out
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1486,21 +1785,18 @@ def shifted_crops(prep: dict) -> list[dict]:
             moved(dtrans=(0, 0, 0.3), cut=(6, 8))]
 
 
-TRACK_ITERS = 30  # phase 4d holds each crop's trajectory this far
-
-
 def batched_full_width_phase(dev, rt512, sample, prep, full: dict,
                              full_launched: dict):
     """Phase 4d: four crops of phase 4's runtime (shifted_crops) refined at
     once by the batched driver's refine_crops_batched, timed and counted:
     each of the crop-axis kernels must launch as often for the batch as for
     phase 4's one crop. Each crop's parameters must track that crop refined
-    alone through run_refine within 1e-3 at every one of the first
-    TRACK_ITERS iterations. The labels after all iterations are printed
-    beside those of the crop alone and of the crop alone from a start
-    moved by 1e-6: on the seeded random decoder the refine carries an
-    ulp-sized change to centimetres by iteration 60
-    (scripts/batched_vs_alone.py), so they are not held to 1e-3."""
+    alone through run_refine within 1e-3 at every iteration, and its label
+    land within 1e-3 (m, rad) of the crop alone's: both loops step with
+    the same arithmetic (engine/refine.py::batch_step). Printed beside: the
+    crop alone from a start moved by 1e-6, which the refine on the seeded
+    random decoder may carry to centimetres (scripts/batched_vs_alone.py,
+    scripts/batched_lanes_jax.py)."""
     crops = shifted_crops(prep)
     iters = rt512.cfg.iters
     alone, moved, alone_s = [], [], []
@@ -1538,18 +1834,17 @@ def batched_full_width_phase(dev, rt512, sample, prep, full: dict,
     track, gaps = [], []
     for i, (got, (params, want), nudged) in enumerate(zip(labels, alone,
                                                           moved)):
-        k = min(TRACK_ITERS, iters)
-        track.append(max(float((a[:k] - b[i, :k]).abs().max())
+        track.append(max(float((a - b[i]).abs().max())
                          for a, b in zip(params, hist.params)))
         gaps.append((label_gap(got, want), label_gap(nudged, want)))
         print(f"batched full width: crop {i}: parameters within "
-              f"{track[-1]:.3g} of the crop alone over the first {k} "
-              f"iterations (need <= 1e-3); label after {iters}: location "
+              f"{track[-1]:.3g} of the crop alone over all {iters} "
+              f"iterations (need <= 1e-3); label location "
               f"{np.asarray(got['location'])}, alone "
               f"{np.asarray(want['location'])}, |d location| "
               f"{gaps[-1][0][0]:.3g} m, |d rotation_y| {gaps[-1][0][1]:.3g} "
-              f"rad; alone from a start moved by 1e-6: {gaps[-1][1][0]:.3g} "
-              f"m, {gaps[-1][1][1]:.3g} rad")
+              f"rad (need <= 1e-3); alone from a start moved by 1e-6: "
+              f"{gaps[-1][1][0]:.3g} m, {gaps[-1][1][1]:.3g} rad")
     alone_mean = statistics.mean(alone_s)
     summary = dict(crops=len(crops), iters=iters, wall_s=wall,
                    ms_per_iteration=wall / iters * 1e3,
@@ -1557,7 +1852,6 @@ def batched_full_width_phase(dev, rt512, sample, prep, full: dict,
                    s_per_crop_ratio=wall / len(crops) / full["wall_s"],
                    alone_s_per_crop=alone_mean,
                    s_per_crop_ratio_alone=wall / len(crops) / alone_mean,
-                   track_iters=min(TRACK_ITERS, iters),
                    max_track_gap=max(track),
                    label_gaps=[g[0] for g in gaps],
                    moved_start_label_gaps=[g[1] for g in gaps])
@@ -1581,6 +1875,7 @@ def batched_full_width_phase(dev, rt512, sample, prep, full: dict,
                  f"(phase 4's crop: {per_iter['one crop']:.1f})")
     print(line)
     assert max(track) <= 1e-3, track
+    assert max(max(g[0]) for g in gaps) <= 1e-3, gaps
     assert all(np.isfinite(g["location"]).all() for g in labels)
     if dev.type == "cuda":
         # one launch per iteration (select: per refresh) for the whole batch
@@ -1588,6 +1883,85 @@ def batched_full_width_phase(dev, rt512, sample, prep, full: dict,
             assert launched[name] == full_launched[name] > 0, name
         assert launched["splat_fwd"] == iters
     return launched, summary
+
+
+CELLS = 2048  # the cells of JAX's warm_c2f_refresh bench cell (bench.py:256)
+
+
+def coarse_full_width_phase(dev, rt512, sample, prep, full: dict):
+    """Phase 4e: phase 4's runtime and crop with the coarse cells: the warm
+    refresh through CELLS cells (warm_refresh_cells), then CELLS cells
+    ranked every iteration on the exact path (coarse_cells: the warm band
+    off). Each refresh or iteration launches kernel 3 twice, once on the
+    shared corner lattice and once on the cells' points. Then phase 4d's
+    four crops at once with warm_refresh_cells: the lattice pass launches
+    kernel 3 once for all four. ms/iteration and labels beside phase 4's."""
+    iters = rt512.cfg.iters
+    refreshes = -(-iters // rt512.cfg.warm_refresh)
+    out, launches = {}, {}
+    for mode, change, selects in (
+            ("warm_refresh_cells", dict(warm_refresh_cells=CELLS),
+             2 * refreshes),
+            ("coarse_cells", dict(coarse_cells=CELLS), 2 * iters)):
+        rt = pipe.RefineRuntime(dataclasses.replace(rt512.cfg, **change),
+                                rt512.css, rt512.dsdf_cfg, rt512.dsdf_params,
+                                device=dev)
+        if mode == "coarse_cells":
+            assert rt.warm_band == 0 and rt.coarse_cells == CELLS
+        else:
+            assert rt.warm_band == 8192 and rt.warm_refresh_cells == CELLS
+        rt.run_refine(prep)  # warm-up
+        reset_counts()
+        t0 = time.perf_counter()
+        final, hist, ext = rt.run_refine(prep)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[mode] = counts()
+        label = pipe.finish_label(final, ext, sample, prep["anno"])
+        loss = hist.loss.cpu().numpy()
+        applied = hist.applied.cpu().numpy()
+        assert np.isfinite(loss[applied]).all() and applied.any()
+        assert label is not None and np.isfinite(label["location"]).all()
+        dist = float(np.linalg.norm(np.asarray(label["location"])
+                                    - np.asarray(full["location"])))
+        out[mode] = dict(wall_s=wall, ms_per_iteration=wall / iters * 1e3,
+                         location=np.asarray(label["location"]).tolist(),
+                         label_dist_m=dist,
+                         select_launches=launches[mode]["select_mlp"])
+        print(f"full width, {mode} = {CELLS}: {iters} iterations, "
+              f"{wall:.3f} s wall, {wall / iters * 1e3:.3f} ms/iteration "
+              f"(phase 4: {full['wall_s'] / iters * 1e3:.3f}, cold), "
+              f"kernel 3 launches {launches[mode]['select_mlp']} (phase 4: "
+              f"{refreshes}), label location {out[mode]['location']}, "
+              f"{dist:.4f} m from phase 4's")
+        if dev.type == "cuda":
+            assert launches[mode]["select_mlp"] == selects
+            assert launches[mode]["splat_fwd"] == iters
+        if mode == "warm_refresh_cells":
+            rt_wrc = rt
+    crops = shifted_crops(prep)
+    pipe.refine_crops_batched(rt_wrc, sample, crops)  # warm-up
+    reset_counts()
+    t0 = time.perf_counter()
+    labels = pipe.refine_crops_batched(rt_wrc, sample, crops)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["batched_warm_refresh_cells"] = counts()
+    n_sel = launches["batched_warm_refresh_cells"]["select_mlp"]
+    out["batched_warm_refresh_cells"] = dict(
+        crops=len(crops), wall_s=wall, s_per_crop=wall / len(crops),
+        ms_per_iteration=wall / iters * 1e3, select_launches=n_sel)
+    print(f"batched full width, warm_refresh_cells = {CELLS}: "
+          f"{len(crops)} crops, {wall:.3f} s wall, "
+          f"{wall / iters * 1e3:.3f} ms/iteration, "
+          f"{wall / len(crops):.4f} s/crop, kernel 3 launches {n_sel}")
+    assert len(labels) == len(crops)
+    assert all(np.isfinite(g["location"]).all() for g in labels)
+    if dev.type == "cuda":
+        assert n_sel == 2 * refreshes
+    return launches, out
 
 
 def full_width_stage2_phase(dev, rt512, prep, sample, full: dict):
@@ -2169,6 +2543,12 @@ def run_paths(dev, out_dir: str, small: bool = False,
     rt, sample, prep, demo = demo_phase(dev, **tiny)
     seconds["3"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    viz_launched, demo_viz = demo_viz_phase(dev, out_dir, demo, **tiny)
+    seconds["3b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pnp_bf16 = pnp_bf16_phase(dev, demo, **tiny)
+    seconds["3c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     rt512, full_launched, full = full_width_phase(dev, rt, sample, prep,
                                                   **tiny)
     seconds["4"] = time.perf_counter() - t0
@@ -2176,6 +2556,10 @@ def run_paths(dev, out_dir: str, small: bool = False,
     batched_launched, batched = batched_full_width_phase(
         dev, rt512, sample, prep, full, full_launched)
     seconds["4d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cells_launched, cells = coarse_full_width_phase(dev, rt512, sample, prep,
+                                                    full)
+    seconds["4e"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     rt_stage2, stage2_launched, stage2 = full_width_stage2_phase(
         dev, rt512, prep, sample, full)
@@ -2203,9 +2587,11 @@ def run_paths(dev, out_dir: str, small: bool = False,
     launched = {"full_width": full_launched, "binned_refine": binned_launched,
                 "crops": crops_launched, "train": train_launched,
                 "full_width_stage2": stage2_launched, "kitti": kitti_launched,
-                "batched_full_width": batched_launched}
-    summary = {"demo_crop": demo, "full_width_crop": full,
-               "batched_full_width": batched,
+                "batched_full_width": batched_launched,
+                "demo_viz": viz_launched, **cells_launched}
+    summary = {"demo_crop": demo, "demo_viz": demo_viz,
+               "pnp_select_bf16": pnp_bf16, "full_width_crop": full,
+               "batched_full_width": batched, "coarse_cells": cells,
                "full_width_stage2": stage2, "binned_refine": binned,
                "crops": crops, "train": train, "kitti_driver": kitti,
                "phase_seconds": seconds}
@@ -2253,6 +2639,8 @@ def main() -> int:
             + check_splat_binned(dev) + check_ce(dev) + check_stage2(dev))
     for name, crop_axis in check_crop_axis(dev).items():
         next(r for r in rows if r["name"] == name)["crop_axis"] = crop_axis
+    next(r for r in rows if r["name"] == "select_mlp")["cells"] = \
+        check_select_cells(dev)
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
     for row in rows:
         alone = row.get("kernel_ms")
@@ -2275,6 +2663,13 @@ def main() -> int:
         if "crop_axis" in row:  # its launches on the batched path (4d)
             row["crop_axis"]["launches"] = \
                 launched["batched_full_width"][row["name"]]
+        # the launches on this slice's paths: the viz of the demo as
+        # written (3b) and the coarse cells (4e)
+        row["launches_by_path"] = {
+            path: launched[path].get(row["name"], 0)
+            for path in ("demo_viz", "warm_refresh_cells", "coarse_cells",
+                         "batched_warm_refresh_cells")
+            if launched[path].get(row["name"], 0)}
     print(json.dumps({"card": card, **summary}))
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -15,8 +15,11 @@ body serves both, with a leading crop axis on every tensor. The guard is
 per crop, and so is the optimizer state: optax keeps Adam's step count as a
 lane of its state and ``jnp.where(ok, new, old)`` freezes a guarded crop's
 count and moments, which ``torch.optim.Adam`` (one count per tensor) cannot
-express, so the batched loop writes the Adam and SGD updates itself. It
-reads nothing back to the host inside the loop.
+express. Both loops therefore step through ``batch_step``, optax's Adam
+and SGD arithmetic written out (the sequential loop on a crop axis of one;
+torch.optim.Adam's update rounds another way, and the refine carries an
+ulp to centimetres), and neither reads anything back to the host inside
+the loop.
 """
 
 from __future__ import annotations
@@ -42,12 +45,21 @@ class RefineConfig:
     lr_latent: float = 3e-5  # optimizer.py:38
     surface_capacity: int = 4096
     surface_threshold: float = 0.03  # grid.py:43
+    # Opt-in coarse-to-fine selection each iteration: only the points of
+    # the `coarse_cells` best cells of coarse_factor^3 points are ranked
+    # (ops/grid.py::surface_from_decoder). None = every grid point.
+    coarse_cells: int | None = None
+    coarse_factor: int = 2
     # Warm-started band selection: every `warm_refresh` iterations the full
     # grid is ranked for the `warm_band` smallest |sdf| candidates; between
     # refreshes the band comes from those candidates only. 0 = exact
     # full-grid selection each iteration.
     warm_band: int = 0
     warm_refresh: int = 10
+    # The composed refresh: the warm refresh ranks only the points of this
+    # many coarse cells (needs warm_band <= cells * coarse_factor^3).
+    # None = the full grid.
+    warm_refresh_cells: int | None = None
     loss3d_threshold: float = 0.2  # optimizer.py:166
     loss2d_diam: float = 5.0  # optimizer.py:200
     loss2d_threshold: float = 1.0  # optimizer.py:200
@@ -106,10 +118,24 @@ def _check_warm(cfg: RefineConfig) -> bool:
     if cfg.warm_band < cfg.surface_capacity:
         raise ValueError(f"warm_band {cfg.warm_band} must be >= "
                          f"surface_capacity {cfg.surface_capacity}")
+    if cfg.coarse_cells is not None:
+        raise ValueError("warm_band and coarse_cells are alternative "
+                         "selection accelerations; enable at most one (the "
+                         "composed refresh is warm_refresh_cells)")
     if cfg.warm_refresh < 1:
         raise ValueError(f"warm_refresh must be >= 1 (got "
                          f"{cfg.warm_refresh})")
     return True
+
+
+def _refresh(sel, cfg: RefineConfig, latent, grid_points):
+    """The warm band's candidates for the current latent, selection only
+    (outside the gradient): over the full grid, or through the coarse
+    cells with warm_refresh_cells."""
+    return grid_ops.band_candidates(
+        sel, _normalize_latent(latent), grid_points, cfg.warm_band,
+        coarse_cells=cfg.warm_refresh_cells,
+        coarse_factor=cfg.coarse_factor)
 
 
 def _make_iteration(sdf_decoder, cfg: RefineConfig, grid_points, crop_hw,
@@ -136,6 +162,8 @@ def _make_iteration(sdf_decoder, cfg: RefineConfig, grid_points, crop_hw,
                 sdf_decoder, latent, grid_points,
                 capacity=cfg.surface_capacity,
                 threshold=cfg.surface_threshold,
+                coarse_cells=cfg.coarse_cells,
+                coarse_factor=cfg.coarse_factor,
                 select_decoder_fn=select_decoder, stage2_fn=stage2_fn)
         rendering, points = rast_mod.render(
             K, (w, h), surf.points, surf.normals, surf.normals, pose,
@@ -179,52 +207,44 @@ def make_refine_fn(sdf_decoder, cfg: RefineConfig, grid_points: torch.Tensor,
                frustum_mask, pixel_mask=None):
         params = RefineParams(*(torch.as_tensor(p, dtype=torch.float32)
                                 .to(device).detach().clone()
-                                .requires_grad_(True) for p in params0))
+                                for p in params0))
         nocs_target = torch.as_tensor(nocs_target).to(device)
         frustum_pts = torch.as_tensor(frustum_pts).to(device)
         frustum_mask = torch.as_tensor(frustum_mask).to(device).bool()
         if pixel_mask is None:
             pixel_mask = torch.ones(h, w, dtype=torch.bool, device=device)
         pixel_mask = torch.as_tensor(pixel_mask).to(device).bool()
-        adam = torch.optim.Adam([{"params": [params.yaw], "lr": cfg.lr_yaw},
-                                 {"params": [params.trans],
-                                  "lr": cfg.lr_trans}], eps=1e-8)
-        sgd = torch.optim.SGD([{"params": [params.scale],
-                                "lr": cfg.lr_scale},
-                               {"params": [params.latent],
-                                "lr": cfg.lr_latent}], lr=cfg.lr_scale)
+        # optax's Adam and SGD arithmetic (batch_step on a crop axis of
+        # one), as JAX steps: torch.optim.Adam rounds its update another
+        # way, an ulp a step that the refine can carry to centimetres
+        state = init_batch_opt_state(RefineParams(*(p[None]
+                                                    for p in params)))
         cand_idx = None
         hist = []
         for it in range(cfg.iters):
             if use_warm and it % cfg.warm_refresh == 0:
-                # selection only: outside the gradient, on the current latent
-                cand_idx = grid_ops.band_candidates(
-                    sel, _normalize_latent(params.latent.detach()),
-                    grid_points, cfg.warm_band)
-            loss, l2d, l3d = iteration(params, K, nocs_target, frustum_pts,
+                cand_idx = _refresh(sel, cfg, params.latent, grid_points)
+            leaves = RefineParams(*(p.requires_grad_(True) for p in params))
+            loss, l2d, l3d = iteration(leaves, K, nocs_target, frustum_pts,
                                        frustum_mask, pixel_mask, cand_idx)
-            grads = torch.autograd.grad(loss, list(params), allow_unused=True)
-            used = RefineParams(*(p.detach().clone() for p in params))
+            grads = torch.autograd.grad(loss, list(leaves), allow_unused=True)
+            params = RefineParams(*(p.detach() for p in leaves))
             # NaN / zero-loss guard (optimizer.py:149-151): no step at all,
-            # so neither the parameters nor the optimizer state move
-            ok = bool(torch.isfinite(loss) & (loss != 0.0))
-            if ok:
-                for p, g in zip(params, grads):
-                    g = torch.zeros_like(p) if g is None else g
-                    # a leaf with a non-finite gradient steps on zero: its
-                    # Adam moments decay, as under the JAX guard
-                    p.grad = torch.where(torch.isfinite(g).all(), g,
-                                         torch.zeros_like(g))
-                adam.step()
-                sgd.step()
+            # so neither the parameters nor the optimizer state move; on
+            # the card, without a host read
+            ok = torch.isfinite(loss) & (loss != 0.0)
             hist.append((loss.detach(), l2d.detach(), l3d.detach(), ok,
-                         used))
-        final = RefineParams(*(p.detach() for p in params))
-        return final, RefineStepOut(
+                         params))
+            new, state = batch_step(
+                cfg, RefineParams(*(p[None] for p in params)),
+                [(torch.zeros_like(p) if g is None else g)[None]
+                 for p, g in zip(params, grads)], ok[None], state)
+            params = RefineParams(*(p[0] for p in new))
+        return params, RefineStepOut(
             loss=torch.stack([x[0] for x in hist]),
             loss_2d=torch.stack([x[1] for x in hist]),
             loss_3d=torch.stack([x[2] for x in hist]),
-            applied=torch.tensor([x[3] for x in hist], device=device),
+            applied=torch.stack([x[3] for x in hist]),
             params=RefineParams(*(torch.stack([x[4][i] for x in hist])
                                   for i in range(4))))
 
@@ -314,9 +334,7 @@ def make_refine_batch_fn(sdf_decoder, cfg: RefineConfig,
         hist = []
         for it in range(cfg.iters):
             if use_warm and it % cfg.warm_refresh == 0:
-                cand_idx = grid_ops.band_candidates(
-                    sel, _normalize_latent(params.latent),
-                    grid_points, cfg.warm_band)
+                cand_idx = _refresh(sel, cfg, params.latent, grid_points)
             leaves = RefineParams(*(p.requires_grad_(True) for p in params))
             loss, l2d, l3d = iteration(leaves, K, nocs_target, frustum_pts,
                                        frustum_mask, pixel_mask, cand_idx)

@@ -3,10 +3,12 @@
 Counterpart of sdflabel_tpu/main.py (reference main.py:20-60): parse the
 INI, seed numpy, copy the config into ``[log] dir``, and run one mode:
 
-  --refine    the KITTI driver (pipelines/refine_css.py::refine_css, one
-              crop after another), dumps and evaluation
+  --refine    the KITTI driver (pipelines/refine_css.py::refine_css, all
+              of a frame's crops refined at once), dumps and evaluation
   --evaluate  evaluate the dumps of ``[output] labels``, difficulties 0, 1
-  --demo      refine the bundled demo frame
+  --demo      refine the bundled demo frame (with ``[visualization]
+              viz_type`` 2d or 3d, as the stock configs/config_demo.ini
+              sets it, the trajectory PNGs and HTML scenes too)
   --train     train the CSS network (pipelines/train_css.py)
 
 Every mode runs on the card; ``--device cpu`` asks for the CPU.

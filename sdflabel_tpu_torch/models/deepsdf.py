@@ -192,6 +192,23 @@ def fold_weight_norm(params: dict) -> dict:
             for k, v in params.items()}
 
 
+def select_sdf_fn(cfg: DeepSDFConfig, params: dict,
+                  dtype: torch.dtype = torch.bfloat16):
+    """Low-precision decoder for the band selection only
+    ([optimization] select_bf16): weight-norm folded in fp32, every
+    parameter then cast to `dtype`, latent and points cast to it, so that
+    the whole MLP runs in `dtype`; the sdf comes back as fp32. Selection
+    needs only the ranking of |sdf|, and stage 2 decodes every selected
+    point again with the exact decoder."""
+    base = sdf_fn(cfg, cast_params(fold_weight_norm(
+        _map_tree(lambda t: t.float(), params)), dtype))
+
+    def fn(latent, points):
+        return base(latent.to(dtype), points.to(dtype)).float()
+
+    return fn
+
+
 def params_from_jax(tree: dict, device="cpu") -> dict:
     """The JAX package's DeepSDF pytree (leaves as numpy arrays) -> the
     port's parameters. The layouts are the same; only the leaves change."""

@@ -132,6 +132,22 @@ def reproject_np(color: np.ndarray, depth: np.ndarray, K: np.ndarray,
     return pts.astype(np.float32), cols.astype(np.float32)
 
 
+def transform_kitti_to_cuboid(width, height, length, location,
+                              rot_y) -> np.ndarray:
+    """KITTI label -> (8, 3) cuboid corners, the front face first
+    (refinement.py:424-447): rotated about +Y by rot_y + pi/2, placed at
+    the bottom-centre `location`."""
+    w, h, l = width, height, length
+    front = np.asarray([[-w / 2, -h, l / 2], [w / 2, -h, l / 2],
+                        [w / 2, 0, l / 2], [-w / 2, 0, l / 2]])
+    back = front.copy()
+    back[:, 2] *= -1
+    angle = rot_y + np.pi / 2
+    rot = np.array([[math.cos(angle), 0, math.sin(angle)], [0, 1, 0],
+                    [-math.sin(angle), 0, math.cos(angle)]])
+    return (rot @ np.vstack((front, back)).T).T + np.asarray(location)
+
+
 def adjust_intrinsics_crop(K, crop_size, bbox, max_crop_area):
     """Intrinsics for a crop under an area budget (refinement.py:586-609).
     Returns (new [h, w] crop size, scaled intrinsics, offset-only ones)."""

@@ -15,8 +15,12 @@ from the CSS forward to the label extents runs on `device` (the card by
 default); the reference's host-side numpy steps (reprojection, label
 math) stay numpy.
 
-Not ported yet, and refused with NotImplementedError: visualization, PnP
-pose init, coarse cells and select_bf16.
+With ``[visualization] viz_type`` 2d or 3d, each refined crop's
+trajectory is re-rendered afterwards and written as PNG and HTML
+(``render_trajectory``), and the demo adds its final scene and BEV views.
+The options of ``[optimization]`` are JAX's: coarse-to-fine cells
+(``coarse_cells``, ``warm_refresh_cells``), ``select_bf16`` and
+``pose_estimator = pnp`` (ops/pnp.py).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import json
 import math
 import os
 import pickle
+import shutil
 from collections import OrderedDict, defaultdict
 
 import numpy as np
@@ -37,10 +42,11 @@ from sdflabel_tpu_torch.engine import labels as labels_mod
 from sdflabel_tpu_torch.engine import refine as refine_mod
 from sdflabel_tpu_torch.models import css as css_mod
 from sdflabel_tpu_torch.models import deepsdf
-from sdflabel_tpu_torch.ops import geometry, grid as grid_ops, mlp2_cuda
-from sdflabel_tpu_torch.ops import mlp_cuda
-from sdflabel_tpu_torch.ops import ransac
+from sdflabel_tpu_torch.ops import geometry, grid as grid_ops, knn, mlp2_cuda
+from sdflabel_tpu_torch.ops import mlp_cuda, pnp, ransac
 from sdflabel_tpu_torch.parallel import batched_refine
+from sdflabel_tpu_torch.renderer import rasterer as rast_mod
+from sdflabel_tpu_torch.utils import viz, viz3d
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -77,11 +83,6 @@ def nearest_resize_chw(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
     return img[:, ys[:, None], xs[None, :]]
 
 
-def _refuse(what: str):
-    raise NotImplementedError(f"{what} is not ported to sdflabel_tpu_torch "
-                              "yet (see ROADMAP.md)")
-
-
 class RefineRuntime:
     """The models, the selection kernel and the RNGs of one refinement
     configuration, on `device`."""
@@ -95,12 +96,6 @@ class RefineRuntime:
                  ransac_cfg: ransac.RansacConfig | None = None,
                  device="cuda"):
         self.device = refine_mod._device(device)
-        if cfg.coarse_cells or cfg.warm_refresh_cells:
-            _refuse("coarse-cell selection")
-        if cfg.select_bf16:
-            _refuse("select_bf16")
-        if cfg.pose_estimator not in ("kabsch", "procrustes"):
-            _refuse(f"pose_estimator {cfg.pose_estimator!r}")
         # fp32 matmuls and convolutions stay fp32 on the card (QUIRKS #16)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -121,11 +116,18 @@ class RefineRuntime:
             return base(latent.to(cdt), points.to(cdt)).float()
 
         self.decoder = decoder
-        # the selection kernel, packed after the precision cast as the JAX
-        # runtime packs it; None outside its contract (e.g. widths that are
-        # not multiples of 128)
+        # the selection decoder: the selection kernel, packed after the
+        # precision cast as the JAX runtime packs it, wins where it
+        # applies (None outside its contract, e.g. widths that are not
+        # multiples of 128); else [optimization] select_bf16, a bf16 twin
+        # of the decoder, and only over an fp32 decoder (under float16 the
+        # selection already runs in bf16), as in JAX
         self.select_decoder = (mlp_cuda.select_fn(dsdf_cfg, dsdf_params)
                                if cfg.select_pallas else None)
+        if (self.select_decoder is None and cfg.select_bf16
+                and self.compute_dtype == torch.float32):
+            self.select_decoder = deepsdf.select_sdf_fn(dsdf_cfg,
+                                                        dsdf_params)
         # the fused stage-2 decode (kernels 4a, 4b), packed the same way;
         # outside the packer's contract stage 2 stays plain, as in JAX
         self.stage2_fn = (mlp2_cuda.stage2_fn(dsdf_cfg, dsdf_params)
@@ -137,8 +139,24 @@ class RefineRuntime:
                                  is not None
                                  else min(8192, cfg.grid_density ** 3))
         self.frustum_capacity = frustum_capacity
-        wb = cfg.warm_band or 0
+        # [optimization] coarse_cells (0 = off): coarse-to-fine selection
+        # each iteration; an explicit setting turns the warm band off
+        self.coarse_cells = cfg.coarse_cells or None
+        wb = 0 if self.coarse_cells else (cfg.warm_band or 0)
         self.warm_band = min(wb, cfg.grid_density ** 3) if wb else 0
+        # [optimization] warm_refresh_cells: the warm refresh through the
+        # cell pass. Only on the warm path and with an even density (the
+        # cells of coarse_factor 2 partition the grid), clamped to the
+        # cell count, and off when the warm pool exceeds the cells' points
+        # (small grids): then the refresh ranks the full grid
+        wrc = cfg.warm_refresh_cells or 0
+        if not self.warm_band or cfg.grid_density % 2:
+            wrc = 0
+        if wrc:
+            wrc = min(wrc, (cfg.grid_density // 2) ** 3)
+            if self.warm_band > wrc * 8:
+                wrc = 0
+        self.warm_refresh_cells = wrc or None
         self.ransac_model_capacity = min(ransac_model_capacity,
                                          self.surface_capacity)
         self.ransac_scene_capacity = ransac_scene_capacity
@@ -167,12 +185,24 @@ class RefineRuntime:
             capacity=self.surface_capacity)
         return out["uvw_sm_masked"][0], latent, surf
 
+    @torch.no_grad()
+    def surface(self, latent: torch.Tensor) -> grid_ops.SurfacePoints:
+        """The two-stage surface of the full grid at `latent`, ranked by the
+        selection decoder (kernel 3 where the runtime has it)."""
+        surf, _ = grid_ops.surface_from_decoder(
+            self.decoder, latent.to(self.device), self.grid_points,
+            capacity=self.surface_capacity,
+            select_decoder_fn=self.select_decoder)
+        return grid_ops.SurfacePoints(*(t.detach() for t in surf))
+
     def refine_config(self) -> refine_mod.RefineConfig:
         return refine_mod.RefineConfig(
             iters=self.cfg.iters, weight_2d=self.cfg.weight_2d,
             weight_3d=self.cfg.weight_3d,
             surface_capacity=self.surface_capacity,
-            warm_band=self.warm_band, warm_refresh=self.cfg.warm_refresh)
+            coarse_cells=self.coarse_cells, warm_band=self.warm_band,
+            warm_refresh=self.cfg.warm_refresh,
+            warm_refresh_cells=self.warm_refresh_cells)
 
     def run_refine(self, prep: dict, bucket: int | None = None):
         """Refine one prepared crop, letterboxed into (h, w) rounded up to
@@ -206,9 +236,21 @@ class RefineRuntime:
         return final, hist, ext
 
     def estimate_pose(self, pcd_dsdf, nocs_dsdf, model_mask,
-                      scene_pts: np.ndarray, scene_cls: np.ndarray):
-        """RANSAC pose init (pose.py:8-38) on fixed-capacity subsamples:
-        {'scale', 'rot', 'tra'} or None when no pose is found."""
+                      scene_pts: np.ndarray, scene_cls: np.ndarray,
+                      off_intrinsics=None, nocs_pred_resized=None):
+        """Pose init (pose.py:8-38): {'scale', 'rot', 'tra'}, or None when
+        no pose is found. kabsch / procrustes: RANSAC on fixed-capacity
+        subsamples of the model and scene clouds; pnp: PnP of the NOCS
+        image's pixels against its coordinates (ops/pnp.py, on the
+        runtime's device), which always gives a pose (identity with fewer
+        than 4 pixels), as in JAX."""
+        if self.cfg.pose_estimator == "pnp":
+            pose = pnp.init_pose_2d(off_intrinsics, nocs_pred_resized,
+                                    scale_model=2.0, device=self.device,
+                                    generator=self.ransac_generator)
+            return {"scale": float(pose["scale"]),
+                    "rot": np.asarray(pose["rot"], np.float64),
+                    "tra": np.asarray(pose["tra"], np.float64)}
         if scene_pts.shape[0] < 5:
             return None
         cap = self.ransac_scene_capacity
@@ -286,7 +328,9 @@ def prepare_crop(rt: RefineRuntime, sample: dict, anno: dict, maskrcnn=None,
         nocs_pred_resized, crop_dep[None], off_intrinsics, filter_nocs=True)
 
     init_pose = rt.estimate_pose(surf.points.detach(), surf.nocs.detach(),
-                                 surf.mask, nocs_3d_pts, nocs_3d_cls)
+                                 surf.mask, nocs_3d_pts, nocs_3d_cls,
+                                 off_intrinsics=off_intrinsics,
+                                 nocs_pred_resized=nocs_pred_resized)
     if init_pose is None:
         print("NO RANSAC POSE FOUND!!!")
         return None
@@ -361,13 +405,142 @@ def finish_label(final: refine_mod.RefineParams,
         *host, sample["world_to_cam"], anno["bbox"])
 
 
+def _viz_on(cfg: cfg_mod.RefineCfg) -> bool:
+    return bool(cfg.viz_type) and cfg.viz_type != "none"
+
+
+def _publish(path: str, live_dir: str | None) -> None:
+    """Copy a written image to live_dir/latest_<kind>.png, atomically: a
+    viewer that reloads it never sees a torn file."""
+    if live_dir is None:
+        return
+    kind = path.rsplit("_", 1)[-1]  # patches.png / frame.png / corr.png
+    tmp = os.path.join(live_dir, f".latest_{kind}.tmp")
+    shutil.copyfile(path, tmp)
+    os.replace(tmp, os.path.join(live_dir, f"latest_{kind}"))
+
+
+def correspondences(xyz: np.ndarray, front: np.ndarray,
+                    frustum: np.ndarray, fmask: np.ndarray, scale: float,
+                    device) -> tuple:
+    """Model -> scene nearest neighbours in the scale-normalized frame, the
+    pairing of the 3D loss (optimizer.py:180-181): (scene (M, 3) float64,
+    first-min indices (N,), distances (N,) float64, ok (N,)). The indices
+    come from ops/knn.py (kernel 2 on the card), so that no (N, M) matrix
+    is built; the distances of the chosen pairs are then taken in float64
+    on the host, as JAX takes every one (refine_css.py:682-688); ok is
+    front & finite (a crop without a valid scene point has none)."""
+    scene = np.asarray(frustum, np.float64) / scale
+    dist, idx = knn.nearest_neighbor(
+        torch.as_tensor(xyz, dtype=torch.float32, device=device),
+        torch.as_tensor(scene, dtype=torch.float32, device=device),
+        torch.as_tensor(fmask, device=device))
+    idx = idx.cpu().numpy()
+    found = np.isfinite(dist.cpu().numpy())
+    dmin = np.where(found, np.linalg.norm(xyz - scene[idx], axis=-1),
+                    np.inf)
+    return scene, idx, dmin, np.asarray(front, bool) & found
+
+
+def render_trajectory(rt: RefineRuntime, prep: dict, sample: dict,
+                      hist: refine_mod.RefineStepOut, out_dir: str,
+                      tag: str = "", max_frames: int = 8,
+                      live_dir: str | None = None) -> list:
+    """The trajectory of one crop's refine, re-rendered afterwards
+    (refine_css.py:595-714, the headless analogue of the reference's
+    per-iteration views, optimizer.py:160-164): for `max_frames` evenly
+    spaced iterations, the parameters that iteration used
+    (``hist.params``, (iters, .) of one crop), the full-grid surface of
+    its latent (``rt.surface``) rendered at the crop's own size, then
+
+      {tag}iterNNNN_patches.png  rendered against CSS NOCS (visualizer.py
+                                 :9-19)
+      {tag}iterNNNN_frame.png    normals over the frame's box (:22-48)
+      {tag}iterNNNN_corr.png     '3d' only: BEV correspondences (:51-88)
+      {tag}scene3d.html          '3d' only: the last frame's scene
+
+    in `out_dir`. With [visualization] live each image is also published
+    to live_dir (default out_dir/live) as latest_<kind>.png. Returns the
+    written paths."""
+    viz_type = rt.cfg.viz_type
+    if not _viz_on(rt.cfg):
+        return []
+    os.makedirs(out_dir, exist_ok=True)
+    if live_dir is None and rt.cfg.viz_live:
+        live_dir = os.path.join(out_dir, "live")
+    if live_dir is not None:
+        os.makedirs(live_dir, exist_ok=True)
+    dev = rt.device
+    used = [t.detach().cpu().numpy() for t in hist.params]  # one read
+    iters = used[0].shape[0]
+    sel = np.unique(np.linspace(0, iters - 1, max_frames).astype(int))
+    h, w = prep["crop_hw"]
+    K = torch.as_tensor(prep["intrinsics"], dtype=torch.float32).to(dev)
+    written, last = [], None
+
+    def save(plot, path, *args, **kw):
+        plot(*args, path=path, **kw)
+        written.append(path)
+        _publish(path, live_dir)
+
+    for it in sel:
+        yaw, trans, scale, lat = (u[it] for u in used)
+        # the refine iteration's latent normalization, in float64
+        lat = np.asarray(lat, np.float64)
+        latent = lat / np.sqrt(max(float(np.sum(lat * lat)), 1e-24))
+        surf = rt.surface(torch.as_tensor(latent, dtype=torch.float32))
+        pose = refine_mod.build_render_pose(
+            torch.as_tensor(yaw, dtype=torch.float32, device=dev),
+            torch.as_tensor(trans, dtype=torch.float32, device=dev))
+        with torch.no_grad():
+            rendering, points = rast_mod.render(
+                K, (w, h), surf.points, surf.normals, surf.normals, pose,
+                point_mask=surf.mask, rot="dcm", primitives="disc",
+                output_nocs=True)
+        base = os.path.join(out_dir, f"{tag}iter{it:04d}")
+        save(viz.plot_patches, base + "_patches.png",
+             rendering.color.cpu().numpy(), prep["nocs_target"])
+        if "image" in sample:
+            # the frame is BGR (data/kitti.py); the PNG is RGB
+            save(viz.plot_full_frame, base + "_frame.png",
+                 np.asarray(sample["image"])[..., ::-1],
+                 rendering.normals.cpu().numpy(), prep["anno"]["bbox"])
+        if viz_type == "3d":
+            xyz = points.xyz.cpu().numpy().astype(np.float64)
+            scene, idx, dmin, ok = correspondences(
+                xyz, points.front_mask.cpu().numpy(), prep["frustum"],
+                prep["fmask"], max(float(scale.reshape(-1)[0]), 1e-9), dev)
+            smask = np.asarray(prep["fmask"], bool)
+            save(viz.plot_correspondences_bev, base + "_corr.png", xyz,
+                 scene, idx, np.where(ok, dmin, 0.0), mask_a=ok,
+                 mask_b=smask)
+            last = (xyz, scene, idx, dmin, ok, smask)
+    if last is not None:
+        # the orbitable analogue of the reference's Open3D correspondence
+        # window, at the last re-rendered iteration
+        xyz, scene, idx, dmin, ok, smask = last
+        html = os.path.join(out_dir, f"{tag}scene3d.html")
+        viz3d.export_scene_html(
+            html, model_points=xyz[ok], scene_points=scene[smask],
+            correspondences={"a": xyz[ok], "b": scene[idx[ok]],
+                             "heat": dmin[ok]},
+            title=f"correspondences {tag or 'crop'}")
+        written.append(html)
+    return written
+
+
 def refine_annotation(rt: RefineRuntime, sample: dict, anno: dict,
-                      maskrcnn=None, bbox_max_id=None, verbose: bool = True):
-    """One annotation end to end: the label dict, or None (skip)."""
+                      maskrcnn=None, bbox_max_id=None, verbose: bool = True,
+                      viz_dir: str | None = None, viz_tag: str = ""):
+    """One annotation end to end: the label dict, or None (skip). With
+    `viz_dir` the refine's trajectory is drawn there
+    (:func:`render_trajectory`)."""
     prep = prepare_crop(rt, sample, anno, maskrcnn, bbox_max_id)
     if prep is None:
         return None
     final, hist, ext = rt.run_refine(prep)
+    if viz_dir is not None:
+        render_trajectory(rt, prep, sample, hist, viz_dir, tag=viz_tag)
     if verbose:
         losses = hist.loss.cpu().numpy()
         l2d, l3d = hist.loss_2d.cpu().numpy(), hist.loss_3d.cpu().numpy()
@@ -412,12 +585,15 @@ def batch_inputs(rt: RefineRuntime, preps: list):
                       fmask, torch.as_tensor(pmask).to(dev))
 
 
-def refine_crops_batched(rt: RefineRuntime, sample: dict,
-                         preps: list) -> list:
+def refine_crops_batched(rt: RefineRuntime, sample: dict, preps: list,
+                         viz_dir: str | None = None,
+                         viz_tag: str = "") -> list:
     """Refine a frame's prepared crops at once (refine_css.py:741-848), on
     the inputs of :func:`batch_inputs`. One host read at the end fetches
     every crop's parameters and extents; the labels (None dropped) in the
-    crops' order."""
+    crops' order. With `viz_dir` (and a viz_type) each crop's trajectory
+    is drawn from its slice of the history, at its own size, tagged
+    ``{viz_tag}cNN_``."""
     if not preps:
         return []
     bucket, args = batch_inputs(rt, preps)
@@ -425,7 +601,7 @@ def refine_crops_batched(rt: RefineRuntime, sample: dict,
         rt.decoder, rt.refine_config(), rt.grid_points, bucket,
         select_decoder=rt.select_decoder, stage2_fn=rt.stage2_fn,
         with_extents=True, device=rt.device)
-    final, _, ext = fn(*args)
+    final, hist, ext = fn(*args)
     # one read for every crop's label inputs: yaw, scale, trans, latent,
     # the extents and their validity
     parts = (final.yaw, final.scale, final.trans, final.latent, ext.mn,
@@ -436,6 +612,13 @@ def refine_crops_batched(rt: RefineRuntime, sample: dict,
         rows[:, a:z] for a, z in zip(cols[:-1], cols[1:]))
     labels = []
     for i, p in enumerate(preps):
+        if viz_dir is not None and _viz_on(rt.cfg):
+            hist_i = refine_mod.RefineStepOut(
+                *(t[i] for t in hist[:4]),
+                params=refine_mod.RefineParams(*(t[i] for t in
+                                                 hist.params)))
+            render_trajectory(rt, p, sample, hist_i, viz_dir,
+                              tag=f"{viz_tag}c{i:02d}_")
         label = finish_label(
             refine_mod.RefineParams(yaw[i], trans[i], scale[i], lat[i]),
             labels_mod.SurfaceExtents(mn[i], mx[i], valid[i, 0] > 0.5),
@@ -476,9 +659,9 @@ def refine_css(cfgp, subset_frames=None, batched=True, device="cuda"):
     np.random.seed(1)
     cfg = (cfgp if isinstance(cfgp, cfg_mod.RefineCfg)
            else cfg_mod.RefineCfg.from_ini(cfgp))
-    if cfg.viz_type and cfg.viz_type != "none":
-        _refuse("visualization")
     rt = setup_runtime(cfg, device=device)
+    viz_dir = (os.path.join(cfg.labels_out, "viz") if _viz_on(cfg)
+               else None)
     kitti = kitti_mod.KITTI3D(path=cfg.kitti_path)
     total_annotations, total_estimations = OrderedDict(), OrderedDict()
     os.makedirs(cfg.labels_out, exist_ok=True)
@@ -509,7 +692,8 @@ def refine_css(cfgp, subset_frames=None, batched=True, device="cuda"):
 
         frame_annos, frame_estimations = defaultdict(list), defaultdict(list)
         preps, labels = [], []
-        for anno in kitti_mod.get_annos(cfg.diff_annos, sample):
+        for anno_idx, anno in enumerate(kitti_mod.get_annos(cfg.diff_annos,
+                                                            sample)):
             for key, value in anno.items():
                 frame_annos[key].append(value)
             bbox_max_id = None
@@ -525,10 +709,13 @@ def refine_css(cfgp, subset_frames=None, batched=True, device="cuda"):
                 if prep is not None:
                     preps.append(prep)
             else:
-                labels.append(refine_annotation(rt, sample, anno,
-                                                maskrcnn_labels, bbox_max_id))
+                labels.append(refine_annotation(
+                    rt, sample, anno, maskrcnn_labels, bbox_max_id,
+                    viz_dir=viz_dir,
+                    viz_tag=f"f{frame_idx:06d}_a{anno_idx:02d}_"))
         if batched:
-            labels = refine_crops_batched(rt, sample, preps)
+            labels = refine_crops_batched(rt, sample, preps, viz_dir=viz_dir,
+                                          viz_tag=f"f{frame_idx:06d}_")
         # None: no pose, or an empty band (QUIRKS #15)
         for label in filter(None, labels):
             for key, value in label.items():
@@ -585,27 +772,59 @@ def refine_css_demo(cfgp, sample=None, device="cuda",
     np.random.seed(1)
     cfg = (cfgp if isinstance(cfgp, cfg_mod.RefineCfg)
            else cfg_mod.RefineCfg.from_ini(cfgp))
-    if cfg.viz_type and cfg.viz_type != "none":
-        _refuse("visualization")
     if rt is None:
         rt = setup_runtime(cfg, device=device)
     if sample is None:
         sample = load_demo_sample()
     if cfg.label_type != "gt" and maskrcnn is None:
         maskrcnn = load_demo_maskrcnn()
+    viz_dir = (os.path.join(cfg.labels_out, "viz") if _viz_on(cfg)
+               else None)
 
     frame_annos, frame_estimations = defaultdict(list), defaultdict(list)
-    for anno in kitti_mod.get_annos(cfg.diff_annos, sample):
+    est_anno_idx = []  # each estimation's annotation: skips shift them
+    for anno_idx, anno in enumerate(kitti_mod.get_annos(cfg.diff_annos,
+                                                        sample)):
         for key, value in anno.items():
             frame_annos[key].append(value)
         bbox_max_id = None
         if cfg.label_type != "gt":
             bbox, bbox_max_id = _fuse_maskrcnn(anno, maskrcnn, min_iou=0.0)
             anno = dict(anno, bbox=bbox)
-        label = refine_annotation(rt, sample, anno, maskrcnn, bbox_max_id)
+        label = refine_annotation(rt, sample, anno, maskrcnn, bbox_max_id,
+                                  viz_dir=viz_dir,
+                                  viz_tag=f"demo_a{anno_idx:02d}_")
         if label is None:
             continue
+        est_anno_idx.append(anno_idx)
         for key, value in label.items():
             frame_estimations[key].append(value)
     _stack_frame(frame_annos, frame_estimations)
+    if viz_dir is not None:
+        demo_views(cfg.labels_out, sample, frame_annos, frame_estimations,
+                   est_anno_idx)
     return frame_annos, frame_estimations
+
+
+def demo_views(out_dir: str, sample: dict, frame_annos: dict,
+               frame_estimations: dict, est_anno_idx: list) -> list:
+    """The headless stand-ins for the reference's final Open3D view
+    (refine_css_demo.py:198, plot_3d_final; JAX refine_css.py:1119-1150):
+    out_dir/demo_scene3d.html, the LIDAR with every estimated (red) and
+    ground-truth (green) cuboid, and a BEV schematic demo_bev_{i}.png per
+    estimation, each beside the annotation it came from. Returns the
+    written paths."""
+    os.makedirs(out_dir, exist_ok=True)
+    lidar = sample.get("lidar", np.zeros((0, 3)))
+    box_keys = ("dimensions", "location", "rotation_y")
+    est = [{k: frame_estimations[k][i] for k in box_keys}
+           for i in range(len(frame_estimations.get("location", [])))]
+    gt = [{k: frame_annos[k][src] for k in box_keys} for src in est_anno_idx]
+    written = [viz3d.export_scene_html(
+        os.path.join(out_dir, "demo_scene3d.html"), lidar=lidar,
+        est_boxes=est, gt_boxes=gt, title="autolabels vs GT")]
+    for i, (e, g) in enumerate(zip(est, gt)):
+        path = os.path.join(out_dir, f"demo_bev_{i}.png")
+        viz.plot_bev(lidar, label=e, gt_anno=g, path=path)
+        written.append(path)
+    return written

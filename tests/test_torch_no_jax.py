@@ -41,6 +41,9 @@ EXPECTED = tuple("sdflabel_tpu_torch." + m for m in (
     "ops.splat_cuda",
     "pipelines.train_css",
     "parallel.batched_refine",
+    "utils.viz",
+    "utils.viz3d",
+    "ops.pnp",
 ))
 
 

@@ -146,6 +146,7 @@ def test_entry_points_need_a_card_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tpipe.setup_runtime(tcfg.RefineCfg(**_demo_cfg(1)))
+    # the stock demo config (viz_type 3d, ported) asks for the card too
     kw = dict(_demo_cfg(1), viz_type="3d")
-    with pytest.raises(NotImplementedError):
-        tpipe.refine_css_demo(tcfg.RefineCfg(**kw), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpipe.refine_css_demo(tcfg.RefineCfg(**kw))
