@@ -2,7 +2,9 @@
 
     python3 chip_smoke.py
 
-Seven phases; any failure exits non-zero and no phase's error is caught.
+Eight phases; any failure exits non-zero and no phase's error is caught
+(phase 8 alone halves its batch on running out of card memory, and says
+so).
 
 1. Build the port's CUDA kernels from ``sdflabel_tpu_torch/csrc`` (one
    nvcc per source, started together), print the registers, spills and
@@ -36,7 +38,12 @@ Seven phases; any failure exits non-zero and no phase's error is caught.
    the crop axis: kernels 1a, 1b, 2 and 3 each launched once for 4 crops of
    the main path's shapes, held against their plain versions crop by crop
    and bit-equal to 4 single-crop launches, timed alone beside those 4
-   launches and beside one crop's. Kernel 3 at the coarse cells' shapes:
+   launches and beside one crop's; the same for kernels 4a and 4b (8192
+   points a crop through the 8x512 stack) and the binned trio (the bins,
+   1c, 1d: 4096 surfels a crop on 128x128 px, the last crop all masked as
+   a padded lane, whose bins, image and gradients must be empty), the
+   batched bins also equal to compute_bins with a crop axis. Kernel 3 at
+   the coarse cells' shapes:
    the 9261-point corner lattice and 16384 cell points a crop, one crop
    and four, against the plain version; the cells the card ranks, ties in
    index order, equal to the CPU's ranking.
@@ -75,7 +82,14 @@ Seven phases; any failure exits non-zero and no phase's error is caught.
    with ``coarse_cells = 2048`` (the warm band off), and 4d's four crops
    with ``warm_refresh_cells``: kernel 3 launches twice a refresh (or an
    iteration), on the shared corner lattice and on the cells' points,
-   once for all four crops; ms/iteration and labels beside phase 4's.
+   once for all four crops; ms/iteration and labels beside phase 4's;
+   (4f) 4d's four crops with ``stage2_pallas = True``: kernels 4a and 4b
+   launch 60 times for the four crops, each crop tracks itself refined
+   alone with the stage-2 kernels within 1e-3 at every iteration and in
+   the label, s/crop beside 4c's; (4g) the same four crops prepared at
+   ``rendering_area = 96``, whose bucket takes the binned route, for 10
+   iterations: the bins, 1c and 1d launch once an iteration for the four,
+   and each crop tracks itself alone within 1e-3.
 5. Crops: ``make_crops`` renders 26 crops of 128x128 px (grid 40,
    capacity 4096) from data/quality_nets/deepsdf_quality.pt, each through
    the bins kernel and the binned splat forward; the device launches of
@@ -99,12 +113,23 @@ Seven phases; any failure exits non-zero and no phase's error is caught.
    car must get a label, and the BEV and 3D AP must lie within 2 and 5
    points of the JAX driver's on the same frames
    (QUALITY_jax_cpu_v2.json, written by scripts/quality_jax_cpu.py).
+8. DeepSDF training (run after phase 6): ``train_deepsdf`` on an
+   experiment of 128 analytic scenes (sample_analytic_sdf) through the
+   reference 8x512 decoder with dropout 0.2 on every layer, at the
+   reference batch of 64 scenes x 16384 samples (1,048,576 rows a step),
+   2 epochs of 2 steps: ms/step, rows/s and peak memory; the loss finite
+   and lower at the last step than at the first; no
+   CPU operator in the first two steps; one step on the card against the
+   same step on the CPU (the same state and drawn rows of 8 scenes,
+   dropout off) within 1e-5; the exported deepsdf.pt reloaded by
+   load_torch_checkpoint to SDFs within 1e-6.
 
 Each kernel's launches are counted on the path that runs it (set to 0
 just before the path, read just after): the dense splat, NN and selection
 kernels in phase 4, the stage-2 kernels in 4c, the binned backward in 4b,
 the bins and the binned forward in 5 and the CE kernels in 6; the
-record of each crop-axis kernel also gives its launches in 4d, and
+record of each crop-axis kernel also gives its launches in 4d (4f for
+4a and 4b, 4g for the binned trio), and
 ``launches_by_path`` those on the paths of 3b (the viz) and 4e. The line
 before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Without a card
@@ -118,7 +143,7 @@ designs of the dense splat backward and the nearest neighbour, and phase
 4c's crop
 with the new designs and with the first splat forward and the wmma 4b,
 for comparison; then the train step timed with cuDNN's autotuner on. ``--rehearse-cpu`` runs phases
-3 to 7 on the CPU at a tiny size (2 iterations, 2 suite frames) with the
+3 to 8 on the CPU at a tiny size (2 iterations, 2 suite frames) with the
 kernels' plain versions, then exits 3 without a result: a dry run of the
 control flow for machines without a card (4d included).
 """
@@ -132,6 +157,7 @@ import functools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -146,7 +172,9 @@ sys.path.insert(0, ROOT)
 
 from sdflabel_tpu_torch import config as cfg_mod  # noqa: E402
 from sdflabel_tpu_torch.data import crops as crops_data  # noqa: E402
+from sdflabel_tpu_torch.data import sdf_samples  # noqa: E402
 from sdflabel_tpu_torch.engine import css_train  # noqa: E402
+from sdflabel_tpu_torch.engine import deepsdf_train  # noqa: E402
 from sdflabel_tpu_torch.engine import refine as refine_mod  # noqa: E402
 from sdflabel_tpu_torch.models import css as css_mod  # noqa: E402
 from sdflabel_tpu_torch.models import deepsdf  # noqa: E402
@@ -158,6 +186,7 @@ from sdflabel_tpu_torch.pipelines import evaluate_dump  # noqa: E402
 from sdflabel_tpu_torch.pipelines import make_crops as crops_pipe  # noqa: E402
 from sdflabel_tpu_torch.pipelines import refine_css as pipe  # noqa: E402
 from sdflabel_tpu_torch.pipelines import train_css as train_pipe  # noqa: E402
+from sdflabel_tpu_torch.pipelines import train_deepsdf as dsdf_pipe  # noqa: E402
 from sdflabel_tpu_torch.renderer import rasterer  # noqa: E402
 from sdflabel_tpu_torch.tools import quality_suite  # noqa: E402
 from sdflabel_tpu_torch.utils import png  # noqa: E402
@@ -782,6 +811,31 @@ def design_report(row: dict, design: str, wmma_ms: float,
 CROPS = 4  # crops of the batched checks and of phase 4d
 
 
+def crop_axis_record(name, b, batched, singles, one, err, same, kernel,
+                     **extra) -> dict:
+    """Time `batched` (one launch of all b crops), `singles` (a launch per
+    crop) and `one` (crop 0 alone) by the device time of the kernels whose
+    names contain each of `kernel` (a name or a tuple of names, summed),
+    and a call of each; print the record and fail unless `same` (each crop
+    bit-equal to its single launch)."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
+
+    def alone(fn):
+        return sum(kernel_ms(fn, k) for k in names)
+
+    b_ms, one_ms, singles_ms = alone(batched), alone(one), alone(singles) * b
+    rec = dict(crops=b, max_abs_err=err, bit_equal=same, kernel_ms=b_ms,
+               singles_kernel_ms=singles_ms, b1_kernel_ms=one_ms,
+               ms=time_ms(batched), singles_ms=time_ms(singles), **extra)
+    print(f"crop axis {name}: B = {b} in one launch {b_ms:.4f} ms alone "
+          f"({rec['ms']:.4f} a call), {b} single launches "
+          f"{singles_ms:.4f} ms alone ({rec['singles_ms']:.4f} a call), "
+          f"B = 1 {one_ms:.4f} ms alone; max_abs_err {err:.3g} against the "
+          f"plain version, bit-equal to single launches: {same}")
+    assert same
+    return rec
+
+
 def check_crop_axis(dev) -> dict:
     """Kernels 1a, 1b, 2 and 3 at B = 4 crops of the main path's shapes
     (8192 surfels onto 32x32 px with each crop's own intrinsics; 8192 x
@@ -806,24 +860,8 @@ def check_crop_axis(dev) -> dict:
                                splat.pixel_grid(*res, device=dev))
     out = {}
 
-    def record(name, batched, singles, one, err, same, **extra):
-        """Time `batched` (one launch of all crops), `singles` (a launch per
-        crop) and `one` (crop 0 alone) by the device time of `kernel`."""
-        kernel = extra.pop("kernel")
-        b_ms = kernel_ms(batched, kernel)
-        one_ms = kernel_ms(one, kernel)
-        singles_ms = kernel_ms(singles, kernel) * b
-        out[name] = dict(crops=b, max_abs_err=err, bit_equal=same,
-                         kernel_ms=b_ms, singles_kernel_ms=singles_ms,
-                         b1_kernel_ms=one_ms, ms=time_ms(batched),
-                         singles_ms=time_ms(singles), **extra)
-        print(f"crop axis {name}: B = {b} in one launch {b_ms:.4f} ms alone "
-              f"({out[name]['ms']:.4f} a call), {b} single launches "
-              f"{singles_ms:.4f} ms alone ({out[name]['singles_ms']:.4f} a "
-              f"call), B = 1 {one_ms:.4f} ms alone; max_abs_err {err:.3g} "
-              f"against the plain version, bit-equal to single launches: "
-              f"{same}")
-        assert same
+    def record(name, *args, **kw):
+        out[name] = crop_axis_record(name, b, *args, **kw)
 
     # 1a and 1b: the packed inputs, as the autograd Function builds them
     pk = splat_cuda._pack_points(pts, nrm, mask)
@@ -1007,7 +1045,7 @@ def check_stage2(dev) -> list[dict]:
         mlp2_cuda.STAGE2_FWD_WMMA(
             _cuda.ptr(pts), _cuda.ptr(packed.ws), _cuda.ptr(packed.wx),
             _cuda.ptr(cvec), _cuda.ptr(packed.wlast), _cuda.ptr(packed.scal),
-            n, H, nh, int(packed.use_tanh), _cuda.ptr(out4),
+            1, n, H, nh, int(packed.use_tanh), _cuda.ptr(out4),
             _cuda.stream(pts))
 
     wmma()
@@ -1261,6 +1299,171 @@ def check_splat_binned(dev) -> list[dict]:
              first_chain_ms=t["bwd_first_chain_ms"],
              rel_vs_first=bwd_vs_first),
     ]
+
+
+def check_crop_axis_stage2_binned(dev) -> dict:
+    """The crop axis of kernels 4a and 4b (8192 points a crop through the
+    8x512 stack, a latent a crop) and of the binned trio (the bins, 1c,
+    1d: crop_scene's 4096 surfels on 128x128 px, each crop's surface moved
+    by its own offset, the last crop all masked as a padded lane) at B =
+    4: one launch of all crops bit-equal to four single-crop launches and
+    each crop within the standing tolerances of its plain version
+    (mlp2_cuda.stage2_agreement; the windowed plain composite), the
+    batched bins equal to compute_bins with a crop axis; timed alone
+    beside the four single launches and one crop's. Returns {kernel:
+    record}."""
+    b, out = CROPS, {}
+    cfg, params = decoder_8x512(dev)
+    packed = mlp_cuda.pack_select_mlp(
+        cfg, deepsdf.cast_params(params, torch.bfloat16))
+    n = 8192
+    rng = np.random.RandomState(13)
+    pts = torch.as_tensor(rng.uniform(-1, 1, (b, n, 3)).astype(np.float32),
+                          device=dev)
+    ct = torch.as_tensor(rng.randn(b, n).astype(np.float32), device=dev)
+    lat = torch.nn.functional.normalize(torch.as_tensor(
+        rng.randn(b, 3).astype(np.float32), device=dev), dim=-1)
+    cvec = mlp_cuda._cvec(packed, lat).contiguous()
+    fwd = mlp2_cuda.stage2_fwd(packed, cvec, pts)
+    dcvec, dpts = mlp2_cuda.stage2_bwd(packed, cvec, pts, ct)
+    singles = [(cvec[i].contiguous(), pts[i].contiguous(),
+                ct[i].contiguous()) for i in range(b)]
+    fwd_same = all(torch.equal(fwd[i], mlp2_cuda.stage2_fwd(packed, c, p))
+                   for i, (c, p, _) in enumerate(singles))
+    bwd_same = True
+    fwd_err = bwd_err = 0.0
+    for i, (c, p, t) in enumerate(singles):
+        dc1, dp1 = mlp2_cuda.stage2_bwd(packed, c, p, t)
+        bwd_same &= torch.equal(dcvec[i], dc1) and torch.equal(dpts[i], dp1)
+        cv = c.clone().requires_grad_(True)
+        pp = p.clone().requires_grad_(True)
+        sdf = mlp2_cuda.stage2_plain(packed, cv, pp)
+        (g,) = torch.autograd.grad(sdf.sum(), pp, retain_graph=True)
+        dcv_p, dp_p = torch.autograd.grad(sdf, (cv, pp), t)
+        shares, medians = mlp2_cuda.stage2_agreement(
+            fwd[i, :, 0], sdf.detach(), (
+                ("normals", fwd[i, :, 1:], g), ("d_points", dpts[i], dp_p),
+                ("d_cvec", dcvec[i].reshape(-1, 1), dcv_p.reshape(-1, 1))))
+        print(f"crop axis stage2, crop {i}: shares {shares}, medians "
+              f"{medians} (mlp2_cuda.stage2_agreement's limits)")
+        assert shares["sdf"] >= 0.995 and medians.pop("sdf") <= 1e-6
+        assert min(shares.values()) >= 0.98 and max(medians.values()) <= 1e-4
+        fwd_err = max(fwd_err, float((fwd[i, :, 0] - sdf.detach()).abs()
+                                     .max()),
+                      float((fwd[i, :, 1:] - g).abs().max()))
+        bwd_err = max(bwd_err, float((dpts[i] - dp_p).abs().max()),
+                      float((dcvec[i] - dcv_p).abs().max()))
+    out["stage2_fwd"] = crop_axis_record(
+        "stage2_fwd", b, lambda: mlp2_cuda.stage2_fwd(packed, cvec, pts),
+        lambda: [mlp2_cuda.stage2_fwd(packed, c, p) for c, p, _ in singles],
+        lambda: mlp2_cuda.stage2_fwd(packed, *singles[0][:2]), fwd_err,
+        fwd_same, "stage2_fwd_wgmma_kernel")
+    out["stage2_bwd"] = crop_axis_record(
+        "stage2_bwd", b, lambda: mlp2_cuda.stage2_bwd(packed, cvec, pts, ct),
+        lambda: [mlp2_cuda.stage2_bwd(packed, *c) for c in singles],
+        lambda: mlp2_cuda.stage2_bwd(packed, *singles[0]), bwd_err,
+        bwd_same, ("stage2_bwd_wgmma_kernel", "dcvec_reduce_kernel"))
+
+    # the binned trio: 4096 surfels a crop onto 128x128 px
+    v, nrm, feats, mask, kg = crop_scene(dev)
+    shift = torch.tensor([[0.0, 0.0, 0.0], [0.02, 0.0, 0.0],
+                          [0.0, -0.03, 0.0], [0.0, 0.0, 0.05]], device=dev)
+    vb = (v[None] + shift[:, None]).contiguous()
+    nb_, fb = (t[None].expand(b, *t.shape).contiguous() for t in (nrm, feats))
+    mb = mask[None].expand(b, -1).clone()
+    mb[b - 1] = False  # a padded lane
+    kgb = kg[None].expand(b, *kg.shape).contiguous()
+    p = kg.shape[0]
+    bin_px = splat_cuda.bin_policy(p)
+    assert bin_px == 512
+    n_rows = -(-p // bin_px)
+    pk = splat_cuda._pack_points(vb, nb_, mb)
+    kg4 = splat_cuda._pack_rays(kgb)
+    sb = splat_cuda._sort_bins(pk, fb, kg4, 0.04, bin_px)
+    img, m, d, zn = splat_cuda._fwd_binned(sb.pts, sb.feats, kg4, sb.win,
+                                           bin_px, 0.04, 150.0)
+    g = torch.randn(img.shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(14))
+    corr = (g * img).sum(-1, keepdim=True)
+    pix = torch.cat([kg4, m[..., None], d[..., None], zn[..., None], corr, g],
+                    -1).contiguous()
+    grads = splat_cuda._bwd_binned(sb.pts, sb.feats, pix, sb.key, sb.smax,
+                                   sb.order, bin_px, 0.04, 150.0)
+    want = splat_cuda.compute_bins(pk, kg4, 0.04, bin_px)
+    bins_plain = (torch.equal(sb.order.long(), want.order)
+                  and torch.equal(sb.key.long(), want.key)
+                  and torch.equal(sb.smax.long(), want.smax)
+                  and torch.equal(sb.win[..., 0].long(), want.start)
+                  and torch.equal((sb.win[..., 1] - sb.win[..., 0]).long(),
+                                  want.count))
+    one = [[t[i].contiguous() for t in (pk, fb, kg4, pix)] for i in range(b)]
+    sbs = [splat_cuda._sort_bins(o[0], o[1], o[2], 0.04, bin_px) for o in one]
+    bins_same = all(
+        torch.equal(getattr(sb, f)[i] if f != "smax" else sb.smax[i:i + 1],
+                    getattr(s1, f))
+        for i, s1 in enumerate(sbs) for f in s1._fields)
+    fwd_same = all(torch.equal(a[i], c) for i, (o, s1) in enumerate(
+        zip(one, sbs)) for a, c in zip((img, m, d, zn), splat_cuda._fwd_binned(
+            s1.pts, s1.feats, o[2], s1.win, bin_px, 0.04, 150.0)))
+    bwd_same = all(torch.equal(a[i], c) for i, (o, s1) in enumerate(
+        zip(one, sbs)) for a, c in zip(grads, splat_cuda._bwd_binned(
+            s1.pts, s1.feats, o[3], s1.key, s1.smax, s1.order, bin_px, 0.04,
+            150.0)))
+    lane = b - 1
+    lane_empty = (int(sb.smax[lane]) == 0 and bool((sb.key[lane] == n_rows)
+                                                   .all())
+                  and not img[lane].any()
+                  and all(not t[lane].any() for t in grads))
+    print(f"crop axis binned: bins equal to compute_bins with a crop axis: "
+          f"{bins_plain}; smax per crop {sb.smax.tolist()}; the all-masked "
+          f"lane empty (no window, image or gradient): {lane_empty}")
+    assert bins_plain and lane_empty
+    # against the windowed plain version through autograd, crop by crop
+    args_k = [t.clone().requires_grad_(True) for t in (vb, nb_, fb)]
+    img_k = splat_cuda.surfel_composite(*args_k, kgb, mb)
+    gk = torch.autograd.grad(img_k, args_k, g)
+    bfwd_err = bbwd_err = 0.0
+    for i in range(b):
+        args_p = [t[i].clone().requires_grad_(True) for t in (vb, nb_, fb)]
+        img_p = splat_cuda.surfel_composite_windowed(*args_p, kg, mb[i],
+                                                     bin_px=bin_px)
+        gp = torch.autograd.grad(img_p, args_p, g[i])
+        if i == lane:
+            assert not img_k[i].any() and not img_p.any()
+            continue
+        e_f, e_b = splat_agreement(f"crop axis splat binned, crop {i}",
+                                   img_k[i], img_p, [t[i] for t in gk], gp)
+        bfwd_err, bbwd_err = max(bfwd_err, e_f), max(bbwd_err, e_b)
+    out["splat_bins"] = crop_axis_record(
+        "splat_bins", b,
+        lambda: splat_cuda._sort_bins(pk, fb, kg4, 0.04, bin_px),
+        lambda: [splat_cuda._sort_bins(o[0], o[1], o[2], 0.04, bin_px)
+                 for o in one],
+        lambda: splat_cuda._sort_bins(*one[0][:3], 0.04, bin_px), 0.0,
+        bins_same, ("splat_bins_keys_kernel", "splat_bins_scatter_kernel"))
+    out["splat_fwd_binned"] = crop_axis_record(
+        "splat_fwd_binned", b,
+        lambda: splat_cuda._fwd_binned(sb.pts, sb.feats, kg4, sb.win, bin_px,
+                                       0.04, 150.0),
+        lambda: [splat_cuda._fwd_binned(s1.pts, s1.feats, o[2], s1.win,
+                                        bin_px, 0.04, 150.0)
+                 for o, s1 in zip(one, sbs)],
+        lambda: splat_cuda._fwd_binned(sbs[0].pts, sbs[0].feats, one[0][2],
+                                       sbs[0].win, bin_px, 0.04, 150.0),
+        bfwd_err, fwd_same, "splat_fwd_binned_split_kernel")
+    out["splat_bwd_binned"] = crop_axis_record(
+        "splat_bwd_binned", b,
+        lambda: splat_cuda._bwd_binned(sb.pts, sb.feats, pix, sb.key,
+                                       sb.smax, sb.order, bin_px, 0.04,
+                                       150.0),
+        lambda: [splat_cuda._bwd_binned(s1.pts, s1.feats, o[3], s1.key,
+                                        s1.smax, s1.order, bin_px, 0.04,
+                                        150.0) for o, s1 in zip(one, sbs)],
+        lambda: splat_cuda._bwd_binned(sbs[0].pts, sbs[0].feats, one[0][3],
+                                       sbs[0].key, sbs[0].smax, sbs[0].order,
+                                       bin_px, 0.04, 150.0),
+        bbwd_err, bwd_same, "splat_bwd_binned_split_kernel")
+    return out
 
 
 def binned_render_launches(dev, n: int, res: tuple, backward: bool) -> dict:
@@ -1786,7 +1989,8 @@ def shifted_crops(prep: dict) -> list[dict]:
 
 
 def batched_full_width_phase(dev, rt512, sample, prep, full: dict,
-                             full_launched: dict):
+                             full_launched: dict, expect=None,
+                             label_: str = "batched full width"):
     """Phase 4d: four crops of phase 4's runtime (shifted_crops) refined at
     once by the batched driver's refine_crops_batched, timed and counted:
     each of the crop-axis kernels must launch as often for the batch as for
@@ -1796,9 +2000,14 @@ def batched_full_width_phase(dev, rt512, sample, prep, full: dict,
     the same arithmetic (engine/refine.py::batch_step). Printed beside: the
     crop alone from a start moved by 1e-6, which the refine on the seeded
     random decoder may carry to centimetres (scripts/batched_vs_alone.py,
-    scripts/batched_lanes_jax.py)."""
+    scripts/batched_lanes_jax.py). Phases 4f and 4g run the same with
+    another runtime, `prep` and `expect`: {kernel: launches the batch must
+    make}; `full` is then the single-crop run it is timed beside."""
     crops = shifted_crops(prep)
     iters = rt512.cfg.iters
+    if expect is None:
+        expect = {k: full_launched[k] for k in ("splat_fwd", "splat_bwd",
+                                                "nn", "select_mlp")}
     alone, moved, alone_s = [], [], []
     for crop in crops:
         t0 = time.perf_counter()
@@ -1813,7 +2022,8 @@ def batched_full_width_phase(dev, rt512, sample, prep, full: dict,
     bucket, inputs = pipe.batch_inputs(rt512, crops)
     _, hist = batched_refine.make_batched_refine(
         rt512.decoder, rt512.refine_config(), rt512.grid_points, bucket,
-        select_decoder=rt512.select_decoder, device=dev)(*inputs)
+        select_decoder=rt512.select_decoder, stage2_fn=rt512.stage2_fn,
+        device=dev)(*inputs)
     if dev.type == "cuda":
         pipe.refine_crops_batched(rt512, sample, crops)  # warm-up
     reset_counts()
@@ -1831,15 +2041,19 @@ def batched_full_width_phase(dev, rt512, sample, prep, full: dict,
                              - np.asarray(b["location"], float)).max()),
                 min(dyaw, 2 * np.pi - dyaw))
 
-    track, gaps = [], []
+    track, gaps, parting = [], [], []
     for i, (got, (params, want), nudged) in enumerate(zip(labels, alone,
                                                           moved)):
-        track.append(max(float((a - b[i]).abs().max())
-                         for a, b in zip(params, hist.params)))
+        per_iter = torch.stack([(a - b[i]).abs().amax(-1) for a, b in zip(
+            params, hist.params)]).amax(0)
+        track.append(float(per_iter.max()))
+        off = (per_iter > 1e-6).nonzero()
+        parting.append(int(off[0]) if len(off) else None)
         gaps.append((label_gap(got, want), label_gap(nudged, want)))
-        print(f"batched full width: crop {i}: parameters within "
+        print(f"{label_}: crop {i}: parameters within "
               f"{track[-1]:.3g} of the crop alone over all {iters} "
-              f"iterations (need <= 1e-3); label location "
+              f"iterations (need <= 1e-3; first iteration over 1e-6: "
+              f"{parting[-1]}); label location "
               f"{np.asarray(got['location'])}, alone "
               f"{np.asarray(want['location'])}, |d location| "
               f"{gaps[-1][0][0]:.3g} m, |d rotation_y| {gaps[-1][0][1]:.3g} "
@@ -1852,12 +2066,12 @@ def batched_full_width_phase(dev, rt512, sample, prep, full: dict,
                    s_per_crop_ratio=wall / len(crops) / full["wall_s"],
                    alone_s_per_crop=alone_mean,
                    s_per_crop_ratio_alone=wall / len(crops) / alone_mean,
-                   max_track_gap=max(track),
+                   max_track_gap=max(track), first_parting=parting,
                    label_gaps=[g[0] for g in gaps],
                    moved_start_label_gaps=[g[1] for g in gaps])
-    line = (f"batched full width: {len(crops)} crops, {iters} iterations, "
+    line = (f"{label_}: {len(crops)} crops, {iters} iterations, "
             f"{wall:.3f} s wall, {summary['ms_per_iteration']:.3f} "
-            f"ms/iteration, {summary['s_per_crop']:.4f} s/crop (phase 4: "
+            f"ms/iteration, {summary['s_per_crop']:.4f} s/crop (one crop: "
             f"{full['wall_s'] / iters * 1e3:.3f} ms/iteration, "
             f"{full['wall_s']:.4f} s/crop, ratio "
             f"{summary['s_per_crop_ratio']:.3f}; each crop alone, warm: "
@@ -1872,16 +2086,69 @@ def batched_full_width_phase(dev, rt512, sample, prep, full: dict,
         summary["device_launches_per_iteration"] = per_iter["batched"]
         summary["phase4_device_launches_per_iteration"] = per_iter["one crop"]
         line += (f"; device launches per iteration {per_iter['batched']:.1f} "
-                 f"(phase 4's crop: {per_iter['one crop']:.1f})")
+                 f"(one crop: {per_iter['one crop']:.1f})")
     print(line)
     assert max(track) <= 1e-3, track
     assert max(max(g[0]) for g in gaps) <= 1e-3, gaps
     assert all(np.isfinite(g["location"]).all() for g in labels)
     if dev.type == "cuda":
         # one launch per iteration (select: per refresh) for the whole batch
-        for name in ("splat_fwd", "splat_bwd", "nn", "select_mlp"):
-            assert launched[name] == full_launched[name] > 0, name
-        assert launched["splat_fwd"] == iters
+        for name, n in expect.items():
+            assert launched[name] == n > 0, (name, launched[name], n)
+    return launched, summary
+
+
+def batched_stage2_phase(dev, rt_stage2, sample, prep, stage2: dict,
+                         stage2_launched: dict):
+    """Phase 4f: phase 4d's four crops with stage2_pallas = True (phase
+    4c's runtime): kernels 4a and 4b launch once per iteration for the
+    four crops, as 4c's one crop does, beside the crop-axis kernels of 4d;
+    each crop tracks itself refined alone with the stage-2 kernels within
+    1e-3 at every iteration and in the label. s/crop beside 4c's."""
+    expect = {k: stage2_launched[k] for k in (
+        "splat_fwd", "splat_bwd", "nn", "select_mlp", "stage2_fwd",
+        "stage2_bwd")}
+    if dev.type == "cuda":
+        assert expect["stage2_fwd"] == expect["stage2_bwd"] == \
+            rt_stage2.cfg.iters
+    return batched_full_width_phase(dev, rt_stage2, sample, prep, stage2,
+                                    stage2_launched, expect,
+                                    "batched full width, stage 2")
+
+
+def batched_binned_phase(dev, rt_demo, rt512, sample, prep,
+                         iters: int = 10):
+    """Phase 4g: phase 4d's four crops at rendering_area = 96 (phase 3's
+    crop prepared again at that area, as phase 4 refines phase 3's
+    preparation), whose bucket of >= 4096 px takes the binned route, for
+    `iters` iterations of phase 4's runtime: the bins, 1c and 1d launch
+    once per iteration for the four crops, and each crop tracks itself
+    refined alone within 1e-3. Timed beside the first crop refined alone
+    at the same settings."""
+    prep96 = pipe.prepare_crop(pipe.RefineRuntime(
+        dataclasses.replace(rt_demo.cfg, rendering_area=96), rt_demo.css,
+        rt_demo.dsdf_cfg, rt_demo.dsdf_params, device=dev), sample,
+        prep["anno"])
+    cfg = dataclasses.replace(rt512.cfg, rendering_area=96, iters=iters)
+    rt = pipe.RefineRuntime(cfg, rt512.css, rt512.dsdf_cfg,
+                            rt512.dsdf_params, device=dev)
+    assert prep96 is not None
+    h, w = prep96["crop_hw"]
+    assert splat_cuda.bin_policy(h * w) == 512, (h, w)
+    rt.run_refine(prep96)  # warm-up
+    t0 = time.perf_counter()
+    rt.run_refine(prep96)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    one = dict(wall_s=time.perf_counter() - t0)
+    expect = {k: iters for k in ("splat_bins", "splat_fwd_binned",
+                                 "splat_bwd_binned")}
+    launched, summary = batched_full_width_phase(
+        dev, rt, sample, prep96, one, {}, expect if dev.type == "cuda" else
+        {}, "batched binned")
+    summary["px"] = h * w
+    if dev.type == "cuda":
+        assert launched["splat_fwd"] == launched["splat_bwd"] == 0
     return launched, summary
 
 
@@ -2235,6 +2502,211 @@ def train_phase(dev, crops_dir, log_dir, width: int = 64, batch: int = 13,
         fixed_batch_step_ms=fixed_ms)
 
 
+# ---------------------------------------------------------------- phase 8
+
+def dsdf_experiment(out_dir: str, n_scenes: int, rows: int, dims: tuple,
+                    scenes_per_batch: int, samples: int) -> str:
+    """A DeepSDF experiment directory in out_dir: `n_scenes` analytic
+    scenes (spheres and rounded boxes of seeded sizes) of `rows` sample
+    rows each from sample_analytic_sdf, written as SdfSamples npz files,
+    a split and the specs of the reference decoder at width `dims` (weight
+    norm, latent_in 4, latent 3, dropout 0.2 on every layer)."""
+    rng = np.random.RandomState(21)
+    names = [f"scene{i:04d}" for i in range(n_scenes)]
+    for i, name in enumerate(names):
+        r = rng.uniform(0.3, 0.7)
+        half = rng.uniform(0.2, 0.5, 3)
+        if i % 2:
+            def sdf(p, r=r):
+                return np.linalg.norm(p, axis=-1) - r
+        else:
+            def sdf(p, h=half):
+                q = np.abs(p) - h
+                return (np.linalg.norm(np.maximum(q, 0), axis=-1)
+                        + np.minimum(q.max(-1), 0) - 0.05)
+        pos, neg = sdf_samples.sample_analytic_sdf(sdf, rng, rows)
+        sdf_samples.write_sdf_samples(os.path.join(
+            out_dir, "SdfSamples", "synthetic", "car", name + ".npz"),
+            pos, neg)
+    exp = os.path.join(out_dir, "exp")
+    os.makedirs(exp, exist_ok=True)
+    with open(os.path.join(exp, "split.json"), "w") as f:
+        json.dump({"synthetic": {"car": names}}, f)
+    cfg = deepsdf.DeepSDFConfig(
+        latent_size=3, dims=dims, dropout=tuple(range(len(dims))),
+        dropout_prob=0.2, norm_layers=tuple(range(len(dims))),
+        latent_in=(4,), weight_norm=True)
+    specs = deepsdf.specs_from_config(cfg)
+    specs.update({"TrainSplit": "split.json", "DataSource": out_dir,
+                  "SamplesPerScene": samples,
+                  "ScenesPerBatch": scenes_per_batch,
+                  "CodeRegularizationLambda": 1e-4, "CodeBound": 1.0})
+    with open(os.path.join(exp, "specs.json"), "w") as f:
+        json.dump(specs, f)
+    return exp
+
+
+def deepsdf_train_phase(dev, out_dir: str, small: bool = False):
+    """Phase 8: train_deepsdf at the reference batch through the reference
+    8x512 decoder (dropout 0.2 on all layers): 128 analytic scenes, 64 a
+    step x 16384 samples = 1,048,576 rows a step, 2 epochs of 2 steps; the
+    batch is halved until the step fits the card, and the cut printed.
+    ms/step, rows/s, peak memory; the loss finite and falling; no CPU
+    operator in the first two steps; one step on the card against the same
+    step on the CPU (same state, the same drawn rows, dropout off) on 8
+    scenes; the exported deepsdf.pt reloaded to equal SDFs. The loss
+    must fall from the first step to the last (each step's own scenes and
+    dropout masks); a fixed draw's loss without dropout is printed
+    beside."""
+    n_scenes, bsz, samples, dims = ((8, 4, 256, (32,) * 8) if small
+                                    else (128, 64, 16384, (512,) * 8))
+    root = os.path.join(out_dir, "dsdf")
+    exp = dsdf_experiment(root, n_scenes, 2 * samples, dims, bsz, samples)
+    watch = _cpu_op_watch()
+    while True:
+        steps = []
+
+        def timed(step_fn):
+            def step(state, scene_idx):
+                t0 = time.perf_counter()
+                if len(steps) < 2:
+                    with watch:
+                        out = step_fn(state, scene_idx)
+                else:
+                    out = step_fn(state, scene_idx)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                steps.append((time.perf_counter() - t0,
+                              float(out[1]["loss"])))
+                return out
+            return step
+
+        for name in os.listdir(exp):
+            if name in ("Checkpoints", "ModelParameters", "LatentCodes"):
+                shutil.rmtree(os.path.join(exp, name))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            state = dsdf_pipe.train_deepsdf(exp, num_epochs=2, device=dev,
+                                            log_every=1, step_wrapper=timed)
+            break
+        except torch.cuda.OutOfMemoryError:
+            if bsz == 1:
+                raise
+            bsz //= 2
+            print(f"deepsdf train: out of memory, the batch cut to {bsz} "
+                  f"scenes x {samples} samples")
+            with open(os.path.join(exp, "specs.json")) as f:
+                specs = json.load(f)
+            specs["ScenesPerBatch"] = bsz
+            with open(os.path.join(exp, "specs.json"), "w") as f:
+                json.dump(specs, f)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    rows = bsz * samples
+    step_ms = [t * 1e3 for t, _ in steps]
+    losses = [x for _, x in steps]
+    steady = statistics.median(step_ms[2:] or step_ms)
+    _, spe = deepsdf_train.epoch_steps(n_scenes, bsz)
+    print(f"deepsdf train: {len(steps)} steps of {bsz} scenes x {samples} "
+          f"samples = {rows} rows through {len(dims)}x{dims[0]} (dropout "
+          f"0.2), {wall:.3f} s wall, step ms "
+          f"{[round(t, 3) for t in step_ms]} (the first two watched), "
+          f"steady {steady:.3f} ms/step = {rows / steady * 1e3:.0f} rows/s, "
+          f"peak memory {peak / 2**30:.2f} GiB, losses "
+          f"{[round(x, 6) for x in losses]}")
+    assert len(steps) == 2 * spe and state.step == 2 * spe
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    if dev.type == "cuda":
+        print(f"deepsdf train: CPU operators in the step: "
+              f"{dict(watch.cpu_ops)}")
+        assert not watch.cpu_ops
+
+    # one step on the card and on the CPU from the same state and rows
+    cfg = deepsdf.DeepSDFConfig.from_specs(json.load(open(os.path.join(
+        exp, "specs.json"))))
+    tcfg = deepsdf_train.DeepSDFTrainConfig.from_specs(json.load(open(
+        os.path.join(exp, "specs.json"))))
+    pack = sdf_samples.load_scene_pack(root, {"synthetic": {"car": [
+        f"scene{i:04d}" for i in range(n_scenes)]}})
+    tensors = deepsdf_train.TrainTensors(pack, dev)
+    idx = torch.arange(min(8, n_scenes), device=dev)
+    rows_cmp = deepsdf_train.draw(tensors, idx, samples,
+                                  dsdf_pipe.step_generator(9, 0, dev))
+    # beside the steps' own losses (with dropout, each on its scenes):
+    # the loss of one fixed draw, dropout off, from the initial state
+    # (train_deepsdf's seed 0) and from the trained one
+    init = deepsdf_train.init_train_state(
+        cfg, tcfg, n_scenes, torch.Generator().manual_seed(0), dev)
+    with torch.no_grad():
+        loss0 = float(deepsdf_train.losses(
+            cfg, tcfg, init.params, init.codes, rows_cmp, idx,
+            tensors.scales, 0)["loss"])
+    t0 = time.perf_counter()
+    on_card, m_card = deepsdf_train.step_on_samples(
+        cfg, tcfg, spe, state, rows_cmp, idx, tensors.scales)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_cpu(v) for v in tree]
+        return tree.cpu() if torch.is_tensor(tree) else tree
+
+    cpu_state = deepsdf_train.state_from_tree(to_cpu(
+        deepsdf_train.state_tree(state)))
+    t0 = time.perf_counter()
+    on_cpu, m_cpu = deepsdf_train.step_on_samples(
+        cfg, tcfg, spe, cpu_state, rows_cmp.cpu(), idx.cpu(),
+        tensors.scales.cpu())
+    cpu_s = time.perf_counter() - t0
+    a = deepsdf_train._leaves(deepsdf_train.state_tree(on_card))
+    c = deepsdf_train._leaves(deepsdf_train.state_tree(on_cpu))
+    step_err = max(float((x.cpu().float() - y.float()).abs().max())
+                   for x, y in zip(a, c) if torch.is_tensor(x))
+    loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(
+        float(m_cpu["loss"]))
+    print(f"deepsdf train: loss of one fixed draw {loss0:.6f} at the start, "
+          f"{float(m_card['loss']):.6f} after {len(steps)} steps (dropout "
+          f"off)")
+    assert np.isfinite(float(m_card["loss"]))
+    print(f"deepsdf train: one step on {len(idx)} scenes x {samples} "
+          f"samples, card ({card_s:.3f} s) against CPU ({cpu_s:.3f} s): "
+          f"loss relative {loss_rel:.3g} (need <= 1e-5), state max_abs_err "
+          f"{step_err:.3g} (need <= 1e-5)")
+    assert loss_rel <= 1e-5 and step_err <= 1e-5
+
+    # the exported single-file pair reloads to the same decoder
+    cfg2, params2 = deepsdf.load_torch_checkpoint(
+        os.path.join(exp, "deepsdf.pt"), device=dev)
+    assert cfg2 == cfg
+    pts = torch.rand(4096, 3, generator=torch.Generator().manual_seed(3)
+                     ).to(dev) * 2 - 1
+    with torch.no_grad():
+        want = deepsdf.sdf_fn(cfg, state.params)(state.codes[:2], pts)
+        got = deepsdf.sdf_fn(cfg, params2)(state.codes[:2], pts)
+    export_err = float((want - got).abs().max())
+    print(f"deepsdf train: deepsdf.pt reloaded by load_torch_checkpoint, "
+          f"SDFs max_abs_err {export_err:.3g} (need <= 1e-6)")
+    assert export_err <= 1e-6
+    return dict(scenes=n_scenes, scenes_per_batch=bsz,
+                batch_cut=bsz != (4 if small else 64),
+                samples_per_scene=samples, rows_per_step=rows,
+                dims=list(dims), steps=len(steps), wall_s=wall,
+                step_ms=step_ms, steady_ms_per_step=steady,
+                rows_per_s=rows / steady * 1e3, peak_memory_bytes=peak,
+                losses=losses, fixed_draw_loss=[loss0, float(m_card["loss"])],
+                card_vs_cpu_step_err=step_err,
+                card_vs_cpu_loss_rel=loss_rel, export_err=export_err)
+
+
 # ---------------------------------------------------------------- phase 7
 
 QUALITY_NETS = os.path.join(ROOT, "data", "quality_nets")
@@ -2534,7 +3006,7 @@ def profile_all(out_dir: str, rt512, rt_stage2, prep, sample, state, fixed,
 
 def run_paths(dev, out_dir: str, small: bool = False,
               quality_frames: int = 24):
-    """Phases 3 to 7, each timed; `small` cuts them to a CPU rehearsal's
+    """Phases 3 to 8, each timed; `small` cuts them to a CPU rehearsal's
     size. Returns what --profile drives again, the launches of each path
     and its summary."""
     tiny = dict(iters=2) if small else {}
@@ -2565,6 +3037,14 @@ def run_paths(dev, out_dir: str, small: bool = False,
         dev, rt512, prep, sample, full)
     seconds["4c"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    b_stage2_launched, b_stage2 = batched_stage2_phase(
+        dev, rt_stage2, sample, prep, stage2, stage2_launched)
+    seconds["4f"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b_binned_launched, b_binned = batched_binned_phase(
+        dev, rt, rt512, sample, prep, iters=1 if small else 10)
+    seconds["4g"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     binned_launched, binned = binned_refine_phase(
         dev, rt, sample, prep["anno"], iters=1 if small else 10)
     seconds["4b"] = time.perf_counter() - t0
@@ -2579,6 +3059,9 @@ def run_paths(dev, out_dir: str, small: bool = False,
         **(dict(width=8, batch=2, epochs=1) if small else {}))
     seconds["6"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    dsdf_train = deepsdf_train_phase(dev, out_dir, small=small)
+    seconds["8"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     kitti_launched, kitti = kitti_phase(
         dev, out_dir, **(dict(n_frames=2, iters=2) if small
                          else dict(n_frames=quality_frames)))
@@ -2588,13 +3071,16 @@ def run_paths(dev, out_dir: str, small: bool = False,
                 "crops": crops_launched, "train": train_launched,
                 "full_width_stage2": stage2_launched, "kitti": kitti_launched,
                 "batched_full_width": batched_launched,
+                "batched_stage2": b_stage2_launched,
+                "batched_binned": b_binned_launched,
                 "demo_viz": viz_launched, **cells_launched}
     summary = {"demo_crop": demo, "demo_viz": demo_viz,
                "pnp_select_bf16": pnp_bf16, "full_width_crop": full,
                "batched_full_width": batched, "coarse_cells": cells,
-               "full_width_stage2": stage2, "binned_refine": binned,
-               "crops": crops, "train": train, "kitti_driver": kitti,
-               "phase_seconds": seconds}
+               "full_width_stage2": stage2, "batched_stage2": b_stage2,
+               "batched_binned": b_binned, "binned_refine": binned,
+               "crops": crops, "train": train, "deepsdf_train": dsdf_train,
+               "kitti_driver": kitti, "phase_seconds": seconds}
     handles = dict(rt512=rt512, rt_stage2=rt_stage2, prep=prep,
                    sample=sample, state=state, fixed=fixed)
     return handles, launched, summary
@@ -2637,7 +3123,8 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = (check_splat(dev) + [check_nn(dev), check_select(dev)]
             + check_splat_binned(dev) + check_ce(dev) + check_stage2(dev))
-    for name, crop_axis in check_crop_axis(dev).items():
+    crop_axes = {**check_crop_axis(dev), **check_crop_axis_stage2_binned(dev)}
+    for name, crop_axis in crop_axes.items():
         next(r for r in rows if r["name"] == name)["crop_axis"] = crop_axis
     next(r for r in rows if r["name"] == "select_mlp")["cells"] = \
         check_select_cells(dev)
@@ -2660,9 +3147,17 @@ def main() -> int:
         path = PATHS[row["name"]]
         row.update(route="cuda", source=source, replaces=replaces,
                    path=path, launches=launched[path][row["name"]])
-        if "crop_axis" in row:  # its launches on the batched path (4d)
+        if "crop_axis" in row:  # its launches on the batched path (4d,
+            # 4f for 4a and 4b, 4g for the binned trio)
+            batched_path = {"stage2_fwd": "batched_stage2",
+                            "stage2_bwd": "batched_stage2",
+                            "splat_bins": "batched_binned",
+                            "splat_fwd_binned": "batched_binned",
+                            "splat_bwd_binned": "batched_binned"}.get(
+                                row["name"], "batched_full_width")
             row["crop_axis"]["launches"] = \
-                launched["batched_full_width"][row["name"]]
+                launched[batched_path][row["name"]]
+            row["crop_axis"]["path"] = batched_path
         # the launches on this slice's paths: the viz of the demo as
         # written (3b) and the coarse cells (4e)
         row["launches_by_path"] = {

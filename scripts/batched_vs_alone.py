@@ -1,6 +1,6 @@
 """Where the batched refine and a crop refined alone part, on the card.
 
-    python3 scripts/batched_vs_alone.py [--out FILE]
+    python3 scripts/batched_vs_alone.py [--stage2] [--out FILE]
 
 Phase 4d's four crops (chip_smoke.py::shifted_crops of the demo frame's
 prepared crop) under phase 4's runtime: the stock config_refine.ini with
@@ -11,8 +11,10 @@ refine carries an ulp-sized change), and the batched refine
 (refine_crops_batched's inputs) against the first of them, and against
 the same crop alone through the batched loop (B = 1, the same bucket):
 the first iteration whose parameters differ by more than 1e-6, and the
-largest parameter gap at iterations 10, 30 and 60. Prints the card's name
-and power limit first; a JSON line of every number last.
+largest parameter gap at iterations 10, 30 and 60. ``--stage2`` runs
+phase 4f's settings: ``stage2_pallas = True``, the stage-2 decode and its
+backward through kernels 4a and 4b. Prints the card's name and power
+limit first; a JSON line of every number last.
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ def summary(g: torch.Tensor) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the JSON line here")
+    ap.add_argument("--stage2", action="store_true",
+                    help="stage2_pallas = True (kernels 4a and 4b)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("batched_vs_alone: no CUDA card", file=sys.stderr)
@@ -62,9 +66,11 @@ def main() -> int:
         os.path.join(ROOT, "configs", "config_refine.ini")))
     result = {"card": chip_smoke.gpu_line()}
     for precision in ("float16", "float32"):
-        rt = pipe.RefineRuntime(dataclasses.replace(stock,
-                                                    precision=precision),
-                                rt_demo.css, cfg512, params512, device=dev)
+        rt = pipe.RefineRuntime(dataclasses.replace(
+            stock, precision=precision, stage2_pallas=args.stage2),
+            rt_demo.css, cfg512, params512, device=dev)
+        kw = dict(select_decoder=rt.select_decoder, stage2_fn=rt.stage2_fn,
+                  device=dev)
         # each crop alone twice, then from a start moved by 1e-6 (its
         # translation): how far an ulp-sized change carries in 60 steps
         alone = [[rt.run_refine(c)[1].params for _ in range(2)]
@@ -74,8 +80,8 @@ def main() -> int:
         bucket, inputs = pipe.batch_inputs(rt, crops)
         _, hist = batched_refine.make_batched_refine(
             rt.decoder, rt.refine_config(), rt.grid_points, bucket,
-            select_decoder=rt.select_decoder, device=dev)(*inputs)
-        key = precision
+            **kw)(*inputs)
+        key = precision + ("_stage2" if args.stage2 else "")
         result[key] = []
         for i, (a, b, moved) in enumerate(alone):
             # crop i alone through the batched loop (B = 1), in the
@@ -85,7 +91,7 @@ def main() -> int:
                     for x in inputs]
             _, one = batched_refine.make_batched_refine(
                 rt.decoder, rt.refine_config(), rt.grid_points, bucket,
-                select_decoder=rt.select_decoder, device=dev)(*lane)
+                **kw)(*lane)
             row = {"run_to_run": summary(gaps(a, b)),
                    "start_moved_1e-6": summary(gaps(a, moved)),
                    "batched": summary(gaps(a, [t[i] for t in

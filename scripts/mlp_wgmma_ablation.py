@@ -177,7 +177,7 @@ def main() -> int:
                 _cuda.ptr(pts4), _cuda.ptr(packed.ws_tiles),
                 _cuda.ptr(packed.ws_tiles_t), _cuda.ptr(packed.wx),
                 _cuda.ptr(cvec), _cuda.ptr(packed.wlast),
-                _cuda.ptr(packed.scal), 8192, H, nh, int(packed.use_tanh),
+                _cuda.ptr(packed.scal), 1, 8192, H, nh, int(packed.use_tanh),
                 cl, _cuda.ptr(out4), _cuda.stream(pts4))
         result["stage2_fwd"][cl] = time_ms(launch4)
         result["stage2_bwd"][cl] = time_ms(lambda: mlp2_cuda.stage2_bwd(

@@ -73,7 +73,10 @@
 //             spans only y, so every distributed-shared-memory merge stays
 //             inside one crop, and the slice count depends on n and p
 //             alone: each crop's result is bit-equal to its launch alone
-//             (B = 1, the single-crop path).
+//             (B = 1, the single-crop path). The binned split designs
+//             take the same axis: crop b walks only its own windows (its
+//             bins from splat_bins.cu's crop axis, its own smax), so a
+//             padded lane with every point masked meets no window.
 //
 // Row binning (renders of >= 4096 px): the points arrive sorted by the
 // first bin_px-pixel row block their footprint can touch (csrc/splat_bins.cu,
@@ -485,7 +488,7 @@ splat_fwd_split_kernel(const float* __restrict__ pts,
 __global__ void __launch_bounds__(SPLIT_THREADS, 2)
 splat_fwd_binned_split_kernel(const float* __restrict__ pts,
                               const float* __restrict__ feats,
-                              const float* __restrict__ kg, int p,
+                              const float* __restrict__ kg, int n, int p,
                               const int* __restrict__ win, int bin_px,
                               float diam, float dc, float* __restrict__ img,
                               float* __restrict__ m_out,
@@ -493,14 +496,18 @@ splat_fwd_binned_split_kernel(const float* __restrict__ pts,
                               float* __restrict__ zn_out) {
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
+  const size_t c = blockIdx.z;  // the crop: its sorted points and windows
+  const int nb = (p + bin_px - 1) / bin_px;
+  win += c * nb * 2;
   const int b = (blockIdx.x * SPLIT_PX) / bin_px;
   const int start = win[2 * b], end = max(win[2 * b + 1], start);
   const int slices = (int)cluster.num_blocks();
   const int per = (end - start + slices - 1) / slices;
   const int lo = min(end, start + (int)cluster.block_rank() * per);
-  fwd_tile(pts, feats, kg, p, lo, min(end, lo + per), diam, dc,
-           reinterpret_cast<float*>(smem4), cluster, img, m_out, d_out,
-           zn_out);
+  fwd_tile(pts + c * n * 8, feats + c * n * NF, kg + c * p * 4, p, lo,
+           min(end, lo + per), diam, dc, reinterpret_cast<float*>(smem4),
+           cluster, img + c * p * NF, m_out + c * p, d_out + c * p,
+           zn_out + c * p);
 }
 
 // Slices S of the split forward for n points onto p pixels: enough CTAs
@@ -665,8 +672,17 @@ splat_bwd_binned_split_kernel(const float* __restrict__ pts,
   __shared__ float s_sum[NG * BSPLIT_PTS];
   __shared__ int s_kmax[BSPLIT_PTS / 32];
   cg::cluster_group cluster = cg::this_cluster();
+  const size_t c = blockIdx.z;  // the crop: its sorted points and bins
+  pts += c * n * 8;
+  feats += c * n * NF;
+  pix += c * p * PIX_W;
+  key += c * n;
+  order += c * n;
+  dv += c * n * 3;
+  dn += c * n * 3;
+  df += c * n * NF;
   const int nb = (p + bin_px - 1) / bin_px;
-  const int smax = *smax_p;
+  const int smax = smax_p[c];
   const int i = blockIdx.x * BSPLIT_PTS + (int)threadIdx.x % BSPLIT_PTS;
   const int ki = i < n ? key[i] : nb;
   if ((int)threadIdx.x < BSPLIT_PTS) {  // the block's last live key
@@ -843,17 +859,18 @@ int splat_fwd_binned_slices(int n, int p, int bin_px) {
   return binned_split_slices(n, p, bin_px);
 }
 
-// As splat_fwd over points sorted by row block (splat_bins.cu); win (nb, 2)
-// int32 holds each row block's [start, end) in the sorted points, bin_px %
-// 64 == 0. The split design; `slices` > 0 forces the cluster size (1..8), 0
-// takes binned_split_slices.
+// As splat_fwd over points sorted by row block (splat_bins.cu); win
+// (batch, nb, 2) int32 holds each crop's row blocks' [start, end) in its
+// sorted points, bin_px % 64 == 0. The split design; `slices` > 0 forces
+// the cluster size (1..8), 0 takes binned_split_slices.
 int splat_fwd_binned_split(const void* pts, const void* feats, const void* kg,
-                           int n, int p, const void* win, int bin_px,
-                           int slices, float diam, float depth_constant,
-                           void* img, void* m, void* d, void* zn,
-                           void* stream) {
-  if (p <= 0) return 0;
-  if (bin_px <= 0 || bin_px % SPLIT_PX != 0 || slices > SPLIT_MAX)
+                           int batch, int n, int p, const void* win,
+                           int bin_px, int slices, float diam,
+                           float depth_constant, void* img, void* m, void* d,
+                           void* zn, void* stream) {
+  if (p <= 0 || batch <= 0) return 0;
+  if (bin_px <= 0 || bin_px % SPLIT_PX != 0 || slices > SPLIT_MAX ||
+      batch > 65535)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       splat_fwd_binned_split_kernel,
@@ -861,7 +878,7 @@ int splat_fwd_binned_split(const void* pts, const void* feats, const void* kg,
   if (err != cudaSuccess) return (int)err;
   if (slices <= 0) slices = binned_split_slices(n, p, bin_px);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((p + SPLIT_PX - 1) / SPLIT_PX, slices);
+  cfg.gridDim = dim3((p + SPLIT_PX - 1) / SPLIT_PX, slices, batch);
   cfg.blockDim = dim3(SPLIT_THREADS);
   cfg.dynamicSmemBytes = SPLIT_SMEM;
   cfg.stream = (cudaStream_t)stream;
@@ -874,7 +891,7 @@ int splat_fwd_binned_split(const void* pts, const void* feats, const void* kg,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(
       &cfg, splat_fwd_binned_split_kernel, (const float*)pts,
-      (const float*)feats, (const float*)kg, p, (const int*)win, bin_px,
+      (const float*)feats, (const float*)kg, n, p, (const int*)win, bin_px,
       diam, depth_constant, (float*)img, (float*)m, (float*)d, (float*)zn);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -947,20 +964,23 @@ int splat_bwd_binned_slices(int n, int p, int bin_px) {
   return bwd_binned_split_slices(n, p, bin_px);
 }
 
-// Sorted pts, feats as splat_fwd_binned_split; key (n,) int32 sorted first
-// row blocks, smax (1,) int32, order (n,) int32 sorted position -> point
-// -> dv, dn, df in the points' own order (row order[j] for sorted point
-// j). The split design; `slices` as in splat_bwd.
+// Sorted pts, feats as splat_fwd_binned_split, pix (batch, p, 16); key
+// (batch, n) int32 sorted first row blocks, smax (batch,) int32, order
+// (batch, n) int32 sorted position -> point -> dv, dn, df (batch, n, .) in
+// each crop's points' own order (row order[j] for sorted point j). The
+// split design; `slices` as in splat_bwd.
 int splat_bwd_binned_split(const void* pts, const void* feats,
                            const void* pix, const void* key, const void* smax,
-                           const void* order, int n, int p, int bin_px,
-                           int slices, float diam, float depth_constant,
-                           void* dv, void* dn, void* df, void* stream) {
-  if (n <= 0) return 0;
-  if (bin_px <= 0 || slices > SPLIT_MAX) return (int)cudaErrorInvalidValue;
+                           const void* order, int batch, int n, int p,
+                           int bin_px, int slices, float diam,
+                           float depth_constant, void* dv, void* dn, void* df,
+                           void* stream) {
+  if (n <= 0 || batch <= 0) return 0;
+  if (bin_px <= 0 || slices > SPLIT_MAX || batch > 65535)
+    return (int)cudaErrorInvalidValue;
   if (slices <= 0) slices = bwd_binned_split_slices(n, p, bin_px);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((n + BSPLIT_PTS - 1) / BSPLIT_PTS, slices);
+  cfg.gridDim = dim3((n + BSPLIT_PTS - 1) / BSPLIT_PTS, slices, batch);
   cfg.blockDim = dim3(BSPLIT_THREADS);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = (cudaStream_t)stream;

@@ -39,6 +39,15 @@
 // sorted order; CTA 0 writes smax and the windows. No atomics on global
 // memory and nothing read back by the host: the same result every run.
 //
+// Crop axis (the batched driver; JAX bins each crop under vmap): B crops of
+// n points and p rays each are one launch each way, crop b on grid row y =
+// b with its own points, rays, keys, histograms, smax and windows. The
+// clusters of launch 1 span x only, so the ray bounds they share are one
+// crop's, and smax is each crop's own widest span, as
+// jax.vmap(_compute_bins) computes it. An all-masked crop (a padded lane)
+// keys every point nb: its windows are empty. Each crop's result is
+// bit-equal to its launch alone (B = 1).
+//
 // Bound on the H100: bytes, ~0.8 MB at 4096 points onto 128x128 px (the
 // points and features read and written once, the rays read once); the
 // overlap tests are 6 IEEE divisions per (point, row block), 0.8 M
@@ -86,7 +95,8 @@ size_t scatter_smem(int nb) {
 }
 
 // kg (p, 4) rays [gx, gy, gz, 0]; pts (n, 8) [v, n, mask, 0]. Writes
-// key (n,) unsorted, hist (tiles, nb + 1) and tile_span (tiles,).
+// key (n,) unsorted, hist (tiles, nb + 1) and tile_span (tiles,); crop y
+// at its own offsets of each.
 __global__ void __launch_bounds__(BINS_THREADS)
 splat_bins_keys_kernel(const float* __restrict__ pts,
                        const float* __restrict__ kg, int n, int p, int nb,
@@ -95,6 +105,12 @@ splat_bins_keys_kernel(const float* __restrict__ pts,
   extern __shared__ float4 s_bound[];  // nb x (m_b, M_b, gz_lo, gz_hi)
   int* s_hist = reinterpret_cast<int*>(s_bound + nb);  // nb + 1
   __shared__ int s_span;
+  const size_t crop = blockIdx.y, tiles = gridDim.x;
+  pts += crop * n * 8;
+  kg += crop * p * 4;
+  key += crop * n;
+  hist += crop * tiles * (nb + 1);
+  tile_span += crop * tiles;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -225,6 +241,18 @@ splat_bins_scatter_kernel(const float* __restrict__ pts,
   __shared__ int s_warp[SCATTER_THREADS / 32];
   __shared__ int s_smax;
   const int t = blockIdx.x, nk = nb + 1;
+  const size_t crop = blockIdx.y;
+  pts += crop * n * 8;
+  feats += crop * n * 8;
+  key += crop * n;
+  hist += crop * tiles * nk;
+  tile_span += crop * tiles;
+  order += crop * n;
+  key_sorted += crop * n;
+  smax_out += crop;
+  win += crop * nb * 2;
+  pts_sorted += crop * n * 8;
+  feats_sorted += crop * n * 8;
 
   // per key: the total over all tiles, and the count in tiles before t
   for (int k = threadIdx.x; k < nk; k += SCATTER_THREADS) {
@@ -286,22 +314,24 @@ const char* sdl_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// int32 scratch splat_bins needs for n points and nb row blocks: the keys
-// (n), the tiles' histograms and their widest spans.
+// int32 scratch splat_bins needs for n points and nb row blocks, a crop:
+// the keys (n), the tiles' histograms and their widest spans.
 int splat_bins_work(int n, int nb) {
   const int tiles = tiles_of(n);
   return n + tiles * (nb + 1) + tiles;
 }
 
-// pts (n, 8) [v, n, mask, 0], feats (n, 8), kg (p, 4) [g, 0] float32 ->
-// order, key_sorted (n,) int32, smax (1,) int32, win (nb, 2) int32 [start,
-// end), pts_sorted, feats_sorted (n, 8) float32; work: splat_bins_work
-// int32. Two launches; n may be 0.
-int splat_bins(const void* pts, const void* feats, const void* kg, int n,
-               int p, int bin_px, float diam, void* work, void* order,
+// pts (batch, n, 8) [v, n, mask, 0], feats (batch, n, 8), kg (batch, p,
+// 4) [g, 0] float32 -> order, key_sorted (batch, n) int32, smax (batch,)
+// int32, win (batch, nb, 2) int32 [start, end), pts_sorted, feats_sorted
+// (batch, n, 8) float32; work: batch * splat_bins_work int32. Two launches
+// for all crops; n may be 0.
+int splat_bins(const void* pts, const void* feats, const void* kg, int batch,
+               int n, int p, int bin_px, float diam, void* work, void* order,
                void* key_sorted, void* smax, void* win, void* pts_sorted,
                void* feats_sorted, void* stream) {
-  if (p <= 0 || bin_px <= 0 || n < 0) return (int)cudaErrorInvalidValue;
+  if (p <= 0 || bin_px <= 0 || n < 0 || batch < 1 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
   const int nb = (p + bin_px - 1) / bin_px;
   const size_t smem1 = keys_smem(nb), smem2 = scatter_smem(nb);
   if (smem1 > (size_t)MAX_SMEM || smem2 > (size_t)MAX_SMEM)
@@ -315,11 +345,11 @@ int splat_bins(const void* pts, const void* feats, const void* kg, int n,
                              (int)smem2);
   if (err != cudaSuccess) return (int)err;
   const int tiles = tiles_of(n);
-  int* key = (int*)work;
-  int* hist = key + n;
-  int* tile_span = hist + (size_t)tiles * (nb + 1);
+  int* key = (int*)work;  // (batch, n), then each crop's hist and spans
+  int* hist = key + (size_t)batch * n;
+  int* tile_span = hist + (size_t)batch * tiles * (nb + 1);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles);
+  cfg.gridDim = dim3(tiles, batch);
   cfg.blockDim = dim3(BINS_THREADS);
   cfg.dynamicSmemBytes = smem1;
   cfg.stream = (cudaStream_t)stream;
@@ -334,7 +364,7 @@ int splat_bins(const void* pts, const void* feats, const void* kg, int n,
                            (const float*)kg, n, p, nb, bin_px, diam, key,
                            hist, tile_span);
   if (err != cudaSuccess) return (int)err;
-  splat_bins_scatter_kernel<<<tiles, SCATTER_THREADS, smem2,
+  splat_bins_scatter_kernel<<<dim3(tiles, batch), SCATTER_THREADS, smem2,
                               (cudaStream_t)stream>>>(
       (const float*)pts, (const float*)feats, key, hist, tile_span, n, nb,
       tiles, (int*)order, (int*)key_sorted, (int*)smax, (int*)win,

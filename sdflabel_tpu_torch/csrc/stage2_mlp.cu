@@ -41,6 +41,17 @@
 // column-major operand, with no transposed copy. d_cvec, in both designs:
 // each block writes its (nh+1, H) column sums, and a second kernel adds the
 // blocks' partials in block order: no atomics, the same result every run.
+//
+// Crop axis (the batched driver, as the TPU kernels gain a batch grid axis
+// under vmap): B crops decode the same weights, each with its own absorbed
+// cvec rows (nh+1, H), points (n, 3) and, in 4b, cotangent (n,). A launch
+// takes all B; crop b runs on grid row y = b, and a cluster spans x only,
+// so a multicast weight slice feeds one crop's point blocks and the L2
+// serves the same slices to the other crops. Every crop has the same n (the
+// band capacity), so 4b's partial buffer is regular: (B, blocks, nh+1, H),
+// blocks = stage2_wgmma_blocks(n, cluster) (wgmma) or ceil(n / R) (wmma),
+// and the reduction adds each crop's blocks in block order, never across
+// crops. Each crop's outputs are bit-equal to its launch alone (B = 1).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -118,6 +129,14 @@ stage2_kernel(const float* __restrict__ xyz,
               float* __restrict__ partial) {
   constexpr int R = RT * 16;  // points per block
   extern __shared__ __align__(128) unsigned char smem[];
+  const size_t b = blockIdx.y;  // the crop: its points, cvec and outputs
+  xyz += b * n * 3;
+  cvec += b * (nh + 1) * H;
+  out += b * n * (BWD ? 3 : 4);
+  if (BWD) {
+    ct_in += b * n;
+    partial += b * gridDim.x * (nh + 1) * H;
+  }
   float* acc = reinterpret_cast<float*>(smem);                       // R x H
   __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(acc + R * H);  // R x H
   unsigned* bits = reinterpret_cast<unsigned*>(h + R * H);  // nh+1, R*H/32
@@ -261,8 +280,9 @@ stage2_kernel(const float* __restrict__ xyz,
   }
 }
 
-// d_cvec (nh+1, H) = sum over blocks of the partials, in block order;
-// REDUCE_LOADS loads in flight per thread ahead of their sums.
+// d_cvec (nh+1, H) = sum over blocks of the partials, in block order, for
+// crop y (its partials at partial + y * blocks * size); REDUCE_LOADS loads
+// in flight per thread ahead of their sums.
 constexpr int REDUCE_THREADS = 64;
 constexpr int REDUCE_LOADS = 8;
 
@@ -271,7 +291,8 @@ dcvec_reduce_kernel(const float* __restrict__ partial, int blocks, int size,
                     float* __restrict__ dcvec) {
   const int i = blockIdx.x * REDUCE_THREADS + threadIdx.x;
   if (i >= size) return;
-  const float* col = partial + i;
+  const size_t crop = blockIdx.y;
+  const float* col = partial + crop * blocks * size + i;
   float s = 0.f;
   int b = 0;
   for (; b + REDUCE_LOADS <= blocks; b += REDUCE_LOADS) {
@@ -283,21 +304,21 @@ dcvec_reduce_kernel(const float* __restrict__ partial, int blocks, int size,
     for (int u = 0; u < REDUCE_LOADS; ++u) s += v[u];
   }
   for (; b < blocks; ++b) s += col[(size_t)b * size];
-  dcvec[i] = s;
+  dcvec[crop * size + i] = s;
 }
 
-int reduce_dcvec(const void* partial, int blocks, int size, void* dcvec,
-                 cudaStream_t s) {
-  dcvec_reduce_kernel<<<(size + REDUCE_THREADS - 1) / REDUCE_THREADS,
-                        REDUCE_THREADS, 0, s>>>((const float*)partial, blocks,
-                                                size, (float*)dcvec);
+int reduce_dcvec(const void* partial, int batch, int blocks, int size,
+                 void* dcvec, cudaStream_t s) {
+  const dim3 grid((size + REDUCE_THREADS - 1) / REDUCE_THREADS, batch);
+  dcvec_reduce_kernel<<<grid, REDUCE_THREADS, 0, s>>>(
+      (const float*)partial, blocks, size, (float*)dcvec);
   return (int)cudaGetLastError();
 }
 
 template <int RT, bool BWD>
 int launch(const void* xyz, const void* ws, const void* wx, const void* cvec,
-           const void* wlast, const void* scal, const void* ct_in, int n,
-           int H, int nh, int use_tanh, void* out, void* partial,
+           const void* wlast, const void* scal, const void* ct_in, int batch,
+           int n, int H, int nh, int use_tanh, void* out, void* partial,
            cudaStream_t stream) {
   constexpr int R = RT * 16;
   const size_t smem = smem_bytes(R, H, nh);
@@ -305,7 +326,7 @@ int launch(const void* xyz, const void* ws, const void* wx, const void* cvec,
       stage2_kernel<RT, BWD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + R - 1) / R;
+  const dim3 blocks((n + R - 1) / R, batch);
   stage2_kernel<RT, BWD><<<blocks, THREADS, smem, stream>>>(
       (const float*)xyz, (const __nv_bfloat16*)ws, (const float*)wx,
       (const float*)cvec, (const float*)wlast, (const float*)scal,
@@ -316,18 +337,18 @@ int launch(const void* xyz, const void* ws, const void* wx, const void* cvec,
 template <bool BWD>
 int dispatch(int R, const void* xyz, const void* ws, const void* wx,
              const void* cvec, const void* wlast, const void* scal,
-             const void* ct_in, int n, int H, int nh, int use_tanh, void* out,
-             void* partial, cudaStream_t s) {
+             const void* ct_in, int batch, int n, int H, int nh, int use_tanh,
+             void* out, void* partial, cudaStream_t s) {
   switch (R) {
     case 64:
-      return launch<4, BWD>(xyz, ws, wx, cvec, wlast, scal, ct_in, n, H, nh,
-                            use_tanh, out, partial, s);
+      return launch<4, BWD>(xyz, ws, wx, cvec, wlast, scal, ct_in, batch, n,
+                            H, nh, use_tanh, out, partial, s);
     case 32:
-      return launch<2, BWD>(xyz, ws, wx, cvec, wlast, scal, ct_in, n, H, nh,
-                            use_tanh, out, partial, s);
+      return launch<2, BWD>(xyz, ws, wx, cvec, wlast, scal, ct_in, batch, n,
+                            H, nh, use_tanh, out, partial, s);
     case 16:
-      return launch<1, BWD>(xyz, ws, wx, cvec, wlast, scal, ct_in, n, H, nh,
-                            use_tanh, out, partial, s);
+      return launch<1, BWD>(xyz, ws, wx, cvec, wlast, scal, ct_in, batch, n,
+                            H, nh, use_tanh, out, partial, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -347,9 +368,10 @@ stage2_fwd_wgmma_kernel(const float* __restrict__ xyz,
                         const float* __restrict__ wlast,
                         const float* __restrict__ scal, int n, int nh,
                         int use_tanh, float* __restrict__ out) {
+  const size_t b = blockIdx.y;  // the crop
   mlpw::mlp_body<H, STAGE2_STAGES, Mode::STAGE2_FWD>(
-      xyz, tiles, tiles_t, wx, cvec, wlast, scal, nullptr, n, nh, use_tanh,
-      out, nullptr);
+      xyz + b * n * 3, tiles, tiles_t, wx, cvec + b * (nh + 1) * H, wlast,
+      scal, nullptr, n, nh, use_tanh, out + b * n * 4, nullptr);
 }
 
 template <int H>
@@ -364,20 +386,22 @@ stage2_bwd_wgmma_kernel(const float* __restrict__ xyz,
                         const float* __restrict__ ct, int n, int nh,
                         int use_tanh, float* __restrict__ dxyz,
                         float* __restrict__ partial) {
+  const size_t b = blockIdx.y;  // the crop: its own rows of partials
   mlpw::mlp_body<H, STAGE2_STAGES, Mode::STAGE2_BWD>(
-      xyz, tiles, tiles_t, wx, cvec, wlast, scal, ct, n, nh, use_tanh, dxyz,
-      partial);
+      xyz + b * n * 3, tiles, tiles_t, wx, cvec + b * (nh + 1) * H, wlast,
+      scal, ct + b * n, n, nh, use_tanh, dxyz + b * n * 3,
+      partial + b * gridDim.x * (nh + 1) * H);
 }
 
 template <int H>
 int launch_wgmma(const void* xyz, const void* tiles, const void* tiles_t,
                  const void* wx, const void* cvec, const void* wlast,
-                 const void* scal, int n, int nh, int use_tanh, int cluster,
-                 void* out, cudaStream_t stream) {
+                 const void* scal, int batch, int n, int nh, int use_tanh,
+                 int cluster, void* out, cudaStream_t stream) {
   return mlpw::launch_clustered(
       stage2_fwd_wgmma_kernel<H>,
       mlpw::smem_bytes<H, STAGE2_STAGES, Mode::STAGE2_FWD>(nh), n, cluster,
-      1, stream, (const float*)xyz, (const __nv_bfloat16*)tiles,
+      batch, stream, (const float*)xyz, (const __nv_bfloat16*)tiles,
       (const __nv_bfloat16*)tiles_t, (const float*)wx, (const float*)cvec,
       (const float*)wlast, (const float*)scal, n, nh, use_tanh, (float*)out);
 }
@@ -385,13 +409,13 @@ int launch_wgmma(const void* xyz, const void* tiles, const void* tiles_t,
 template <int H>
 int launch_wgmma_bwd(const void* xyz, const void* tiles, const void* tiles_t,
                      const void* wx, const void* cvec, const void* wlast,
-                     const void* scal, const void* ct, int n, int nh,
-                     int use_tanh, int cluster, void* dxyz, void* partial,
-                     cudaStream_t stream) {
+                     const void* scal, const void* ct, int batch, int n,
+                     int nh, int use_tanh, int cluster, void* dxyz,
+                     void* partial, cudaStream_t stream) {
   return mlpw::launch_clustered(
       stage2_bwd_wgmma_kernel<H>,
       mlpw::smem_bytes<H, STAGE2_STAGES, Mode::STAGE2_BWD>(nh), n, cluster,
-      1, stream, (const float*)xyz, (const __nv_bfloat16*)tiles,
+      batch, stream, (const float*)xyz, (const __nv_bfloat16*)tiles,
       (const __nv_bfloat16*)tiles_t, (const float*)wx, (const float*)cvec,
       (const float*)wlast, (const float*)scal, (const float*)ct, n, nh,
       use_tanh, (float*)dxyz, (float*)partial);
@@ -413,34 +437,40 @@ int stage2_tile(int H, int nh) {
   return 0;
 }
 
-// Kernel 4a, the wmma design. xyz (n, 3) f32; ws (nh, H, H) bf16 [in,
-// out]; wx (nh+1, 4, H) f32; cvec (nh+1, H) f32; wlast (H,) f32; scal (4,)
-// f32 -> out (n, 4) f32.
+// Kernel 4a, the wmma design, for `batch` crops. xyz (batch, n, 3) f32;
+// ws (nh, H, H) bf16 [in, out]; wx (nh+1, 4, H) f32; cvec (batch, nh+1, H)
+// f32; wlast (H,) f32; scal (4,) f32 -> out (batch, n, 4) f32.
 int stage2_fwd(const void* xyz, const void* ws, const void* wx,
-               const void* cvec, const void* wlast, const void* scal, int n,
-               int H, int nh, int use_tanh, void* out, void* stream) {
-  if (n <= 0) return 0;
-  if (H % 16 != 0 || nh < 1) return (int)cudaErrorInvalidValue;
+               const void* cvec, const void* wlast, const void* scal,
+               int batch, int n, int H, int nh, int use_tanh, void* out,
+               void* stream) {
+  if (n <= 0 || batch <= 0) return 0;
+  if (H % 16 != 0 || nh < 1 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
   return dispatch<false>(stage2_tile(H, nh), xyz, ws, wx, cvec, wlast, scal,
-                         nullptr, n, H, nh, use_tanh, out, nullptr,
+                         nullptr, batch, n, H, nh, use_tanh, out, nullptr,
                          (cudaStream_t)stream);
 }
 
-// Kernel 4b. As 4a plus ct (n,) f32 -> dxyz (n, 3) f32, dcvec (nh+1, H)
-// f32; partial is scratch of ceil(n / stage2_tile) * (nh+1) * H floats.
+// Kernel 4b. As 4a plus ct (batch, n) f32 -> dxyz (batch, n, 3) f32, dcvec
+// (batch, nh+1, H) f32; partial is scratch of batch * ceil(n / stage2_tile)
+// * (nh+1) * H floats.
 int stage2_bwd(const void* xyz, const void* ws, const void* wx,
                const void* cvec, const void* wlast, const void* scal,
-               const void* ct, int n, int H, int nh, int use_tanh,
+               const void* ct, int batch, int n, int H, int nh, int use_tanh,
                void* dxyz, void* dcvec, void* partial, void* stream) {
-  if (H % 16 != 0 || nh < 1) return (int)cudaErrorInvalidValue;
+  if (H % 16 != 0 || nh < 1 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (batch <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int size = (nh + 1) * H;
-  if (n <= 0) return (int)cudaMemsetAsync(dcvec, 0, size * sizeof(float), s);
+  if (n <= 0)
+    return (int)cudaMemsetAsync(dcvec, 0, (size_t)batch * size * 4, s);
   const int R = stage2_tile(H, nh);
-  const int err = dispatch<true>(R, xyz, ws, wx, cvec, wlast, scal, ct, n, H,
-                                 nh, use_tanh, dxyz, partial, s);
+  const int err = dispatch<true>(R, xyz, ws, wx, cvec, wlast, scal, ct, batch,
+                                 n, H, nh, use_tanh, dxyz, partial, s);
   if (err != 0) return err;
-  return reduce_dcvec(partial, (n + R - 1) / R, size, dcvec, s);
+  return reduce_dcvec(partial, batch, (n + R - 1) / R, size, dcvec, s);
 }
 
 // Dynamic shared memory of 4a's wgmma design at width H and nh hidden
@@ -477,71 +507,73 @@ int stage2_fwd_wgmma_fits(int H, int nh) {
 
 // Kernel 4a, the wgmma design. As stage2_fwd, with tiles and tiles_t (nh,
 // H / 32, 32 * H) bf16 in place of ws: the packed slices of ws_j and of
-// ws_j^T (ops/mlp_cuda.py tile_stack); cluster CTAs (1..4) share each
-// slice.
+// ws_j^T (ops/mlp_cuda.py tile_stack); cluster CTAs (1..4) of one crop
+// share each slice.
 int stage2_fwd_wgmma(const void* xyz, const void* tiles, const void* tiles_t,
                      const void* wx, const void* cvec, const void* wlast,
-                     const void* scal, int n, int H, int nh, int use_tanh,
-                     int cluster, void* out, void* stream) {
-  if (n <= 0) return 0;
+                     const void* scal, int batch, int n, int H, int nh,
+                     int use_tanh, int cluster, void* out, void* stream) {
+  if (n <= 0 || batch <= 0) return 0;
   if (!stage2_fwd_wgmma_fits(H, nh)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (H) {
     case 128:
-      return launch_wgmma<128>(xyz, tiles, tiles_t, wx, cvec, wlast, scal, n,
-                               nh, use_tanh, cluster, out, s);
+      return launch_wgmma<128>(xyz, tiles, tiles_t, wx, cvec, wlast, scal,
+                               batch, n, nh, use_tanh, cluster, out, s);
     case 256:
-      return launch_wgmma<256>(xyz, tiles, tiles_t, wx, cvec, wlast, scal, n,
-                               nh, use_tanh, cluster, out, s);
+      return launch_wgmma<256>(xyz, tiles, tiles_t, wx, cvec, wlast, scal,
+                               batch, n, nh, use_tanh, cluster, out, s);
     case 384:
-      return launch_wgmma<384>(xyz, tiles, tiles_t, wx, cvec, wlast, scal, n,
-                               nh, use_tanh, cluster, out, s);
+      return launch_wgmma<384>(xyz, tiles, tiles_t, wx, cvec, wlast, scal,
+                               batch, n, nh, use_tanh, cluster, out, s);
     default:
-      return launch_wgmma<512>(xyz, tiles, tiles_t, wx, cvec, wlast, scal, n,
-                               nh, use_tanh, cluster, out, s);
+      return launch_wgmma<512>(xyz, tiles, tiles_t, wx, cvec, wlast, scal,
+                               batch, n, nh, use_tanh, cluster, out, s);
   }
 }
 
 // Kernel 4b, the wgmma design. As stage2_bwd, with tiles and tiles_t in
-// place of ws (as stage2_fwd_wgmma) and cluster CTAs (1..4) sharing each
-// slice; partial is scratch of stage2_wgmma_blocks(n, cluster) * (nh+1) * H
-// floats.
+// place of ws (as stage2_fwd_wgmma) and cluster CTAs (1..4) of one crop
+// sharing each slice; partial is scratch of batch * stage2_wgmma_blocks(n,
+// cluster) * (nh+1) * H floats.
 int stage2_bwd_wgmma(const void* xyz, const void* tiles, const void* tiles_t,
                      const void* wx, const void* cvec, const void* wlast,
-                     const void* scal, const void* ct, int n, int H, int nh,
-                     int use_tanh, int cluster, void* dxyz, void* dcvec,
-                     void* partial, void* stream) {
+                     const void* scal, const void* ct, int batch, int n,
+                     int H, int nh, int use_tanh, int cluster, void* dxyz,
+                     void* dcvec, void* partial, void* stream) {
   if (!stage2_bwd_wgmma_fits(H, nh) || cluster < 1 ||
       cluster > mlpw::MAX_CLUSTER)
     return (int)cudaErrorInvalidValue;
+  if (batch <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int size = (nh + 1) * H;
-  if (n <= 0) return (int)cudaMemsetAsync(dcvec, 0, size * sizeof(float), s);
+  if (n <= 0)
+    return (int)cudaMemsetAsync(dcvec, 0, (size_t)batch * size * 4, s);
   int err;
   switch (H) {
     case 128:
       err = launch_wgmma_bwd<128>(xyz, tiles, tiles_t, wx, cvec, wlast, scal,
-                                  ct, n, nh, use_tanh, cluster, dxyz, partial,
-                                  s);
+                                  ct, batch, n, nh, use_tanh, cluster, dxyz,
+                                  partial, s);
       break;
     case 256:
       err = launch_wgmma_bwd<256>(xyz, tiles, tiles_t, wx, cvec, wlast, scal,
-                                  ct, n, nh, use_tanh, cluster, dxyz, partial,
-                                  s);
+                                  ct, batch, n, nh, use_tanh, cluster, dxyz,
+                                  partial, s);
       break;
     case 384:
       err = launch_wgmma_bwd<384>(xyz, tiles, tiles_t, wx, cvec, wlast, scal,
-                                  ct, n, nh, use_tanh, cluster, dxyz, partial,
-                                  s);
+                                  ct, batch, n, nh, use_tanh, cluster, dxyz,
+                                  partial, s);
       break;
     default:
       err = launch_wgmma_bwd<512>(xyz, tiles, tiles_t, wx, cvec, wlast, scal,
-                                  ct, n, nh, use_tanh, cluster, dxyz, partial,
-                                  s);
+                                  ct, batch, n, nh, use_tanh, cluster, dxyz,
+                                  partial, s);
   }
   if (err != 0) return err;
-  return reduce_dcvec(partial, stage2_wgmma_blocks(n, cluster), size, dcvec,
-                      s);
+  return reduce_dcvec(partial, batch, stage2_wgmma_blocks(n, cluster), size,
+                      dcvec, s);
 }
 
 }  // extern "C"

@@ -117,11 +117,28 @@ def _layer_norm(p: dict, x: torch.Tensor) -> torch.Tensor:
     return (x - mu) * torch.rsqrt(var + 1e-5) * p["scale"] + p["bias"]
 
 
-def apply_sdf(cfg: DeepSDFConfig, params: dict,
-              inputs: torch.Tensor) -> torch.Tensor:
-    """Eval-mode SDF MLP on (..., N, latent+3) inputs -> (..., N) sdf
-    (deep_sdf_decoder_scale.py:78-107)."""
+def _dropout(x: torch.Tensor, keep_p: float,
+             generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability keep_p (a draw
+    from `generator`, on x's device) and scaled by 1 / keep_p."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_p
+    return torch.where(keep, x / keep_p, torch.zeros((), device=x.device))
+
+
+def apply_sdf(cfg: DeepSDFConfig, params: dict, inputs: torch.Tensor,
+              dropout_gen: torch.Generator | None = None) -> torch.Tensor:
+    """SDF MLP on (..., N, latent+3) inputs -> (..., N) sdf
+    (deep_sdf_decoder_scale.py:78-107). `dropout_gen` None is eval mode
+    (dropout off, as every refine runs it); a generator on the inputs'
+    device turns on train-mode dropout at ``cfg.dropout`` layers with
+    ``cfg.dropout_prob`` (and the latent dropout of :85-89 when
+    ``cfg.latent_dropout``), drawn from it. JAX draws its masks with
+    jax.random: the two never draw the same masks."""
     x = inputs
+    if (dropout_gen is not None and cfg.latent_dropout
+            and inputs.shape[-1] > 3):
+        x = torch.cat([_dropout(inputs[..., :-3], 0.8, dropout_gen),
+                       inputs[..., -3:]], dim=-1)
     last = cfg.num_layers - 2
     for l in range(cfg.num_layers - 1):
         if l in cfg.latent_in:
@@ -135,12 +152,14 @@ def apply_sdf(cfg: DeepSDFConfig, params: dict,
             if (not cfg.weight_norm) and l in cfg.norm_layers:
                 x = _layer_norm(params[f"ln{l}"], x)
             x = torch.relu(x)
+            if dropout_gen is not None and l in cfg.dropout:
+                x = _dropout(x, 1.0 - cfg.dropout_prob, dropout_gen)
     return torch.tanh(x)[..., 0]
 
 
 def apply_scale(cfg: DeepSDFConfig, params: dict,
                 latent: torch.Tensor) -> torch.Tensor:
-    """Scale head on one latent (L,) -> (1,)."""
+    """Scale head on one latent (L,) -> (1,), or on (B, L) -> (B, 1)."""
     x = latent
     for i, p in enumerate(params["scale_net"]):
         x = x @ p["w"] + p["b"]
@@ -247,6 +266,71 @@ def params_from_torch_state(cfg: DeepSDFConfig, state: dict,
         for i in (0, 2, 4)
     ]
     return params
+
+
+def torch_state_from_params(cfg: DeepSDFConfig, params: dict) -> dict:
+    """Inverse of params_from_torch_state: params -> a reference-layout
+    state dict of CPU float32 tensors (torch Linear's (out, in)), so that
+    a decoder trained by the port (engine/deepsdf_train.py) saves as a
+    ``deepsdf.pt`` that the reference loader, JAX's and the port's read."""
+
+    def t(x):
+        return x.detach().to("cpu", torch.float32).contiguous()
+
+    state: dict[str, torch.Tensor] = {}
+    for l in range(cfg.num_layers - 1):
+        p = params[f"lin{l}"]
+        if cfg.weight_norm and l in cfg.norm_layers:
+            state[f"lin{l}.weight_v"] = t(p["v"].T)
+            state[f"lin{l}.weight_g"] = t(p["g"].reshape(-1, 1))
+            state[f"lin{l}.bias"] = t(p["b"])
+        else:
+            state[f"lin{l}.weight"] = t(p["w"].T)
+            state[f"lin{l}.bias"] = t(p["b"])
+            if (not cfg.weight_norm) and l in cfg.norm_layers:
+                state[f"bn{l}.weight"] = t(params[f"ln{l}"]["scale"])
+                state[f"bn{l}.bias"] = t(params[f"ln{l}"]["bias"])
+    for i, idx in enumerate((0, 2, 4)):
+        p = params["scale_net"][i]
+        state[f"scale_net.{idx}.weight"] = t(p["w"].T)
+        state[f"scale_net.{idx}.bias"] = t(p["b"])
+    return state
+
+
+def specs_from_config(cfg: DeepSDFConfig) -> dict:
+    """The specs.json dict of a config (CodeLength, NetworkArch,
+    NetworkSpecs), so that an exported checkpoint round-trips through
+    DeepSDFConfig.from_specs; NetworkArch names the reference decoder
+    class that the reference's setup_dsdf imports (workspace.py:171-174)."""
+    return {
+        "CodeLength": cfg.latent_size,
+        "NetworkArch": "deep_sdf_decoder_scale",
+        "NetworkSpecs": {
+            "dims": list(cfg.dims),
+            "dropout": list(cfg.dropout),
+            "dropout_prob": cfg.dropout_prob,
+            "norm_layers": list(cfg.norm_layers),
+            "latent_in": list(cfg.latent_in),
+            "weight_norm": cfg.weight_norm,
+            "xyz_in_all": cfg.xyz_in_all,
+            "use_tanh": cfg.use_tanh,
+            "latent_dropout": cfg.latent_dropout,
+        },
+    }
+
+
+def save_torch_checkpoint(path: str, cfg: DeepSDFConfig, params: dict,
+                          epoch: int = 0) -> None:
+    """Write the single-file pair <name>.pt + <name>.json in the reference
+    format (workspace.py:167-188). The keys carry the 'module.' prefix: the
+    reference's setup_dsdf loads through nn.DataParallel before unwrapping
+    (workspace.py:175-180), as its released checkpoints are saved; the
+    port's and JAX's loaders accept both spellings."""
+    state = {"module." + k: v
+             for k, v in torch_state_from_params(cfg, params).items()}
+    torch.save({"epoch": epoch, "model_state_dict": state}, path)
+    with open(os.path.splitext(path)[0] + ".json", "w") as f:
+        json.dump(specs_from_config(cfg), f, indent=2)
 
 
 def load_torch_checkpoint(path: str, device="cuda"):

@@ -203,13 +203,11 @@ def _stage2_surface(decoder_fn, latent, pts_sel, threshold,
     detached (optimizer.py:107; QUIRKS #5). retain_graph keeps the SDF's
     graph alive for the loss backward. `stage2_fn(latent, points) -> (sdf,
     raw normals)`, e.g. the fused kernels of ops/mlp2_cuda.py, replaces
-    the decode and the autograd normals."""
+    the decode and the autograd normals; with (B, L) latents it takes
+    every crop's (B, K, 3) points at once (kernels 4a and 4b: one launch
+    each for all crops)."""
     pts_sel = pts_sel.detach()
-    if stage2_fn is not None and latent.dim() == 2:
-        # kernels 4a and 4b take one crop: one launch each per crop
-        sdf, grads = (torch.stack(t) for t in zip(*(
-            stage2_fn(lat, p) for lat, p in zip(latent, pts_sel))))
-    elif stage2_fn is not None:
+    if stage2_fn is not None:
         sdf, grads = stage2_fn(latent, pts_sel)
     else:
         with torch.enable_grad():

@@ -26,6 +26,12 @@ differs from both by up to ~0.5% of the largest gradient at 8x512.
 Gradients flow to the latent (through the cvec absorption, which stays in
 torch) and to the points. The normals output carries no gradient: its
 cotangent is ignored, as the engine detaches the normals.
+
+Crop axis (the batched driver, as the TPU kernels gain a batch grid axis
+under vmap): (B, L) latents with (B, N, 3) points decode all B crops in one
+launch of 4a and one of 4b, crop b on grid row y = b (a cluster never
+spans two crops); each crop's outputs, 4b's d_cvec included, are bit-equal
+to its launch alone. The plain version on the CPU runs crop by crop.
 """
 
 from __future__ import annotations
@@ -39,15 +45,16 @@ from sdflabel_tpu_torch.ops import _cuda
 from sdflabel_tpu_torch.ops.mlp_cuda import (CLUSTER, KS, PackedSelectMLP,
                                              _cvec, pack_select_mlp)
 
+# the launchers take the crop count after the pointers they index
 STAGE2_FWD_WMMA = _cuda.CudaKernel("stage2_mlp", "stage2_fwd", [
-    _cuda.P] * 6 + [_cuda.I] * 4 + [_cuda.P, _cuda.P])
+    _cuda.P] * 6 + [_cuda.I] * 5 + [_cuda.P, _cuda.P])
 STAGE2_FWD_WGMMA = _cuda.CudaKernel("stage2_mlp", "stage2_fwd_wgmma", [
-    _cuda.P] * 7 + [_cuda.I] * 5 + [_cuda.P, _cuda.P])
+    _cuda.P] * 7 + [_cuda.I] * 6 + [_cuda.P, _cuda.P])
 STAGE2_FWD = _cuda.KernelGroup(wgmma=STAGE2_FWD_WGMMA, wmma=STAGE2_FWD_WMMA)
 STAGE2_BWD_WMMA = _cuda.CudaKernel("stage2_mlp", "stage2_bwd", [
-    _cuda.P] * 7 + [_cuda.I] * 4 + [_cuda.P] * 4)
+    _cuda.P] * 7 + [_cuda.I] * 5 + [_cuda.P] * 4)
 STAGE2_BWD_WGMMA = _cuda.CudaKernel("stage2_mlp", "stage2_bwd_wgmma", [
-    _cuda.P] * 8 + [_cuda.I] * 5 + [_cuda.P] * 4)
+    _cuda.P] * 8 + [_cuda.I] * 6 + [_cuda.P] * 4)
 STAGE2_BWD = _cuda.KernelGroup(wgmma=STAGE2_BWD_WGMMA, wmma=STAGE2_BWD_WMMA)
 
 
@@ -105,7 +112,12 @@ def emulate_stage2(packed: PackedSelectMLP, latent: torch.Tensor,
     """Plain version of kernel 4a (mlp2_pallas.py:275-304): (sdf (N,),
     raw normals (N, 3)). The sdf keeps its graph to the latent and, when
     they carry one, to the points; the normals are autograd's gradient of
-    the sdf with respect to the points, detached."""
+    the sdf with respect to the points, detached. (B, L) latents with
+    (B, N, 3) points run crop by crop -> (B, N), (B, N, 3)."""
+    if latent.dim() == 2:
+        sdf, g = zip(*(emulate_stage2(packed, lat, p)
+                       for lat, p in zip(latent, points)))
+        return torch.stack(sdf), torch.stack(g)
     with torch.enable_grad():
         p = points if points.requires_grad else \
             points.detach().float().requires_grad_(True)
@@ -132,14 +144,22 @@ def _packed_device(packed: PackedSelectMLP) -> torch.device:
     return dev
 
 
-def _check(packed: PackedSelectMLP, cvec: torch.Tensor, xyz: torch.Tensor):
+def _check(packed: PackedSelectMLP, cvec: torch.Tensor,
+           xyz: torch.Tensor) -> tuple[tuple, int, int]:
+    """Check one crop's (N, 3) points and (nh+1, H) cvec, or B crops'
+    (B, N, 3) and (B, nh+1, H); returns (the leading crop dims, B, N)."""
     dev = xyz.device
-    _cuda.check("points", xyz, torch.float32, (-1, 3), dev)
+    lead = tuple(xyz.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"points: {tuple(xyz.shape)}, expected (N, 3) or "
+                         f"(B, N, 3)")
+    _cuda.check("points", xyz, torch.float32, (*lead, -1, 3), dev)
     _cuda.check("cvec", cvec, torch.float32,
-                (packed.n_hidden + 1, packed.width), dev)
+                (*lead, packed.n_hidden + 1, packed.width), dev)
     if _packed_device(packed) != dev:
         raise ValueError(f"packed decoder: on {_packed_device(packed)}, "
                          f"expected {dev}")
+    return lead, (lead[0] if lead else 1), xyz.shape[-2]
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,15 +193,14 @@ def stage2_bwd_design(packed: PackedSelectMLP) -> str:
 
 def stage2_fwd(packed: PackedSelectMLP, cvec: torch.Tensor,
                xyz: torch.Tensor) -> torch.Tensor:
-    """Kernel 4a: (N, 3) points -> (N, 4) [sdf, raw normal]; the wgmma
-    design shares each weight slice among CLUSTER CTAs."""
-    _check(packed, cvec, xyz)
+    """Kernel 4a: (N, 3) points -> (N, 4) [sdf, raw normal], or B crops'
+    (B, N, 3) points and (B, nh+1, H) cvec -> (B, N, 4) in one launch; the
+    wgmma design shares each weight slice among CLUSTER CTAs of a crop."""
+    lead, b, n = _check(packed, cvec, xyz)
     H, nh = packed.width, packed.n_hidden
-    out = torch.empty(xyz.shape[0], 4, device=xyz.device,
-                      dtype=torch.float32)
+    out = torch.empty(*lead, n, 4, device=xyz.device, dtype=torch.float32)
     args = (_cuda.ptr(packed.wx), _cuda.ptr(cvec), _cuda.ptr(packed.wlast),
-            _cuda.ptr(packed.scal), xyz.shape[0], H, nh,
-            int(packed.use_tanh))
+            _cuda.ptr(packed.scal), b, n, H, nh, int(packed.use_tanh))
     if stage2_fwd_design(packed) == "wgmma":
         STAGE2_FWD_WGMMA(_cuda.ptr(xyz), _cuda.ptr(packed.ws_tiles),
                          _cuda.ptr(packed.ws_tiles_t), *args, CLUSTER,
@@ -196,11 +215,13 @@ def stage2_bwd(packed: PackedSelectMLP, cvec: torch.Tensor,
                xyz: torch.Tensor, ct: torch.Tensor, design: str | None = None,
                cluster: int = CLUSTER):
     """Kernel 4b: the sdf's cotangent (N,) -> (d_cvec (nh+1, H),
-    d_points (N, 3)). `design` None takes stage2_bwd_design's; the wgmma
-    design shares each weight slice among `cluster` CTAs."""
-    _check(packed, cvec, xyz)
-    n, H, nh = xyz.shape[0], packed.width, packed.n_hidden
-    _cuda.check("ct", ct, torch.float32, (n,), xyz.device)
+    d_points (N, 3)), or B crops' (B, N) -> ((B, nh+1, H), (B, N, 3)) in
+    one launch (each crop's d_cvec summed from its own partials). `design`
+    None takes stage2_bwd_design's; the wgmma design shares each weight
+    slice among `cluster` CTAs of a crop."""
+    lead, b, n = _check(packed, cvec, xyz)
+    H, nh = packed.width, packed.n_hidden
+    _cuda.check("ct", ct, torch.float32, (*lead, n), xyz.device)
     design = design or stage2_bwd_design(packed)
     if design == "wgmma":
         blocks = _wgmma_blocks(n, cluster)
@@ -209,12 +230,14 @@ def stage2_bwd(packed: PackedSelectMLP, cvec: torch.Tensor,
         if tile == 0:
             raise ValueError(f"stage2: width {H} does not fit a block")
         blocks = -(-n // tile)
-    partial = torch.empty(max(blocks, 1) * (nh + 1) * H, device=xyz.device,
-                          dtype=torch.float32)
-    dxyz = torch.empty(n, 3, device=xyz.device, dtype=torch.float32)
-    dcvec = torch.empty(nh + 1, H, device=xyz.device, dtype=torch.float32)
+    # every crop has the same n: (B, blocks, nh+1, H) partials
+    partial = torch.empty(b * max(blocks, 1) * (nh + 1) * H,
+                          device=xyz.device, dtype=torch.float32)
+    dxyz = torch.empty(*lead, n, 3, device=xyz.device, dtype=torch.float32)
+    dcvec = torch.empty(*lead, nh + 1, H, device=xyz.device,
+                        dtype=torch.float32)
     args = (_cuda.ptr(packed.wx), _cuda.ptr(cvec), _cuda.ptr(packed.wlast),
-            _cuda.ptr(packed.scal), _cuda.ptr(ct), n, H, nh,
+            _cuda.ptr(packed.scal), _cuda.ptr(ct), b, n, H, nh,
             int(packed.use_tanh))
     outs = (_cuda.ptr(dxyz), _cuda.ptr(dcvec), _cuda.ptr(partial),
             _cuda.stream(xyz))
@@ -250,7 +273,8 @@ def stage2_agreement(sdf, sdf_ref, grads):
 
 
 class _Stage2(torch.autograd.Function):
-    """(cvec, points) -> (sdf, raw normals) through kernels 4a and 4b.
+    """(cvec, points) -> (sdf, raw normals) through kernels 4a and 4b, for
+    one crop or a crop axis.
 
     The normals output is not differentiable: its cotangent is ignored
     (the engine detaches the normals, optimizer.py:107)."""
@@ -262,9 +286,9 @@ class _Stage2(torch.autograd.Function):
         out = stage2_fwd(packed, cvec, xyz)
         ctx.save_for_backward(cvec, xyz)
         ctx.packed = packed
-        normals = out[:, 1:4].contiguous()
+        normals = out[..., 1:4].contiguous()
         ctx.mark_non_differentiable(normals)
-        return out[:, 0].contiguous(), normals
+        return out[..., 0].contiguous(), normals
 
     @staticmethod
     def backward(ctx, ct_sdf, _ct_normals):
@@ -276,8 +300,10 @@ class _Stage2(torch.autograd.Function):
 
 def stage2_apply(packed: PackedSelectMLP, latent: torch.Tensor,
                  points: torch.Tensor):
-    """(N, 3) points -> (sdf (N,), raw normals (N, 3)). CPU tensors take
-    the plain version; CUDA tensors launch kernels 4a and 4b."""
+    """(N, 3) points -> (sdf (N,), raw normals (N, 3)); (B, L) latents with
+    (B, N, 3) points -> (B, N), (B, N, 3). CPU tensors take the plain
+    version, crop by crop; CUDA tensors launch kernels 4a and 4b once for
+    all crops."""
     if points.device.type == "cpu":
         return emulate_stage2(packed, latent, points)
     sdf, g = _Stage2.apply(_cvec(packed, latent), points, packed)
@@ -286,8 +312,9 @@ def stage2_apply(packed: PackedSelectMLP, latent: torch.Tensor,
 
 def stage2_fn(cfg: deepsdf.DeepSDFConfig, params: dict):
     """``stage2(latent, points) -> (sdf (N,), raw normals (N, 3))`` for
-    ops/grid.py's stage-2 seam (the counterpart of pallas_stage2_fn), or
-    None when the architecture is outside the packer's contract."""
+    ops/grid.py's stage-2 seam (the counterpart of pallas_stage2_fn; a
+    crop axis as stage2_apply), or None when the architecture is outside
+    the packer's contract."""
     packed = pack_select_mlp(cfg, params)
     if packed is None:
         return None

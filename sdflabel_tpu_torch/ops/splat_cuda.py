@@ -25,7 +25,9 @@ Both split designs take a crop axis (the batched driver, as the TPU
 kernels gain a batch grid axis under vmap): B crops of the same N points
 and P pixels, each with its own rays, go through one launch each way, and
 each crop's result is bit-equal to its launch alone; the single-crop path
-is the same kernel with B = 1.
+is the same kernel with B = 1. So do the three kernels of a binned render
+(the bins, the binned split forward and backward): each crop keeps its own
+bins, smax and windows, as ``jax.vmap`` of JAX's binning gives them.
 
 Binning (splat_pallas.py:211-292) sorts the points by the first
 ``bin_px``-pixel row block their footprint can touch; each row block then
@@ -82,19 +84,20 @@ SPLAT_BWD_FIRST = _cuda.CudaKernel("splat", "splat_bwd_first", [
     _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.F, _cuda.F,
     _cuda.P, _cuda.P, _cuda.P, _cuda.P])
 SPLAT_FWD_BINNED = _cuda.CudaKernel("splat", "splat_fwd_binned_split", [
-    _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.P, _cuda.I, _cuda.I,
-    _cuda.F, _cuda.F, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P])
+    _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.P, _cuda.I,
+    _cuda.I, _cuda.F, _cuda.F, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P])
 SPLAT_FWD_BINNED_FIRST = _cuda.CudaKernel("splat", "splat_fwd_binned", [
     _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.P, _cuda.I, _cuda.F,
     _cuda.F, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P])
 SPLAT_BWD_BINNED = _cuda.CudaKernel("splat", "splat_bwd_binned_split", [
     _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I,
-    _cuda.I, _cuda.I, _cuda.F, _cuda.F, _cuda.P, _cuda.P, _cuda.P, _cuda.P])
+    _cuda.I, _cuda.I, _cuda.I, _cuda.F, _cuda.F, _cuda.P, _cuda.P, _cuda.P,
+    _cuda.P])
 SPLAT_BWD_BINNED_FIRST = _cuda.CudaKernel("splat", "splat_bwd_binned", [
     _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.I,
     _cuda.F, _cuda.F, _cuda.P, _cuda.P, _cuda.P, _cuda.P])
 SPLAT_BINS = _cuda.CudaKernel("splat_bins", "splat_bins", [
-    _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.F,
+    _cuda.P, _cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.I, _cuda.I, _cuda.F,
     _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P, _cuda.P])
 
 BIN_AUTO_PX = 512  # row-block size of the auto policy (splat_pallas.py:64)
@@ -167,7 +170,14 @@ def compute_bins(pts: torch.Tensor, kg: torch.Tensor, diam: float,
                  bin_px: int, chunk: int = 1) -> Bins:
     """splat_pallas.py::_compute_bins on the packed points (N, 8)
     [v, n, mask, 0] and rays (P, 4) [gx, gy, gz, gg]. ``chunk`` = 1 gives
-    the windows at point granularity, as the kernels take them."""
+    the windows at point granularity, as the kernels take them. A crop
+    axis, (B, N, 8) and (B, P, 4), bins each crop on its own, as
+    ``jax.vmap(_compute_bins)``: every field gains a leading (B,), smax is
+    each crop's own widest span."""
+    if pts.dim() == 3:
+        return Bins(*(torch.stack(t) for t in zip(*(
+            compute_bins(p_i, k_i, diam, bin_px, chunk)
+            for p_i, k_i in zip(pts, kg)))))
     nb = -(-kg.shape[0] // bin_px)
     key, span = bin_keys(pts, kg, diam, bin_px)
     order = torch.argsort(key, stable=True)
@@ -200,7 +210,8 @@ def _pack_rays(kinv_grid):
 
 class SortedBins(NamedTuple):
     """What the binned kernels take: a render's points sorted by row block
-    (all on the points' device)."""
+    (all on the points' device); with a crop axis every field gains a
+    leading (B,), and smax is (B,), each crop's own."""
 
     order: torch.Tensor  # (N,) sorted position -> point; int32 (first: int64)
     key: torch.Tensor  # (N,) int32 sorted first row block; nb = none
@@ -219,15 +230,19 @@ def _bins_work(n: int, nb: int) -> int:
 def _sort_bins(pts, feats, kg, diam, bin_px,
                design="kernel") -> SortedBins:
     """The packed points (N, 8) and features (N, 8) binned onto the rays
-    (P, 4) and sorted: on the card through the bins kernel (two launches)
-    or, with ``design="first"``, through :func:`compute_bins` and torch
-    gathers (the first design, kept as the yardstick)."""
+    (P, 4) and sorted: on the card through the bins kernel (two launches;
+    a crop axis (B, N, 8), (B, P, 4) in the same two for all crops) or,
+    with ``design="first"``, through :func:`compute_bins` and torch
+    gathers (the first design, one crop, kept as the yardstick)."""
     dev = pts.device
-    n, p = pts.shape[0], kg.shape[0]
+    lead = tuple(pts.shape[:-2])
+    if lead and design == "first":
+        raise ValueError(f"the first bins design takes one crop, got {lead}")
+    n, p = pts.shape[-2], kg.shape[-2]
     nb = -(-p // bin_px)
-    _cuda.check("pts", pts, torch.float32, (n, 8), dev)
-    _cuda.check("feats", feats, torch.float32, (n, NUM_FEATURES), dev)
-    _cuda.check("kg", kg, torch.float32, (p, 4), dev)
+    _cuda.check("pts", pts, torch.float32, (*lead, n, 8), dev)
+    _cuda.check("feats", feats, torch.float32, (*lead, n, NUM_FEATURES), dev)
+    _cuda.check("kg", kg, torch.float32, (*lead, p, 4), dev)
     if design == "first":
         bins = compute_bins(pts, kg, diam, bin_px)
         win = torch.stack([bins.start, bins.start + bins.count],
@@ -240,15 +255,19 @@ def _sort_bins(pts, feats, kg, diam, bin_px,
         raise ValueError(f"design: {design!r}, expected 'kernel' or 'first'")
     if feats.data_ptr() % 16:  # the kernel copies rows as float4
         feats = feats.clone()
-    ints = torch.empty(2 * n + 1 + 2 * nb, device=dev, dtype=torch.int32)
-    order, key, smax, win = ints.split([n, n, 1, 2 * nb])
-    rows = torch.empty(2, n, 8, device=dev, dtype=torch.float32)
-    work = torch.empty(_bins_work(n, nb), device=dev, dtype=torch.int32)
-    SPLAT_BINS(_cuda.ptr(pts), _cuda.ptr(feats), _cuda.ptr(kg), n, p, bin_px,
-               float(diam), _cuda.ptr(work), _cuda.ptr(order), _cuda.ptr(key),
-               _cuda.ptr(smax), _cuda.ptr(win), _cuda.ptr(rows[0]),
-               _cuda.ptr(rows[1]), _cuda.stream(pts))
-    return SortedBins(order, key, smax, win.view(nb, 2), rows[0], rows[1])
+    b = math.prod(lead)
+    ints = torch.empty(b * (2 * n + 1 + 2 * nb), device=dev,
+                       dtype=torch.int32)
+    order, key, smax, win = ints.split([b * n, b * n, b, b * 2 * nb])
+    rows = torch.empty(2, *lead, n, 8, device=dev, dtype=torch.float32)
+    work = torch.empty(b * _bins_work(n, nb), device=dev, dtype=torch.int32)
+    SPLAT_BINS(_cuda.ptr(pts), _cuda.ptr(feats), _cuda.ptr(kg), b, n, p,
+               bin_px, float(diam), _cuda.ptr(work), _cuda.ptr(order),
+               _cuda.ptr(key), _cuda.ptr(smax), _cuda.ptr(win),
+               _cuda.ptr(rows[0]), _cuda.ptr(rows[1]), _cuda.stream(pts))
+    return SortedBins(order.view(*lead, n), key.view(*lead, n),
+                      smax.view(*(lead or (1,))), win.view(*lead, nb, 2),
+                      rows[0], rows[1])
 
 
 def split_slices(n: int, p: int) -> int:
@@ -310,22 +329,25 @@ def _fwd(pts, feats, kg, diam, depth_constant, kernel=SPLAT_FWD):
 def _fwd_binned(pts, feats, kg, win, bin_px, diam, depth_constant,
                 design="split", slices=0):
     """The binned forward over sorted points and their windows: the split
-    design (`slices` > 0 forces its cluster size) or, with
-    ``design="first"``, the first design."""
+    design (`slices` > 0 forces its cluster size; one crop or a crop axis
+    (B, N, 8) with rays (B, P, 4) and windows (B, nb, 2), one launch for
+    all crops) or, with ``design="first"``, the first design (one crop)."""
     dev = pts.device
-    n, p = pts.shape[0], kg.shape[0]
-    nb = -(-p // bin_px)
-    _cuda.check("pts", pts, torch.float32, (n, 8), dev)
-    _cuda.check("feats", feats, torch.float32, (n, NUM_FEATURES), dev)
-    _cuda.check("kg", kg, torch.float32, (p, 4), dev)
-    _cuda.check("win", win, torch.int32, (nb, 2), dev)
-    img = torch.empty(p, NUM_FEATURES, device=dev, dtype=torch.float32)
-    m, d, zn = (torch.empty(p, device=dev, dtype=torch.float32)
-                for _ in range(3))
-    extra = (slices,) if design == "split" else ()
     kernel = {"split": SPLAT_FWD_BINNED,
               "first": SPLAT_FWD_BINNED_FIRST}[design]
-    kernel(_cuda.ptr(pts), _cuda.ptr(feats), _cuda.ptr(kg), n, p,
+    lead, batch = _batch(pts, kernel, SPLAT_FWD_BINNED)
+    n, p = pts.shape[-2], kg.shape[-2]
+    nb = -(-p // bin_px)
+    _cuda.check("pts", pts, torch.float32, (*lead, n, 8), dev)
+    _cuda.check("feats", feats, torch.float32, (*lead, n, NUM_FEATURES), dev)
+    _cuda.check("kg", kg, torch.float32, (*lead, p, 4), dev)
+    _cuda.check("win", win, torch.int32, (*lead, nb, 2), dev)
+    img = torch.empty(*lead, p, NUM_FEATURES, device=dev,
+                      dtype=torch.float32)
+    m, d, zn = (torch.empty(*lead, p, device=dev, dtype=torch.float32)
+                for _ in range(3))
+    extra = (slices,) if design == "split" else ()
+    kernel(_cuda.ptr(pts), _cuda.ptr(feats), _cuda.ptr(kg), *batch, n, p,
            _cuda.ptr(win), bin_px, *extra, diam, float(depth_constant),
            _cuda.ptr(img), _cuda.ptr(m), _cuda.ptr(d), _cuda.ptr(zn),
            _cuda.stream(pts))
@@ -336,30 +358,36 @@ def _bwd_binned(pts, feats, pix, key, smax, order, bin_px, diam,
                 depth_constant, design="split", slices=0):
     """The binned backward over sorted points -> d_points, d_normals,
     d_features in the points' own order: the split design writes each row
-    to its slot order[j] (`slices` > 0 forces its cluster size); the first
-    design (``design="first"``) writes sorted rows that torch scatters."""
+    to its slot order[j] (`slices` > 0 forces its cluster size; one crop
+    or a crop axis as :func:`_fwd_binned`, with (B, N) keys and order and
+    (B,) smax); the first design (``design="first"``, one crop) writes
+    sorted rows that torch scatters."""
+    if design not in ("split", "first"):
+        raise ValueError(f"design: {design!r}, expected 'split' or 'first'")
     dev = pts.device
-    n, p = pts.shape[0], pix.shape[0]
-    _cuda.check("pts", pts, torch.float32, (n, 8), dev)
-    _cuda.check("feats", feats, torch.float32, (n, NUM_FEATURES), dev)
-    _cuda.check("pix", pix, torch.float32, (p, 16), dev)
-    _cuda.check("key", key, torch.int32, (n,), dev)
-    _cuda.check("smax", smax, torch.int32, (1,), dev)
+    lead, batch = _batch(pts, SPLAT_BWD_BINNED if design == "split"
+                         else SPLAT_BWD_BINNED_FIRST, SPLAT_BWD_BINNED)
+    n, p = pts.shape[-2], pix.shape[-2]
+    _cuda.check("pts", pts, torch.float32, (*lead, n, 8), dev)
+    _cuda.check("feats", feats, torch.float32, (*lead, n, NUM_FEATURES), dev)
+    _cuda.check("pix", pix, torch.float32, (*lead, p, 16), dev)
+    _cuda.check("key", key, torch.int32, (*lead, n), dev)
+    _cuda.check("smax", smax, torch.int32, lead or (1,), dev)
     # one allocation for the three outputs, each a contiguous part of it
-    dv, dn, df = torch.empty((6 + NUM_FEATURES) * n, device=dev,
+    b = math.prod(lead)
+    dv, dn, df = torch.empty((6 + NUM_FEATURES) * b * n, device=dev,
                              dtype=torch.float32).split(
-        [3 * n, 3 * n, NUM_FEATURES * n])
-    dv, dn, df = dv.view(n, 3), dn.view(n, 3), df.view(n, NUM_FEATURES)
+        [3 * b * n, 3 * b * n, NUM_FEATURES * b * n])
+    dv, dn, df = (dv.view(*lead, n, 3), dn.view(*lead, n, 3),
+                  df.view(*lead, n, NUM_FEATURES))
     if design == "split":
-        _cuda.check("order", order, torch.int32, (n,), dev)
+        _cuda.check("order", order, torch.int32, (*lead, n), dev)
         SPLAT_BWD_BINNED(_cuda.ptr(pts), _cuda.ptr(feats), _cuda.ptr(pix),
                          _cuda.ptr(key), _cuda.ptr(smax), _cuda.ptr(order),
-                         n, p, bin_px, slices, diam, float(depth_constant),
-                         _cuda.ptr(dv), _cuda.ptr(dn), _cuda.ptr(df),
-                         _cuda.stream(pts))
+                         *batch, n, p, bin_px, slices, diam,
+                         float(depth_constant), _cuda.ptr(dv), _cuda.ptr(dn),
+                         _cuda.ptr(df), _cuda.stream(pts))
         return dv, dn, df
-    if design != "first":
-        raise ValueError(f"design: {design!r}, expected 'split' or 'first'")
     SPLAT_BWD_BINNED_FIRST(_cuda.ptr(pts), _cuda.ptr(feats), _cuda.ptr(pix),
                            _cuda.ptr(key), _cuda.ptr(smax), n, p, bin_px,
                            diam, float(depth_constant), _cuda.ptr(dv),
@@ -477,15 +505,14 @@ def surfel_composite(points_cam: torch.Tensor, normals_cam: torch.Tensor,
 
     With a crop axis, (B, N, ·) points, normals and features, (B, P, 3)
     rays and a (B, N) mask give (B, P, 8): each crop is composited on its
-    own, as B calls would. The dense kernels take all crops in one launch
-    each way; the plain versions and the binned kernels run crop by
-    crop."""
+    own, as B calls would. The kernels, dense and binned, take all crops
+    in one launch each way; the plain versions run crop by crop."""
     if features.shape[-1] != NUM_FEATURES:
         raise ValueError(f"features: {features.shape[-1]} channels, "
                          f"expected {NUM_FEATURES}")
     bin_px = bin_policy(kinv_grid.shape[-2], bin_px)
     cpu = points_cam.device.type == "cpu"
-    if points_cam.dim() == 3 and (cpu or bin_px):
+    if points_cam.dim() == 3 and cpu:
         return torch.stack([surfel_composite(
             points_cam[b], normals_cam[b], features[b], kinv_grid[b],
             None if point_mask is None else point_mask[b], diam,

@@ -1,12 +1,12 @@
-"""Save and resume the full CSS train state in PyTorch's own format.
+"""Save and resume a full train state in PyTorch's own format.
 
-Counterpart of sdflabel_tpu/utils/checkpoint.py (orbax there): model
-parameters and BatchNorm statistics, Adam's moments and step count, and
-the train step count go into ``<ckpt_dir>/step_<epoch:08d>.pt``, written
-to a temporary file and renamed, so a cut run leaves no half checkpoint
-under a checkpoint's name. A run resumed from it continues bit-identically
-on the same device (the data stream depends only on seed, epoch and
-index).
+Counterpart of sdflabel_tpu/utils/checkpoint.py (orbax there). The CSS
+state (model parameters and BatchNorm statistics, Adam's moments and step
+count, the train step count) and the DeepSDF state (any tree of tensors,
+:func:`save_tree`) go into ``<ckpt_dir>/step_<n:08d>.pt``, written to a
+temporary file and renamed, so a cut run leaves no half checkpoint under
+a checkpoint's name. A run resumed from it continues bit-identically on
+the same device (the data stream depends only on seed, epoch and index).
 """
 
 from __future__ import annotations
@@ -30,6 +30,22 @@ def save_train_state(ckpt_dir: str, state, step: int | None = None) -> str:
                 "opt": state.opt.state_dict(), "step": state.step}, tmp)
     os.replace(tmp, path)
     return path
+
+
+def save_tree(ckpt_dir: str, tree, step: int) -> str:
+    """Write a tree (dicts, lists, tuples) of tensors and numbers as step
+    `step`; returns the path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"step_{step:08d}.pt")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(tree, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_tree(path: str, device) -> dict:
+    """A tree written by :func:`save_tree`, its tensors on `device`."""
+    return torch.load(path, map_location=device, weights_only=True)
 
 
 def restore_train_state(path: str, state):

@@ -3,7 +3,8 @@ crops against B launches of one crop each, bit for bit (the dense splat
 forward and backward, kernels 1a and 1b; the nearest neighbour, 2; the
 selection MLP, 3, both designs), the batched composite against its
 plain version, and the stage-2 kernels (4a, 4b) and the binned splat,
-which a batch still launches once per crop.
+which a batch launches once for all crops
+(tests/test_torch_batched_stage2_binned_cuda.py holds them crop by crop).
 
 Every test needs an NVIDIA card and nvcc and skips elsewhere. On a machine
 with the card and without JAX, run them as
@@ -98,11 +99,12 @@ def test_batched_composite_matches_plain(dev):
 
 
 def test_batched_binned_composite_runs_crop_by_crop(dev):
-    # renders of >= 4096 px take the binned kernels once per crop
+    # renders of >= 4096 px take the binned kernels once for all crops,
+    # each crop as its render alone
     pts, nrm, feats, mask, kg = _splat_batch(dev, 2, 2000, (64, 64), seed=3)
     before = splat_cuda.SPLAT_FWD_BINNED.launches
     img = splat_cuda.surfel_composite(pts, nrm, feats, kg, mask)
-    assert splat_cuda.SPLAT_FWD_BINNED.launches == before + 2
+    assert splat_cuda.SPLAT_FWD_BINNED.launches == before + 1
     for i in range(2):
         assert torch.equal(img[i], splat_cuda.surfel_composite(
             pts[i], nrm[i], feats[i], kg[i], mask[i]))
@@ -187,8 +189,8 @@ def test_batched_select_wmma_design_equals_single_crop_launches(dev):
 
 
 def test_batched_stage2_surface_launches_per_crop(dev):
-    # kernels 4a and 4b take one crop: a batch of B launches each B times,
-    # each crop as its call alone
+    # kernels 4a and 4b take the crop axis: a batch of B launches each
+    # once, each crop as its call alone
     cfg = deepsdf.DeepSDFConfig(latent_size=3, dims=(128,) * 6,
                                 norm_layers=tuple(range(6)), latent_in=(3,),
                                 weight_norm=True)
@@ -203,8 +205,8 @@ def test_batched_stage2_surface_launches_per_crop(dev):
     f0, b0 = mlp2_cuda.STAGE2_FWD.launches, mlp2_cuda.STAGE2_BWD.launches
     surf = grid._stage2_surface(dec, lat, pts, 0.03, stage2)
     surf.points.sum().backward()
-    assert mlp2_cuda.STAGE2_FWD.launches == f0 + 3
-    assert mlp2_cuda.STAGE2_BWD.launches == b0 + 3
+    assert mlp2_cuda.STAGE2_FWD.launches == f0 + 1
+    assert mlp2_cuda.STAGE2_BWD.launches == b0 + 1
     for i in range(3):
         one = grid._stage2_surface(dec, lat[i].detach(), pts[i], 0.03,
                                    stage2)

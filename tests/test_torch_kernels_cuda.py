@@ -318,7 +318,8 @@ def _wgmma_entry_points(cluster):
                                   _cuda.stream(pts))
         mlp2_cuda.STAGE2_FWD_WGMMA(
             _cuda.ptr(pts), _cuda.ptr(packed.ws_tiles),
-            _cuda.ptr(packed.ws_tiles_t), *args, _cuda.ptr(fwd),
+            _cuda.ptr(packed.ws_tiles_t), *args[:4], 1, *args[4:],
+            _cuda.ptr(fwd),
             _cuda.stream(pts))
         return sel, fwd
     return launch

@@ -44,6 +44,10 @@ EXPECTED = tuple("sdflabel_tpu_torch." + m for m in (
     "utils.viz",
     "utils.viz3d",
     "ops.pnp",
+    "data.sdf_samples",
+    "models.deepsdf_workspace",
+    "engine.deepsdf_train",
+    "pipelines.train_deepsdf",
 ))
 
 
