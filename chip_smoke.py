@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Eight phases; any failure exits non-zero and no phase's error is caught
+Eight phases and their parts; any failure exits non-zero and no phase's
+error is caught
 (phase 8 alone halves its batch on running out of card memory, and says
 so).
 
@@ -101,7 +102,20 @@ so).
    written css.msgpack reloads to the same network, and 3 steps on one
    fixed batch lower its loss. The device launches of one
    fused_cross_entropy forward and backward are counted beside those of
-   the first designs' wrapper chain.
+   the first designs' wrapper chain. The stock ``fast_input = False``:
+   the batches take the PIL augmentation chain on the card. (6b) The same
+   at ``precision = bfloat16`` (bf16 convolutions on fp32 parameters):
+   finite losses, 3 fixed-batch steps lower the loss, the CE kernels on
+   every tower; one bf16 step on the card (two batches of 2 crops, seeded
+   init) within twice the CPU's own bf16-vs-fp32 gap of the same step on
+   the CPU; ms/step beside phase 6's. (6c) The fused-head net
+   (``css_fused.fused_from_css`` of phase 6's network): eval outputs
+   within 2e-4 of each output's scale of the unfused net's, then 2 train
+   steps with the CE kernels, ms/step. (6d, after phase 8) The
+   data-parallel CSS step (``parallel/mesh.py``, spawned ranks): one rank
+   on NCCL equal to the plain step bit for bit; two ranks sharing the card
+   over gloo, 6 crops each, within 1e-5 of one rank's step on the 12
+   (with two or more cards, also two NCCL ranks, one card each).
 7. The KITTI driver: ``tools/quality_suite.py`` builds the first 24 frames
    of the v2 quality suite (``--quality-frames 72``: all of it) through
    the binned splat kernel; ``refine_css`` labels them as ``main.py
@@ -122,12 +136,18 @@ so).
    CPU operator in the first two steps; one step on the card against the
    same step on the CPU (the same state and drawn rows of 8 scenes,
    dropout off) within 1e-5; the exported deepsdf.pt reloaded by
-   load_torch_checkpoint to SDFs within 1e-6.
+   load_torch_checkpoint to SDFs within 1e-6. (8b) ``train_deepsdf(mesh=)``
+   on a one-rank NCCL mesh equal to phase 8's run bit for bit; two gloo
+   ranks on the card, each 8 of a cut batch of 16 scenes x 16384 rows
+   (two full-batch ranks would need ~77 GiB), from phase 8's state,
+   against one rank's step: loss within 1e-6 relative, state within rtol
+   2e-5 / atol 1e-7.
 
 Each kernel's launches are counted on the path that runs it (set to 0
 just before the path, read just after): the dense splat, NN and selection
 kernels in phase 4, the stage-2 kernels in 4c, the binned backward in 4b,
-the bins and the binned forward in 5 and the CE kernels in 6; the
+the bins and the binned forward in 5 and the CE kernels in 6 (and in
+6b and 6c, given under ``launches_by_path``); the
 record of each crop-axis kernel also gives its launches in 4d (4f for
 4a and 4b, 4g for the binned trio), and
 ``launches_by_path`` those on the paths of 3b (the viz) and 4e. The line
@@ -177,11 +197,13 @@ from sdflabel_tpu_torch.engine import css_train  # noqa: E402
 from sdflabel_tpu_torch.engine import deepsdf_train  # noqa: E402
 from sdflabel_tpu_torch.engine import refine as refine_mod  # noqa: E402
 from sdflabel_tpu_torch.models import css as css_mod  # noqa: E402
+from sdflabel_tpu_torch.models import css_fused  # noqa: E402
 from sdflabel_tpu_torch.models import deepsdf  # noqa: E402
 from sdflabel_tpu_torch.ops import (  # noqa: E402
     _cuda, ce_cuda, grid as grid_ops, knn, mlp2_cuda, mlp_cuda, nn_cuda,
     splat, splat_cuda)
 from sdflabel_tpu_torch.parallel import batched_refine  # noqa: E402
+from sdflabel_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
 from sdflabel_tpu_torch.pipelines import evaluate_dump  # noqa: E402
 from sdflabel_tpu_torch.pipelines import make_crops as crops_pipe  # noqa: E402
 from sdflabel_tpu_torch.pipelines import refine_css as pipe  # noqa: E402
@@ -329,19 +351,23 @@ def kernel_ms(fn, kernel: str, reps: int = 20) -> float:
     """Device time of one launch of the kernel whose name contains
     `kernel`, without the wrapper's host work: the mean of the profiler's
     kernel times over `reps` calls of `fn` (the profiler may drop a few
-    of the launches; the mean is over those it recorded)."""
+    of the launches; the mean is over those it recorded; a capture that
+    recorded none is taken again, up to three times)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel in e.key]
-    count = sum(e.count for e in hits)
+    for _ in range(3):  # CUPTI has dropped every record of a capture
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key]
+        count = sum(e.count for e in hits)
+        if count:
+            break
     assert count > 0, f"the profiler recorded no launch of {kernel}"
     return sum(e.self_device_time_total for e in hits) / count / 1e3
 
@@ -2408,15 +2434,18 @@ def ce_call_launches(dev, reps: int = 10) -> dict:
 
 
 def train_phase(dev, crops_dir, log_dir, width: int = 64, batch: int = 13,
-                epochs: int = 2):
-    """train_css on the phase-5 crops with the CE kernels on every tower."""
+                epochs: int = 2, precision: str = "float32"):
+    """train_css on the phase-5 crops with the CE kernels on every tower
+    (phase 6; 6b with precision bfloat16). The stock fast_input = False:
+    the PIL augmentation chain."""
     cfgp = train_pipe.make_config(crops_dir, log_dir, fused_ce=True,
                                   direct_ce=True, batch_size=batch,
-                                  precision="float32", plot=False)
+                                  precision=precision, plot=False)
     cfg = cfg_mod.TrainCfg.from_ini(cfgp)
     assert (cfg.fused_ce, cfg.direct_ce, cfg.precision, cfg.batch_size,
-            cfg.plot, cfg.css_path) == (True, True, "float32", batch, False,
-                                        "")
+            cfg.plot, cfg.css_path, cfg.fast_input) == (
+                True, True, precision, batch, False, "", False)
+    tag = "train" if precision == "float32" else "train bf16"
     watch = _cpu_op_watch()
     steps = []
 
@@ -2450,22 +2479,26 @@ def train_phase(dev, crops_dir, log_dir, width: int = 64, batch: int = 13,
     losses = [m["loss"] for _, m in steps]
     step_ms = [s * 1e3 for s, _ in steps]
     steady = statistics.median(step_ms[2:] or step_ms)
-    print(f"train: {len(steps)} steps of batch {batch} at width {width}, "
-          f"{wall:.3f} s wall (data, steps, checkpoints), step ms "
+    print(f"{tag}: {len(steps)} steps of batch {batch} at width {width}, "
+          f"{precision}, {wall:.3f} s wall (data, steps, checkpoints), "
+          f"step ms "
           f"{[round(t, 3) for t in step_ms]} (the first two watched), "
           f"steady {steady:.3f} ms/step = "
           f"{batch / steady * 1e3:.1f} images/s, losses "
           f"{[round(x, 5) for x in losses]}, launches {launched}")
     assert np.isfinite(losses).all()
+    ce_launches = None
     if dev.type == "cuda":
-        print(f"train: CPU operators in the step: {dict(watch.cpu_ops)}")
+        print(f"{tag}: CPU operators in the step: {dict(watch.cpu_ops)}")
         assert not watch.cpu_ops
         # u, v, w and mask: one forward and one backward each per step
         assert launched["ce_fwd"] == launched["ce_bwd"] == 4 * len(steps)
-        ce_launches = ce_call_launches(dev)
+        if precision == "float32":
+            ce_launches = ce_call_launches(dev)
 
-    # the exported network reloads to the same one
+    # the exported network reloads to the same one (both in fp32)
     model = state.model.eval()
+    model.compute_dtype = torch.float32
     again = css_mod.load_css(os.path.join(log_dir, "net", "css.msgpack"),
                              width, model.latent_size, dev)
     want, got = model.state_dict(), again.state_dict()
@@ -2479,27 +2512,141 @@ def train_phase(dev, crops_dir, log_dir, width: int = 64, batch: int = 13,
         out_a, out_b = model(x), again(x)
     reload_err = max(float((out_a[k] - out_b[k]).abs().max())
                      for k in out_a)
-    print(f"train: css.msgpack reloaded, outputs max_abs_err {reload_err}")
+    print(f"{tag}: css.msgpack reloaded, outputs max_abs_err {reload_err}")
     assert reload_err <= 1e-5
 
     # three steps on one fixed batch lower its loss
     model.train()
+    model.compute_dtype = train_pipe.compute_dtype(precision)
     step = css_train.make_train_step(fused_ce=True, direct_ce=True)
     fixed_losses, fixed_ms = [], []
     for _ in range(4):
         t0 = time.perf_counter()
         fixed_losses.append(float(step(state, fixed)["loss"]))
         fixed_ms.append((time.perf_counter() - t0) * 1e3)
-    print(f"train: one fixed batch, losses before each of 4 steps "
+    print(f"{tag}: one fixed batch, losses before each of 4 steps "
           f"{[round(x, 5) for x in fixed_losses]}, step ms "
           f"{[round(t, 3) for t in fixed_ms]}")
     assert fixed_losses[3] < fixed_losses[0]
     return state, fixed, launched, dict(
         wall_s=wall, steps=len(steps), batch=batch, width=width,
-        ce_call_launches=ce_launches if dev.type == "cuda" else None,
+        precision=precision, ce_call_launches=ce_launches,
         step_ms=step_ms, steady_ms_per_step=steady,
         images_per_s=batch / steady * 1e3, losses=losses,
         fixed_batch_step_ms=fixed_ms)
+
+
+def _to(tree, dev):
+    """A tree of dicts and lists with its tensors moved to `dev`."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev) if torch.is_tensor(tree) else tree
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def _step_gaps(a, b) -> np.ndarray:
+    """(|loss difference|, L2 over the parameters, the largest statistics
+    difference over its leaf's largest element) of two CSS steps'
+    (loss, flat variables)."""
+    (la, va), (lb, vb) = a, b
+    d = np.concatenate([np.abs(va[k] - vb[k]).ravel() for k in va
+                        if k.startswith("params")])
+    rel = max(float(np.abs(va[k] - vb[k]).max() / np.abs(vb[k]).max())
+              for k in va if k.startswith("batch_stats"))
+    return np.array([abs(la - lb), float(np.sqrt((d ** 2).sum())), rel])
+
+
+def bf16_card_vs_cpu(dev, crops_dir, width: int = 64) -> dict:
+    """Phase 6b's check: one bf16 train step (seeded init, width 64, two
+    batches of 2 phase-5 crops) on the card (cuDNN bf16 convs, the CE
+    kernels) against the same step on the CPU (oneDNN, the plain CE),
+    within twice the CPU's own bf16-vs-fp32 gap on the same inputs
+    (tests/test_torch_css_bf16.py's rule, with the port's CPU gap where
+    JAX's stands there; each gap the larger over the two batches)."""
+    ds = crops_data.Crops(crops_dir, augment=False, stage="uint8")
+    latent = len(ds.gt["0"][0]["latent"])
+    cpu = torch.device("cpu")
+    gap, ref = np.zeros(3), np.zeros(3)
+    for idx in ([0, 1], [2, 3]):
+        host = crops_data.collate([ds[i] for i in idx])
+        res = {}
+        for name, d, dtype in (("cpu_f32", cpu, torch.float32),
+                               ("cpu_bf16", cpu, torch.bfloat16),
+                               ("card_bf16", dev, torch.bfloat16)):
+            model = train_pipe.setup_css(None, width=width,
+                                         latent_size=latent, device=d)
+            model.compute_dtype = dtype
+            state = css_train.init_train_state(model, 1e-3)
+            step = css_train.make_train_step(fused_ce=d.type == "cuda",
+                                             direct_ce=True)
+            m = step(state, ds.to_device(host, d))
+            res[name] = (float(m["loss"]),
+                         _flat(css_mod.state_to_flax(state.model)))
+        ref = np.maximum(ref, _step_gaps(res["cpu_bf16"], res["cpu_f32"]))
+        gap = np.maximum(gap, _step_gaps(res["card_bf16"], res["cpu_bf16"]))
+    names = ("loss", "params_l2", "stats_rel")
+    print("train bf16: one step on the card against the CPU (width "
+          f"{width}, 2 x 2 crops): "
+          + ", ".join(f"{n} {g:.4g} (the CPU's bf16-vs-fp32 gap {r:.4g})"
+                      for n, g, r in zip(names, gap, ref))
+          + "; need <= 2x each")
+    assert (gap <= 2 * ref).all(), (gap, ref)
+    return {"card_vs_cpu": dict(zip(names, gap.tolist())),
+            "cpu_bf16_vs_fp32": dict(zip(names, ref.tolist()))}
+
+
+def fused_phase(dev, state, fixed, fp32_fixed_ms: list, steps: int = 2):
+    """Phase 6c: the fused-head net (models/css_fused.py) from phase 6's
+    trained fp32 network: its eval outputs on the fixed batch within 2e-4
+    of each output's scale (max(|output|, 1)) of the unfused net's, then
+    `steps` train steps on that batch with the CE kernels."""
+    model = state.model
+    if model.conv1.weight.shape[0] != 64:  # the CPU rehearsal's width 8
+        model = train_pipe.setup_css(None, width=64, device=dev)
+    model.eval()
+    fused = css_fused.fused_from_css(model)
+    x = crops_data.normalize_rgb(fixed["rgb"])
+    with torch.no_grad():
+        a, b = model(x), fused(x)
+    model.train()
+    errs = {k: float((b[k] - a[k]).abs().max()) for k in a}
+    worst = max(errs[k] / max(float(a[k].abs().max()), 1.0) for k in a)
+    print(f"train fused: the fused-head net against the unfused one on "
+          f"{len(x)} crops, max_abs_err by output "
+          f"{json.dumps({k: round(v, 8) for k, v in errs.items()})}, "
+          f"largest over its output's scale {worst:.3g} (need <= 2e-4)")
+    assert worst <= 2e-4
+    fstate = css_train.init_train_state(fused, 1e-3)
+    step = css_train.make_train_step(fused_ce=True, direct_ce=True)
+    reset_counts()
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(fstate, fixed)["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launched = counts()
+    print(f"train fused: {steps} steps on the fixed batch of "
+          f"{len(x)}, step ms {[round(t, 3) for t in ms]} (the unfused "
+          f"net's on the same batch, phase 6: "
+          f"{[round(t, 3) for t in fp32_fixed_ms]}), losses "
+          f"{[round(v, 5) for v in losses]}, launches {launched}")
+    assert np.isfinite(losses).all()
+    if dev.type == "cuda":
+        assert launched["ce_fwd"] == launched["ce_bwd"] == 4 * steps
+    return launched, dict(max_abs_err=errs, max_scaled_err=worst,
+                          step_ms=ms, losses=losses,
+                          unfused_fixed_batch_step_ms=fp32_fixed_ms)
 
 
 # ---------------------------------------------------------------- phase 8
@@ -2653,15 +2800,8 @@ def deepsdf_train_phase(dev, out_dir: str, small: bool = False):
         torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
 
-    def to_cpu(tree):
-        if isinstance(tree, dict):
-            return {k: to_cpu(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to_cpu(v) for v in tree]
-        return tree.cpu() if torch.is_tensor(tree) else tree
-
-    cpu_state = deepsdf_train.state_from_tree(to_cpu(
-        deepsdf_train.state_tree(state)))
+    cpu_state = deepsdf_train.state_from_tree(_to(
+        deepsdf_train.state_tree(state), "cpu"))
     t0 = time.perf_counter()
     on_cpu, m_cpu = deepsdf_train.step_on_samples(
         cfg, tcfg, spe, cpu_state, rows_cmp.cpu(), idx.cpu(),
@@ -2696,7 +2836,9 @@ def deepsdf_train_phase(dev, out_dir: str, small: bool = False):
     print(f"deepsdf train: deepsdf.pt reloaded by load_torch_checkpoint, "
           f"SDFs max_abs_err {export_err:.3g} (need <= 1e-6)")
     assert export_err <= 1e-6
-    return dict(scenes=n_scenes, scenes_per_batch=bsz,
+    handles = dict(exp=exp, root=root, state=state, samples=samples,
+                   scenes=n_scenes, batch=bsz, spe=spe)
+    return handles, dict(scenes=n_scenes, scenes_per_batch=bsz,
                 batch_cut=bsz != (4 if small else 64),
                 samples_per_scene=samples, rows_per_step=rows,
                 dims=list(dims), steps=len(steps), wall_s=wall,
@@ -2705,6 +2847,250 @@ def deepsdf_train_phase(dev, out_dir: str, small: bool = False):
                 losses=losses, fixed_draw_loss=[loss0, float(m_card["loss"])],
                 card_vs_cpu_step_err=step_err,
                 card_vs_cpu_loss_rel=loss_rel, export_err=export_err)
+
+
+# ------------------------------------------------------ phases 6d and 8b
+
+def _css_record(state, metrics) -> dict:
+    """A CSS step's metrics, parameters, gradients and statistics (numpy,
+    by parameter name)."""
+    model = state.model
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "params": {n: p.detach().cpu().numpy()
+                       for n, p in model.named_parameters()},
+            "grads": {n: p.grad.cpu().numpy()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None},
+            "stats": {n: b.cpu().numpy() for n, b in model.named_buffers()}}
+
+
+def _css_dp_step(css: dict, dev, mesh=None) -> dict:
+    """One CSS step of phase 6d's job from its carried variables, plain
+    (no mesh) or data-parallel over `mesh` on the global batch."""
+    model = css_mod.params_from_jax(css["vars"], css["width"],
+                                    css["latent"], dev)
+    state = css_train.init_train_state(model, css["lr"])
+    step = css_train.make_train_step(fused_ce=css["fused"], direct_ce=True)
+    if mesh is not None:
+        step = css_train.shard_train_step(step, mesh)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in css["batch"].items()}
+    return _css_record(state, step(state, batch))
+
+
+def _dsdf_tree(state) -> list:
+    return [x.cpu() if torch.is_tensor(x) else x
+            for x in deepsdf_train._leaves(deepsdf_train.state_tree(state))]
+
+
+def _dsdf_inputs(job: dict, dev):
+    specs = json.load(open(os.path.join(job["exp"], "specs.json")))
+    cfg = deepsdf.DeepSDFConfig.from_specs(specs)
+    tcfg = deepsdf_train.DeepSDFTrainConfig.from_specs(specs)
+    split = json.load(open(os.path.join(job["exp"], "split.json")))
+    tensors = deepsdf_train.TrainTensors(
+        sdf_samples.load_scene_pack(job["root"], split), dev)
+    return cfg, tcfg, tensors
+
+
+def dp_rank(rank: int, out_dir: str, job: dict) -> None:
+    """One rank of phases 6d and 8b (a process of mesh.spawn_ranks): the
+    data-parallel CSS step, and train_deepsdf over the mesh ('train') or
+    one data-parallel DeepSDF step ('step'); the results go to
+    out_dir/dp_<rank>.pt."""
+    dev = torch.device(job["devices"][rank])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    mesh = mesh_mod.make_mesh()
+    out = {"css": _css_dp_step(job["css"], dev, mesh)}
+    d = job["dsdf"]
+    if d["mode"] == "train":
+        state = dsdf_pipe.train_deepsdf(d["exp"], num_epochs=d["epochs"],
+                                        mesh=mesh, device=dev,
+                                        log_every=1000, resume=False)
+    else:
+        cfg, tcfg, tensors = _dsdf_inputs(d, dev)
+        state = deepsdf_train.state_from_tree(
+            _to(d["state"], dev))
+        step = deepsdf_train.shard_train_step(deepsdf_train.train_step, mesh)
+        state, m = step(cfg, tcfg, d["spe"], state, tensors,
+                        torch.as_tensor(d["scenes"], device=dev),
+                        dsdf_pipe.step_generator(d["seed"], 0, dev))
+        out["dsdf_metrics"] = {k: float(v) for k, v in m.items()}
+    out["dsdf"] = _dsdf_tree(state)
+    torch.save(out, os.path.join(out_dir, f"dp_{rank}.pt"))
+
+
+def _run_dp(out_dir: str, job: dict, world: int, backend: str) -> list:
+    """Spawn `world` ranks of dp_rank; their results, which must agree
+    bit for bit."""
+    for name in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, name))
+    t0 = time.perf_counter()
+    mesh_mod.spawn_ranks(dp_rank, world, (out_dir, job), backend=backend)
+    res = [torch.load(os.path.join(out_dir, f"dp_{r}.pt"),
+                      weights_only=False) for r in range(world)]
+    for r in res[1:]:
+        assert _css_gaps(r["css"], res[0]["css"])["bit_equal"]
+        assert all(torch.equal(x, y) if torch.is_tensor(x) else x == y
+                   for x, y in zip(r["dsdf"], res[0]["dsdf"]))
+    return res[0], time.perf_counter() - t0
+
+
+def _css_gaps(got: dict, want: dict) -> dict:
+    """The DP step against the one-rank step: loss relative; gradients
+    relative in L2 over every leaf ('grads_max': max_abs_err over the
+    largest element: the fast variance E[x^2] - E[x]^2 of a channel with
+    a large mean cancels, so single elements part further); statistics
+    and
+    parameters (where |g| >= 1e-5; elsewhere Adam's first step turns
+    rounding-level gradients into +-lr) max_abs_err; all the parameters'
+    max_abs_err (<= 2 lr); whether every value is bit-equal."""
+    gm, wm = got["metrics"]["loss"], want["metrics"]["loss"]
+    out = {"loss_rel": abs(gm - wm) / abs(wm),
+           "grads_max": max(float(np.abs(got["grads"][k] - g).max())
+                            for k, g in want["grads"].items()) / max(
+                                float(np.abs(g).max())
+                                for g in want["grads"].values()),
+           "grads": float(np.sqrt(
+               sum(((got["grads"][k] - g) ** 2).sum()
+                   for k, g in want["grads"].items())
+               / sum((g ** 2).sum() for g in want["grads"].values()))),
+           "stats": max(float(np.abs(got["stats"][k] - v).max())
+                        for k, v in want["stats"].items()),
+           "params_all": max(float(np.abs(got["params"][k] - v).max())
+                             for k, v in want["params"].items())}
+    out["params"] = max(
+        float(np.abs(got["params"][k] - v)[np.abs(want["grads"][k]) >= 1e-5]
+              .max(initial=0)) for k, v in want["params"].items()
+        if k in want["grads"])
+    out["bit_equal"] = all(
+        np.array_equal(got[g][k], want[g][k])
+        for g in ("params", "grads", "stats") for k in want[g]) and all(
+        got["metrics"][k] == want["metrics"][k] for k in want["metrics"])
+    return out
+
+
+def dp_phases(dev, out_dir: str, crops_dir: str, dsdf: dict,
+              small: bool = False) -> dict:
+    """Phases 6d and 8b: the data-parallel CSS and DeepSDF steps
+    (parallel/mesh.py over torch.distributed, spawned ranks).
+
+    6d: the width-64 CSS net from a seeded init on 12 phase-5 crops (2
+    ranks x 6): one rank on NCCL (gloo without a card) must equal the
+    plain step bit for bit (the CE kernels on, as at world 1 in JAX); two
+    ranks sharing the card over gloo (the CE kernels off, as JAX keeps
+    them off a mesh) must be within 1e-5 of the one-rank step: the loss
+    (relative), the statistics, and the parameters wherever |g| >= 1e-5
+    (all within 2 lr); the gradients within 1e-3 relative in L2 (2e-5 on
+    the CPU rehearsal's crops, where the fast variance of a channel with
+    a large mean cancels; 0.78 without the backward all-reduce of the
+    statistics, whose loss is unchanged). 8b: one NCCL rank's train_deepsdf(mesh=) must
+    equal phase 8's run bit for bit; two gloo ranks' step on 16 scenes x
+    phase 8's samples (a cut: two full-batch ranks would need ~77 GiB)
+    from phase 8's state must equal the one-rank step to JAX's
+    sharded-vs-single bounds (loss 1e-6 relative, state rtol 2e-5, atol
+    1e-7). With two or more cards, two NCCL ranks, one card each, are
+    held to the same bounds."""
+    cuda = dev.type == "cuda"
+    here = f"cuda:{torch.cuda.current_device()}" if cuda else "cpu"
+    width, n, lr = (8, 4, 1e-3) if small else (64, 12, 1e-3)
+    ds = crops_data.Crops(crops_dir, augment=False, stage="uint8")
+    latent = len(ds.gt["0"][0]["latent"])
+    batch = ds.to_device(crops_data.collate([ds[i % len(ds)]
+                                             for i in range(n)]), "cpu")
+    init = train_pipe.setup_css(None, width=width, latent_size=latent,
+                                device="cpu")
+    css = dict(vars=css_mod.state_to_flax(init), width=width, latent=latent,
+               lr=lr, batch={k: v.numpy() for k, v in batch.items()})
+    torch.backends.cudnn.deterministic = True
+    one_fused = _css_dp_step(dict(css, fused=True), dev)
+    one_plain = _css_dp_step(dict(css, fused=False), dev)
+    torch.backends.cudnn.deterministic = False
+
+    # 8b's inputs: phase 8's experiment (a copy: rank 0 writes there) and
+    # its final state
+    exp = dsdf["exp"] + "_dp"
+    os.makedirs(exp, exist_ok=True)
+    for name in ("specs.json", "split.json"):
+        shutil.copy(os.path.join(dsdf["exp"], name), exp)
+    state8 = dsdf["state"]
+    scenes = list(range(4 if small else 16))
+    cfg, tcfg, tensors = _dsdf_inputs(dict(exp=exp, root=dsdf["root"]), dev)
+    one_dsdf, one_m = deepsdf_train.train_step(
+        cfg, tcfg, dsdf["spe"], state8, tensors,
+        torch.as_tensor(scenes, device=dev),
+        dsdf_pipe.step_generator(5, 0, dev))
+    one_dsdf = _dsdf_tree(one_dsdf)
+    del tensors
+    if cuda:
+        torch.cuda.empty_cache()
+    step_job = dict(mode="step", exp=exp, root=dsdf["root"],
+                    state=_to(deepsdf_train.state_tree(state8), "cpu"),
+                    scenes=scenes, spe=dsdf["spe"], seed=5)
+    dp_dir = os.path.join(out_dir, "dp")
+    os.makedirs(dp_dir, exist_ok=True)
+    summary = {}
+
+    # one rank on the production backend
+    backend1 = "nccl" if cuda else "gloo"
+    job = dict(devices=[here], css=dict(css, fused=True),
+               dsdf=dict(mode="train", exp=exp, epochs=2))
+    res, secs = _run_dp(dp_dir, job, 1, backend1)
+    gaps = _css_gaps(res["css"], one_fused)
+    dsdf_equal = all(torch.equal(x, y.cpu()) if torch.is_tensor(x)
+                     else x == y for x, y in zip(res["dsdf"],
+                                                 _dsdf_tree(state8)))
+    print(f"6d: the CSS step over a 1-rank {backend1} mesh (fused CE) "
+          f"against the plain step: bit-equal {gaps['bit_equal']} "
+          f"({secs:.1f} s with 8b's run)")
+    print(f"8b: train_deepsdf(mesh=) on a 1-rank {backend1} mesh against "
+          f"phase 8's run: state bit-equal {dsdf_equal}")
+    assert gaps["bit_equal"] and dsdf_equal
+    summary["css_world1"] = dict(backend=backend1, **gaps)
+    summary["dsdf_world1"] = dict(backend=backend1, bit_equal=dsdf_equal)
+
+    # two ranks: on the one card over gloo, and one card each over NCCL
+    runs = [("gloo", [here] * 2)]
+    if cuda and torch.cuda.device_count() >= 2:
+        runs.append(("nccl", ["cuda:0", "cuda:1"]))
+    for backend, devices in runs:
+        job = dict(devices=devices, css=dict(css, fused=False),
+                   dsdf=step_job)
+        res, secs = _run_dp(dp_dir, job, 2, backend)
+        g = _css_gaps(res["css"], one_plain)
+        print(f"6d: 2 ranks ({backend}, {devices}) of {n // 2} crops against "
+              f"one rank's step on the {n}: loss relative "
+              f"{g['loss_rel']:.3g}, gradients relative (L2) "
+              f"{g['grads']:.3g} (need <= 1e-3; the largest element's error "
+              f"over the largest gradient {g['grads_max']:.3g}), statistics "
+              f"{g['stats']:.3g}, "
+              f"parameters where |g| >= 1e-5 {g['params']:.3g} (need <= "
+              f"1e-5 each), all parameters {g['params_all']:.3g} (need <= "
+              f"2 lr) ({secs:.1f} s with 8b's step)")
+        assert max(g["loss_rel"], g["stats"], g["params"]) <= 1e-5
+        assert g["params_all"] <= 2 * lr * 1.01 and g["grads"] <= 1e-3
+        loss_rel = abs(res["dsdf_metrics"]["loss"] - float(one_m["loss"])) \
+            / abs(float(one_m["loss"]))
+        state_err = [float(((x.float() - y.float()).abs()
+                            - 2e-5 * y.float().abs()).max())
+                     for x, y in zip(res["dsdf"], one_dsdf)
+                     if torch.is_tensor(x) and x.is_floating_point()]
+        print(f"8b: 2 ranks ({backend}) of {len(scenes) // 2} scenes x "
+              f"{dsdf['samples']} samples against one rank's step on "
+              f"{len(scenes)} (cut from phase 8's batch of "
+              f"{dsdf['batch']} of {dsdf['scenes']} scenes: two full-batch "
+              f"ranks would need ~77 GiB): loss "
+              f"relative {loss_rel:.3g} (need <= 1e-6), state |err| - 2e-5 "
+              f"|x| at most {max(state_err):.3g} (need <= 1e-7)")
+        assert loss_rel <= 1e-6 and max(state_err) <= 1e-7
+        summary[f"css_world2_{backend}"] = dict(devices=devices, **g)
+        summary[f"dsdf_world2_{backend}"] = dict(
+            devices=devices, scenes=len(scenes), samples=dsdf["samples"],
+            loss_rel=loss_rel, state_excess=max(state_err))
+    return summary
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2948,7 +3334,9 @@ def profile_design(rt, prep, label: str, path: str, patches=()) -> None:
 def profile_all(out_dir: str, rt512, rt_stage2, prep, sample, state, fixed,
                 summary) -> None:
     """--profile: the full-width crop and two train steps on one fixed
-    batch under the profiler, the device busy time of each; the full-width
+    batch under the profiler (in fp32, and with bf16 convolutions, whose
+    ten costliest kernels are printed), the device busy time of each; the
+    full-width
     crop again with the first dense splat forward, and phase 4c's crop with
     the new designs and again with the first designs of the dense splat
     forward and kernel 4b; then the same steps timed with cuDNN's autotuner
@@ -2988,6 +3376,20 @@ def profile_all(out_dir: str, rt512, rt_stage2, prep, sample, state, fixed,
     profile_phase("train, 2 steps", two_steps,
                   2e-3 * summary["train"]["steady_ms_per_step"], 2, "step",
                   os.path.join(out_dir, "profile_train.json"))
+    # the same two steps with the convolutions in bf16 (phase 6b's model)
+    state.model.compute_dtype = torch.bfloat16
+    try:
+        path = os.path.join(out_dir, "profile_train_bf16.json")
+        profile_phase("train bf16, 2 steps", two_steps,
+                      2e-3 * summary["train_bf16"]["steady_ms_per_step"], 2,
+                      "step", path)
+    finally:
+        state.model.compute_dtype = torch.float32
+    with open(path) as f:
+        top = json.load(f)["kernels"][:10]
+    for k in top:
+        print(f"profile: train bf16, 2 steps: {k['ms']:9.3f} ms "
+              f"{k['count']:5d} x {k['name'][:150]}")
     torch.backends.cudnn.benchmark = True
     try:
         two_steps()  # the autotuner tries its algorithms here
@@ -3059,8 +3461,29 @@ def run_paths(dev, out_dir: str, small: bool = False,
         **(dict(width=8, batch=2, epochs=1) if small else {}))
     seconds["6"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    dsdf_train = deepsdf_train_phase(dev, out_dir, small=small)
+    _, _, bf16_launched, train_bf16 = train_phase(
+        dev, crops_dir, os.path.join(out_dir, "log_bf16"),
+        precision="bfloat16",
+        **(dict(width=8, batch=2, epochs=1) if small else {}))
+    train_bf16["card_vs_cpu"] = bf16_card_vs_cpu(dev, crops_dir,
+                                                 width=8 if small else 64)
+    print(f"train bf16: steady {train_bf16['steady_ms_per_step']:.3f} "
+          f"ms/step beside phase 6's fp32 "
+          f"{train['steady_ms_per_step']:.3f} ms/step; kernel 5 launches "
+          f"{bf16_launched['ce_fwd']} forward, {bf16_launched['ce_bwd']} "
+          f"backward")
+    seconds["6b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fused_launched, fused = fused_phase(dev, state, fixed,
+                                        train["fixed_batch_step_ms"])
+    seconds["6c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dsdf_handles, dsdf_train = deepsdf_train_phase(dev, out_dir, small=small)
     seconds["8"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data_parallel = dp_phases(dev, out_dir, crops_dir, dsdf_handles,
+                              small=small)
+    seconds["6d+8b"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     kitti_launched, kitti = kitti_phase(
         dev, out_dir, **(dict(n_frames=2, iters=2) if small
@@ -3069,6 +3492,7 @@ def run_paths(dev, out_dir: str, small: bool = False,
     print(f"phase seconds: {json.dumps(seconds)}")
     launched = {"full_width": full_launched, "binned_refine": binned_launched,
                 "crops": crops_launched, "train": train_launched,
+                "train_bf16": bf16_launched, "train_fused": fused_launched,
                 "full_width_stage2": stage2_launched, "kitti": kitti_launched,
                 "batched_full_width": batched_launched,
                 "batched_stage2": b_stage2_launched,
@@ -3079,7 +3503,9 @@ def run_paths(dev, out_dir: str, small: bool = False,
                "batched_full_width": batched, "coarse_cells": cells,
                "full_width_stage2": stage2, "batched_stage2": b_stage2,
                "batched_binned": b_binned, "binned_refine": binned,
-               "crops": crops, "train": train, "deepsdf_train": dsdf_train,
+               "crops": crops, "train": train, "train_bf16": train_bf16,
+               "train_fused": fused, "data_parallel": data_parallel,
+               "deepsdf_train": dsdf_train,
                "kitti_driver": kitti, "phase_seconds": seconds}
     handles = dict(rt512=rt512, rt_stage2=rt_stage2, prep=prep,
                    sample=sample, state=state, fixed=fixed)
@@ -3158,12 +3584,14 @@ def main() -> int:
             row["crop_axis"]["launches"] = \
                 launched[batched_path][row["name"]]
             row["crop_axis"]["path"] = batched_path
-        # the launches on this slice's paths: the viz of the demo as
-        # written (3b) and the coarse cells (4e)
+        # the launches on the later slices' paths: the viz of the demo as
+        # written (3b), the coarse cells (4e), bf16 training (6b) and the
+        # fused-head net (6c)
         row["launches_by_path"] = {
             path: launched[path].get(row["name"], 0)
             for path in ("demo_viz", "warm_refresh_cells", "coarse_cells",
-                         "batched_warm_refresh_cells")
+                         "batched_warm_refresh_cells", "train_bf16",
+                         "train_fused")
             if launched[path].get(row["name"], 0)}
     print(json.dumps({"card": card, **summary}))
     print(json.dumps({"kernels": rows}))

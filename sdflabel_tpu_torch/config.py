@@ -147,11 +147,12 @@ class RefineCfg:
 class TrainCfg:
     """configs/config_train.ini, all keys (see sdflabel_tpu.config).
 
-    The port trains in float32 only (other precisions are refused by
-    pipelines/train_css.py) and has one input chain, the device-side form
-    of the JAX package's fast path (data/crops.py), so ``fast_input`` is
-    read and changes nothing. ``fused_ce`` routes the CE towers through
-    kernel 5 on the card; ``direct_ce`` feeds them the raw head logits.
+    ``precision`` float32, or bfloat16 / float16 (both bf16 conv compute,
+    pipelines/train_css.py). ``fast_input`` selects the augmentation
+    chain as in JAX: False (the stock setting) the PIL chain, True the
+    fast path's, both on the device (data/crops.py). ``fused_ce`` routes
+    the CE towers through kernel 5 on the card; ``direct_ce`` feeds them
+    the raw head logits.
     """
 
     data_path: str = "data/db/crops/"

@@ -27,17 +27,28 @@ of plain fp32 matmuls, as JAX computes it outside any kernel; TF32 stays
 off for them (pipelines/train_deepsdf.py sets it). The optimizer is
 written out with optax's arithmetic, as engine/refine.py::batch_step
 writes it: torch.optim.Adam rounds its update another way.
+
+:func:`shard_train_step` is JAX's data-parallel step over the scene axis
+(deepsdf_train.py:264-280), whose draw is "bit-identical to the
+single-device step": every rank draws the global rows and dropout masks
+from the same generator and computes only its contiguous share of the
+scenes; each loss term is divided by its global count; the decoder and
+code-table gradients are summed over the data axis before the
+decoder-only clip, and both Adam groups and the CodeBound projection then
+run alike on every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
 import torch
 
 from sdflabel_tpu_torch.models import deepsdf
+from sdflabel_tpu_torch.parallel import mesh as mesh_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,23 +248,39 @@ def draw(tensors: TrainTensors, scene_idx: torch.Tensor,
                            samples_per_scene - half)], dim=1)
 
 
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """A rank's share of a step: its scenes start at `lo` of a global
+    batch of `scenes`, whose scale targets have `finite` finite ones (a
+    0-dim tensor)."""
+
+    lo: int
+    scenes: int
+    finite: torch.Tensor
+
+
 def losses(cfg: deepsdf.DeepSDFConfig, tcfg: DeepSDFTrainConfig, params,
            codes, samples, scene_idx, scales, epoch: int,
-           dropout_gen=None) -> dict:
+           dropout_gen=None, shard: Shard | None = None) -> dict:
     """The step's loss terms on drawn `samples` (B, S, 4) of the scenes
     `scene_idx` (B,) (engine/deepsdf_train.py:218-251 of the JAX
-    package): total, l1, reg, scale and the codes' mean norm."""
+    package): total, l1, reg, scale and the codes' mean norm. With a
+    `shard` the rows are a rank's share, each term is divided by its
+    global count, and the ranks' terms sum to the global ones."""
     b, s = samples.shape[:2]
     num = b * s
+    lo, scenes = (0, b) if shard is None else (shard.lo, shard.scenes)
     d = tcfg.clamp_dist
     sdf_gt = samples[..., 3].clamp(-d, d)
     z = codes[scene_idx]
     inputs = torch.cat([z[:, None, :].expand(b, s, cfg.latent_size),
                         samples[..., :3]], -1).reshape(num, -1)
-    pred = deepsdf.apply_sdf(cfg, params, inputs, dropout_gen).clamp(-d, d)
-    l1 = (pred - sdf_gt.reshape(-1)).abs().sum() / num
+    rows = None if shard is None else (lo * s, scenes * s)
+    pred = deepsdf.apply_sdf(cfg, params, inputs, dropout_gen,
+                             rows).clamp(-d, d)
+    l1 = (pred - sdf_gt.reshape(-1)).abs().sum() / (scenes * s)
     zero = torch.zeros((), device=samples.device)
-    z_norm = torch.linalg.norm(z, dim=-1).mean()
+    z_norm = torch.linalg.norm(z, dim=-1).mean() * (b / scenes)
     reg = zero
     if tcfg.code_reg:
         warm = min(1.0, float(np.float32(epoch + 1) / np.float32(100.0)))
@@ -267,7 +294,8 @@ def losses(cfg: deepsdf.DeepSDFConfig, tcfg: DeepSDFTrainConfig, params,
         tgt_safe = torch.where(ok, tgt, zero)
         pred_sc = deepsdf.apply_scale(cfg, params, z)[:, 0]
         se = torch.where(ok, (pred_sc - tgt_safe) ** 2, zero)
-        lsc = tcfg.scale_weight * se.sum() / ok.sum().clamp(min=1)
+        finite = ok.sum() if shard is None else shard.finite
+        lsc = tcfg.scale_weight * se.sum() / finite.clamp(min=1)
     total = l1 + reg + lsc
     return {"loss": total, "loss_l1": l1, "loss_reg": reg,
             "loss_scale": lsc, "code_norm": z_norm}
@@ -276,24 +304,31 @@ def losses(cfg: deepsdf.DeepSDFConfig, tcfg: DeepSDFTrainConfig, params,
 def step_on_samples(cfg: deepsdf.DeepSDFConfig, tcfg: DeepSDFTrainConfig,
                     steps_per_epoch: int, state: DeepSDFTrainState,
                     samples: torch.Tensor, scene_idx: torch.Tensor,
-                    scales: torch.Tensor, dropout_gen=None
+                    scales: torch.Tensor, dropout_gen=None,
+                    shard: Shard | None = None, group=None
                     ) -> tuple[DeepSDFTrainState, dict]:
     """One optimizer step on drawn rows: the losses, their gradients to
     the decoder and the codes, the clipped decoder group and both Adam
     groups, then the CodeBound projection. Returns the new state and the
-    metrics (device scalars, not read back)."""
+    metrics (device scalars, not read back). With a `shard` and its data
+    axis `group` the rows are a rank's share: the gradients and metrics
+    are summed over the group before the update."""
     leaves = [x.detach().requires_grad_(True)
               for x in _leaves(state.params)]
     params = _rebuild(state.params, iter(leaves))
     codes = state.codes.detach().requires_grad_(True)
     epoch = state.step // max(1, steps_per_epoch)
     metrics = losses(cfg, tcfg, params, codes, samples, scene_idx, scales,
-                     epoch, dropout_gen)
+                     epoch, dropout_gen, shard)
     # the scale head takes no gradient without its loss: zeros, as in JAX
     grads = torch.autograd.grad(metrics["loss"], leaves + [codes],
                                 allow_unused=True)
-    *g_dec, g_codes = [torch.zeros_like(x) if g is None else g
-                       for x, g in zip(leaves + [codes], grads)]
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves + [codes], grads)]
+    metrics = {k: v.detach().clone() for k, v in metrics.items()}
+    if group is not None:
+        mesh_mod.all_reduce_(grads + list(metrics.values()), group)
+    *g_dec, g_codes = grads
     if tcfg.grad_clip is not None:
         g_dec = clip_by_global_norm(g_dec, tcfg.grad_clip)
     lr_dec, lr_codes = learning_rates(tcfg, state.step, steps_per_epoch)
@@ -309,22 +344,37 @@ def step_on_samples(cfg: deepsdf.DeepSDFConfig, tcfg: DeepSDFTrainConfig,
             tcfg.code_bound / norms.clamp(min=1e-12), max=1.0)
     return (DeepSDFTrainState(new_params, new_codes,
                               {"dec": opt_dec, "codes": opt_codes},
-                              state.step + 1),
-            {k: v.detach() for k, v in metrics.items()})
+                              state.step + 1), metrics)
 
 
 def train_step(cfg: deepsdf.DeepSDFConfig, tcfg: DeepSDFTrainConfig,
                steps_per_epoch: int, state: DeepSDFTrainState,
                tensors: TrainTensors, scene_idx: torch.Tensor,
-               generator: torch.Generator) -> tuple[DeepSDFTrainState, dict]:
+               generator: torch.Generator, mesh=None
+               ) -> tuple[DeepSDFTrainState, dict]:
     """:func:`draw` then :func:`step_on_samples`, the dropout masks drawn
     from the same generator after the rows (when the config has
-    dropout)."""
+    dropout). With a `mesh` (:func:`shard_train_step`) this rank steps on
+    its share of `scene_idx`, the global batch."""
     samples = draw(tensors, scene_idx, tcfg.samples_per_scene, generator)
     use_dropout = bool(cfg.dropout) or cfg.latent_dropout
-    return step_on_samples(cfg, tcfg, steps_per_epoch, state, samples,
-                           scene_idx, tensors.scales,
-                           generator if use_dropout else None)
+    gen = generator if use_dropout else None
+    if mesh is None:
+        return step_on_samples(cfg, tcfg, steps_per_epoch, state, samples,
+                               scene_idx, tensors.scales, gen)
+    cut = mesh_mod.data_slice(scene_idx.shape[0], mesh)
+    shard = Shard(cut.start, scene_idx.shape[0],
+                  torch.isfinite(tensors.scales[scene_idx]).sum())
+    return step_on_samples(cfg, tcfg, steps_per_epoch, state, samples[cut],
+                           scene_idx[cut], tensors.scales, gen, shard,
+                           mesh.data_group)
+
+
+def shard_train_step(step, mesh):
+    """Data-parallel `step` (:func:`train_step`) over the scene axis of
+    `mesh` (deepsdf_train.py:264-280): every rank passes the same global
+    `scene_idx` and generator and holds the same state after the step."""
+    return functools.partial(step, mesh=mesh)
 
 
 def _adam_node(tree):

@@ -12,6 +12,13 @@ Module and parameter names follow the flax variable tree (``conv1``,
 ``layer2_0``, ``up3_mask``, ``out_lat``, ...), so that
 :func:`state_from_flax` maps the JAX package's checkpoints one leaf at a
 time: HWIO kernels become OIHW; :func:`state_to_flax` maps them back.
+
+``CSSNet.compute_dtype`` is the JAX module's ``dtype`` (mixed-precision
+training): torch.bfloat16 runs every backbone and decoder conv in bf16 on
+fp32 parameters, with the JAX module's casts (css.py:74-176): BatchNorm
+takes its input as fp32 and returns fp32, the residual joins the block's
+fp32 output, ``Up`` rounds its input to bf16 before the fp32 upsample,
+and the latent head and the four 1x1 output convs stay fp32.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sdflabel_tpu_torch.parallel.mesh import all_reduce_sum
 from sdflabel_tpu_torch.utils import flax_msgpack
 
 
@@ -66,7 +74,13 @@ class TorchBatchNorm(nn.Module):
     variance E[x^2] - E[x]^2 clipped at 0 (flax's use_fast_variance), and
     sets running = 0.9 running + (1 - 0.9) batch with that same variance;
     torch.nn.BatchNorm2d would keep the unbiased one. Gradients flow
-    through the batch statistics, as in flax."""
+    through the batch statistics, as in flax.
+
+    ``sync`` (a process group and this rank's share of the global batch,
+    set by a data-parallel step) makes the statistics those of the global
+    batch, as XLA reduces them under JAX's pjit: the per-channel mean and
+    E[x^2] of each rank, weighted by its share, are summed over the group
+    in the forward, and their cotangents the same way in the backward."""
 
     MOMENTUM = 0.9
 
@@ -76,12 +90,18 @@ class TorchBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.sync = None
 
     def forward(self, x):
         x = x.float()
         if self.training:
             mean = x.mean((0, 2, 3))
-            var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+            ex2 = (x * x).mean((0, 2, 3))
+            if self.sync is not None:
+                group, share = self.sync
+                mean, ex2 = all_reduce_sum(torch.stack([mean, ex2]) * share,
+                                           group)
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.MOMENTUM
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -95,18 +115,33 @@ class TorchBatchNorm(nn.Module):
 
 class Conv(nn.Module):
     """Square conv with 'same'-style k//2 padding (flax nn.Conv as the JAX
-    module configures it). ``weight`` is OIHW."""
+    module configures it). ``weight`` is OIHW. ``dtype`` is the compute
+    dtype (flax's ``dtype``): in bf16 the input, kernel and bias are cast
+    to it, and the bias is added to the rounded conv output, as flax
+    does; ``mixed=False`` marks the convs that the JAX module builds
+    without a dtype (fp32 always)."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 bias: bool = False, pad: int | None = None):
+                 bias: bool = False, pad: int | None = None,
+                 groups: int = 1, mixed: bool = True):
         super().__init__()
-        self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
+        self.weight = nn.Parameter(torch.zeros(cout, cin // groups, k, k))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.stride = stride
         self.pad = k // 2 if pad is None else pad
+        self.groups = groups
+        self.mixed = mixed
+        self.dtype = torch.float32
 
     def forward(self, x):
-        return F.conv2d(x, self.weight, self.bias, self.stride, self.pad)
+        if self.dtype == torch.float32:
+            return F.conv2d(x.float(), self.weight, self.bias, self.stride,
+                            self.pad, groups=self.groups)
+        y = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), None,
+                     self.stride, self.pad, groups=self.groups)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)[:, None, None]
+        return y
 
 
 class BasicBlock(nn.Module):
@@ -130,7 +165,7 @@ class BasicBlock(nn.Module):
         residual = x
         if self.downsample:
             residual = self.TorchBatchNorm_2(self.Conv_2(x))
-        return torch.relu(out + residual)
+        return torch.relu(out + residual.to(out.dtype))
 
 
 class DoubleConv(nn.Module):
@@ -157,12 +192,15 @@ class Up(nn.Module):
         self.DoubleConv_0 = DoubleConv(cin, features)
 
     def forward(self, x1, x2):
-        x1 = upsample2x_align_corners(x1)
+        # rounded to the compute dtype, then upsampled by fp32 weights (jnp
+        # promotes the JAX module's einsum to fp32)
+        x1 = upsample2x_align_corners(
+            x1.to(self.DoubleConv_0.Conv_0.dtype).float())
         dh = x1.shape[2] - x2.shape[2]
         dw = x1.shape[3] - x2.shape[3]
         if dh or dw:
             x2 = F.pad(x2, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
-        x = torch.cat([x2, x1], dim=1) if self.add_shortcut else x1
+        x = torch.cat([x2.float(), x1], dim=1) if self.add_shortcut else x1
         return self.DoubleConv_0(x)
 
 
@@ -170,14 +208,15 @@ class CSSNet(nn.Module):
     """ResNet18-FPN CSS network (resnet_css.py:104-262), built in eval mode.
 
     ``width`` scales every channel count (64 is the reference); the
-    256 bins per NOCS channel never scale. Input (B, 3, 128, 128). The
+    256 bins per NOCS channel never scale. ``dtype`` is the compute dtype
+    (:attr:`compute_dtype`). Input (B, 3, 128, 128). The
     weights start at zero: :func:`init_params` draws flax's initial ones,
     :func:`state_from_flax` carries trained ones across."""
 
     HEADS = (("u", 256), ("v", 256), ("w", 256), ("mask", 2))
 
     def __init__(self, width: int = 64, latent_size: int = 3,
-                 sm_hardness: float = 100.0):
+                 sm_hardness: float = 100.0, dtype=torch.float32):
         super().__init__()
         wd = width
         self.sm_hardness = sm_hardness
@@ -190,14 +229,40 @@ class CSSNet(nn.Module):
         self.layer2_1 = BasicBlock(2 * wd, 2 * wd)
         self.layer3_0 = BasicBlock(2 * wd, 4 * wd, 2, True)
         self.layer3_1 = BasicBlock(4 * wd, 4 * wd)
-        self.out_lat = Conv(4 * wd, latent_size, 1, bias=True)
+        self.out_lat = Conv(4 * wd, latent_size, 1, bias=True, mixed=False)
         for name, out_ch in self.HEADS:
             setattr(self, f"up1_{name}", Up(4 * wd + 2 * wd, 2 * wd))
             setattr(self, f"up2_{name}", Up(2 * wd + wd, wd))
             setattr(self, f"up3_{name}", Up(wd + wd, wd))
             setattr(self, f"up4_{name}", Up(wd, wd, add_shortcut=False))
-            setattr(self, f"out_{name}", Conv(wd, out_ch, 1, bias=True))
+            setattr(self, f"out_{name}", Conv(wd, out_ch, 1, bias=True,
+                                              mixed=False))
+        self.compute_dtype = dtype
         self.eval()
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self.conv1.dtype
+
+    @compute_dtype.setter
+    def compute_dtype(self, dtype: torch.dtype) -> None:
+        """torch.float32 or torch.bfloat16 for every conv but the fp32
+        heads; the parameters stay fp32."""
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute dtype {dtype} (float32 or bfloat16)")
+        for mod in self.modules():
+            if isinstance(mod, Conv) and mod.mixed:
+                mod.dtype = dtype
+
+    def backbone(self, x):
+        """The ResNet trunk: (x1, x2, x3, x4) and the latent."""
+        x1 = torch.relu(self.bn1(self.conv1(x)))
+        x2 = F.max_pool2d(x1, 3, 2, 1)
+        x3 = self.layer1_1(self.layer1_0(x2))
+        x3 = self.layer2_1(self.layer2_0(x3))
+        x4 = self.layer3_1(self.layer3_0(x3))
+        latent = project_vecs_onto_sphere(self.out_lat(x4).mean(dim=(2, 3)))
+        return (x1, x2, x3, x4), latent
 
     def forward(self, x, decode: bool = True):
         """Outputs as the JAX module's: the head logits ``u_raw``,
@@ -205,13 +270,7 @@ class CSSNet(nn.Module):
         also their log-softmax ``u``, ``v``, ``w`` and the expected-colour
         decode ``uvw_sm``, ``uvw_sm_masked``, ``mask_sm`` (training on raw
         logits needs none of them)."""
-        x1 = torch.relu(self.bn1(self.conv1(x)))
-        x2 = F.max_pool2d(x1, 3, 2, 1)
-        x3 = self.layer1_1(self.layer1_0(x2))
-        x3 = self.layer2_1(self.layer2_0(x3))
-        x4 = self.layer3_1(self.layer3_0(x3))
-
-        latent = project_vecs_onto_sphere(self.out_lat(x4).mean(dim=(2, 3)))
+        (x1, x2, x3, x4), latent = self.backbone(x)
 
         def head(name):
             h = getattr(self, f"up1_{name}")(x4, x3)
@@ -223,32 +282,39 @@ class CSSNet(nn.Module):
         u_raw, v_raw, w_raw, mask = (head(n) for n in ("u", "v", "w", "mask"))
         out = {"u_raw": u_raw, "v_raw": v_raw, "w_raw": w_raw, "mask": mask,
                "latent": latent}
-        if not decode:
-            return out
-        u, v, w = (torch.log_softmax(t, dim=1) for t in (u_raw, v_raw, w_raw))
-        colors = torch.arange(256, device=x.device, dtype=x.dtype)
+        return decode_heads(out, self.sm_hardness, x.dtype) if decode else out
 
-        def softmax_ftz(logits):
-            # XLA flushes subnormals to zero; at hardness 100 the colour
-            # probabilities reach them, and a pixel whose expected colour
-            # is a subnormal product would count as non-black downstream
-            # (reproject_np's filter_nocs). Flush as the JAX module does.
-            prob = torch.softmax(logits * self.sm_hardness, dim=1)
-            return torch.where(prob < torch.finfo(prob.dtype).tiny,
-                               torch.zeros_like(prob), prob)
 
-        def expected(logp):
-            return (softmax_ftz(logp) * colors[:, None, None]).sum(
-                1, keepdim=True)
+def decode_heads(out: dict, sm_hardness: float, dtype) -> dict:
+    """`out` with the log-softmax ``u``, ``v``, ``w`` of its raw logits
+    and the expected-colour decode ``uvw_sm``, ``uvw_sm_masked``,
+    ``mask_sm`` (resnet_css.py:229-241) added."""
+    u, v, w = (torch.log_softmax(out[k], dim=1)
+               for k in ("u_raw", "v_raw", "w_raw"))
+    mask = out["mask"]
+    dev = mask.device
+    colors = torch.arange(256, device=dev, dtype=dtype)
 
-        uvw_sm = torch.cat([expected(u), expected(v), expected(w)], dim=1)
-        prob_mask = softmax_ftz(mask)
-        mask_sm = (prob_mask * torch.arange(2, device=x.device, dtype=x.dtype)
-                   [:, None, None]).sum(1, keepdim=True)
-        hard_mask = torch.argmax(mask, dim=1, keepdim=True).to(x.dtype)
-        out.update(u=u, v=v, w=w, uvw_sm=uvw_sm,
-                   uvw_sm_masked=uvw_sm * hard_mask, mask_sm=mask_sm)
-        return out
+    def softmax_ftz(logits):
+        # XLA flushes subnormals to zero; at hardness 100 the colour
+        # probabilities reach them, and a pixel whose expected colour
+        # is a subnormal product would count as non-black downstream
+        # (reproject_np's filter_nocs). Flush as the JAX module does.
+        prob = torch.softmax(logits * sm_hardness, dim=1)
+        return torch.where(prob < torch.finfo(prob.dtype).tiny,
+                           torch.zeros_like(prob), prob)
+
+    def expected(logp):
+        return (softmax_ftz(logp) * colors[:, None, None]).sum(
+            1, keepdim=True)
+
+    uvw_sm = torch.cat([expected(u), expected(v), expected(w)], dim=1)
+    prob_mask = softmax_ftz(mask)
+    mask_sm = (prob_mask * torch.arange(2, device=dev, dtype=dtype)
+               [:, None, None]).sum(1, keepdim=True)
+    hard_mask = torch.argmax(mask, dim=1, keepdim=True).to(dtype)
+    return dict(out, u=u, v=v, w=w, uvw_sm=uvw_sm,
+                uvw_sm_masked=uvw_sm * hard_mask, mask_sm=mask_sm)
 
 
 FROZEN_PREFIXES = ("conv1", "bn1", "layer1_0", "layer1_1")

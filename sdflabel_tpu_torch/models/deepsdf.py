@@ -117,28 +117,36 @@ def _layer_norm(p: dict, x: torch.Tensor) -> torch.Tensor:
     return (x - mu) * torch.rsqrt(var + 1e-5) * p["scale"] + p["bias"]
 
 
-def _dropout(x: torch.Tensor, keep_p: float,
-             generator: torch.Generator) -> torch.Tensor:
+def _dropout(x: torch.Tensor, keep_p: float, generator: torch.Generator,
+             rows: tuple[int, int] | None = None) -> torch.Tensor:
     """Inverted dropout: each element kept with probability keep_p (a draw
-    from `generator`, on x's device) and scaled by 1 / keep_p."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_p
+    from `generator`, on x's device) and scaled by 1 / keep_p. With
+    `rows` (lo, n), x is rows lo.. of an (n, ...) batch: the mask is drawn
+    for the whole batch and x takes its rows of it."""
+    shape = x.shape if rows is None else (rows[1],) + tuple(x.shape[1:])
+    keep = torch.rand(shape, generator=generator, device=x.device) < keep_p
+    if rows is not None:
+        keep = keep[rows[0]:rows[0] + x.shape[0]]
     return torch.where(keep, x / keep_p, torch.zeros((), device=x.device))
 
 
 def apply_sdf(cfg: DeepSDFConfig, params: dict, inputs: torch.Tensor,
-              dropout_gen: torch.Generator | None = None) -> torch.Tensor:
+              dropout_gen: torch.Generator | None = None,
+              dropout_rows: tuple[int, int] | None = None) -> torch.Tensor:
     """SDF MLP on (..., N, latent+3) inputs -> (..., N) sdf
     (deep_sdf_decoder_scale.py:78-107). `dropout_gen` None is eval mode
     (dropout off, as every refine runs it); a generator on the inputs'
     device turns on train-mode dropout at ``cfg.dropout`` layers with
     ``cfg.dropout_prob`` (and the latent dropout of :85-89 when
     ``cfg.latent_dropout``), drawn from it. JAX draws its masks with
-    jax.random: the two never draw the same masks."""
+    jax.random: the two never draw the same masks. `dropout_rows` (lo, n)
+    marks (N, latent+3) inputs as rows lo.. of an n-row batch whose masks
+    are drawn whole (a data-parallel rank's share)."""
     x = inputs
     if (dropout_gen is not None and cfg.latent_dropout
             and inputs.shape[-1] > 3):
-        x = torch.cat([_dropout(inputs[..., :-3], 0.8, dropout_gen),
-                       inputs[..., -3:]], dim=-1)
+        x = torch.cat([_dropout(inputs[..., :-3], 0.8, dropout_gen,
+                                dropout_rows), inputs[..., -3:]], dim=-1)
     last = cfg.num_layers - 2
     for l in range(cfg.num_layers - 1):
         if l in cfg.latent_in:
@@ -153,7 +161,8 @@ def apply_sdf(cfg: DeepSDFConfig, params: dict, inputs: torch.Tensor,
                 x = _layer_norm(params[f"ln{l}"], x)
             x = torch.relu(x)
             if dropout_gen is not None and l in cfg.dropout:
-                x = _dropout(x, 1.0 - cfg.dropout_prob, dropout_gen)
+                x = _dropout(x, 1.0 - cfg.dropout_prob, dropout_gen,
+                             dropout_rows)
     return torch.tanh(x)[..., 0]
 
 

@@ -16,7 +16,9 @@ nor a card.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -74,11 +76,24 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
+@contextlib.contextmanager
+def _build_dir_lock():
+    """An exclusive lock on the build directory, so that processes started
+    together (data-parallel ranks) build each library once: the others
+    wait, then find it built."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all() -> dict[str, str]:
     """Compile every library that is missing; returns nvcc's log per source
     (ptxas register and shared-memory report included)."""
-    with _LOCK:
-        os.makedirs(BUILD_DIR, exist_ok=True)
+    with _LOCK, _build_dir_lock():
         procs = []
         for name in SOURCES:
             out = library_path(name)

@@ -5,8 +5,17 @@ pipelines/train_css.py:12-116): Adam over the crops database, CE/MSE
 losses, per-epoch network export, resumable checkpoints and PNG dumps.
 
 Each epoch's batches are read on the host (PNG decode, augmentation
-draws; data/crops.py) and augmented on the card; the train step
-(engine/css_train.py) runs there too. The network lands as
+draws; data/crops.py, the chain ``[train] fast_input`` selects) and
+augmented on the card; the train step (engine/css_train.py) runs there
+too, in fp32 or, with ``[train] precision = bfloat16`` (float16 maps to
+bf16), with the backbone and decoder convs in bf16 (models/css.py).
+
+With a ``mesh`` (parallel/mesh.py) every rank runs this function on the
+same database and seed: each reads the same global batches, works its
+contiguous share of each on its own device, and steps with the
+data-parallel step (css_train.shard_train_step), so the ranks hold the
+same network after every step. Rank 0 alone writes the network,
+checkpoints and PNGs. The network lands as
 ``log_dir/net/css.msgpack`` in the JAX package's flax layout, which
 models/css.py::load_css and the JAX package's ``load_checkpoint`` both
 read; the full train state goes to ``log_dir/ckpt/step_<epoch>.pt``, from
@@ -27,8 +36,17 @@ from sdflabel_tpu_torch.data.crops import (Crops, normalize_rgb,
 from sdflabel_tpu_torch.engine import css_train
 from sdflabel_tpu_torch.engine import refine as refine_mod
 from sdflabel_tpu_torch.models import css as css_mod
+from sdflabel_tpu_torch.parallel import mesh as mesh_mod
 from sdflabel_tpu_torch.utils import checkpoint as ckpt_mod
 from sdflabel_tpu_torch.utils import flax_msgpack, png
+
+
+def compute_dtype(precision: str) -> torch.dtype:
+    """[train] precision -> the CSS convs' compute dtype: bf16 on fp32
+    parameters for bfloat16 and for float16, which maps to bf16 as in the
+    JAX pipeline (train_css.py:119-126)."""
+    return (torch.bfloat16 if precision in ("bfloat16", "float16")
+            else torch.float32)
 
 
 def setup_css(model_path: str | None = None, rng_seed: int = 0,
@@ -59,14 +77,19 @@ def _save_png(path: str, chw_array, normalize: bool = True) -> None:
 
 
 def _dump_pngs(state, batch: dict, vis_dir: str, epoch: int) -> None:
-    """The reference's per-epoch images: the eval-mode prediction on the
-    epoch's last batch, its UVW labels and its RGB."""
+    """The reference's per-epoch images: the eval-mode fp32 prediction on
+    the epoch's last batch, its UVW labels and its RGB."""
     model = state.model
+    dtype = getattr(model, "compute_dtype", torch.float32)
     model.eval()
+    if dtype != torch.float32:
+        model.compute_dtype = torch.float32
     with torch.no_grad():
         rgb = batch["rgb"]
         pred = model(normalize_rgb(rgb) if rgb.dtype == torch.uint8
                      else rgb)
+    if dtype != torch.float32:
+        model.compute_dtype = dtype
     model.train()
     os.makedirs(vis_dir, exist_ok=True)
     _save_png(os.path.join(vis_dir, f"uvw_predsm_{epoch}.png"),
@@ -78,23 +101,20 @@ def _dump_pngs(state, batch: dict, vis_dir: str, epoch: int) -> None:
 
 
 def train_css(cfgp, max_epochs: int | None = None, device="cuda",
-              width: int = 64, step_wrapper=None):
+              width: int = 64, step_wrapper=None, mesh=None):
     """Train the CSS network (train_css.py:12 entry point) on `device`.
 
     `cfgp`: a ConfigParser of configs/config_train.ini or a TrainCfg.
     `width` is the network width (64: the reference). `step_wrapper`, if
-    given, wraps the train step (e.g. to time or watch it). Returns the
-    engine/css_train.py::TrainState."""
+    given, wraps the train step (e.g. to time or watch it). `mesh`: a
+    parallel/mesh.py layout to train data-parallel over (each rank calls
+    this on its own device). Returns the engine/css_train.py::TrainState."""
     cfg = (cfgp if isinstance(cfgp, cfg_mod.TrainCfg)
            else cfg_mod.TrainCfg.from_ini(cfgp))
     # refuse before touching data or checkpoints: a typo must not train fp32
     if cfg.precision not in ("float32", "bfloat16", "float16"):
         raise ValueError(f"[train] precision must be float32|bfloat16|"
                          f"float16, got {cfg.precision!r}")
-    if cfg.precision != "float32":
-        raise NotImplementedError(
-            f"[train] precision = {cfg.precision}: mixed-precision training "
-            "is not ported yet; use float32")
     dev = refine_mod._device(device)
     # fp32 convolutions and matmuls stay fp32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -102,7 +122,7 @@ def train_css(cfgp, max_epochs: int | None = None, device="cuda",
     os.makedirs(cfg.log_dir, exist_ok=True)
 
     trainset = Crops(cfg.data_path, seed=None if cfg.seed < 0 else cfg.seed,
-                     stage="uint8")
+                     fast=cfg.fast_input, stage="uint8")
     trainset.preload(num_threads=max(cfg.cpu_threads, 4))
     # latent head sized from the database's supervision
     latent_size = len(trainset.gt["0"][0]["latent"])
@@ -118,8 +138,15 @@ def train_css(cfgp, max_epochs: int | None = None, device="cuda",
         start_epoch = ckpt_mod.checkpoint_step(latest)
         print(f"Resumed training from {latest} (epoch {start_epoch}).")
 
-    step_fn = css_train.make_train_step(fused_ce=cfg.fused_ce,
+    model.compute_dtype = compute_dtype(cfg.precision)
+    # the fused CE stays off a >1-device mesh, as in JAX (:127-130)
+    fused_ce = cfg.fused_ce and (mesh is None or mesh.size == 1)
+    step_fn = css_train.make_train_step(fused_ce=fused_ce,
                                         direct_ce=cfg.direct_ce)
+    lead = True
+    if mesh is not None:
+        step_fn = css_train.shard_train_step(step_fn, mesh).local
+        lead = mesh.rank == 0
     if step_wrapper is not None:
         step_fn = step_wrapper(step_fn)
 
@@ -130,7 +157,12 @@ def train_css(cfgp, max_epochs: int | None = None, device="cuda",
         for batch_idx, batch_np in enumerate(prefetch_iterator(
                 trainset, cfg.batch_size, num_threads=cfg.cpu_threads,
                 queue_size=cfg.queue_size, shuffle=True, seed=epoch)):
-            batch = trainset.to_device(batch_np, dev)
+            if mesh is None:
+                batch = trainset.to_device(batch_np, dev)
+            else:  # this rank's share of the global batch
+                cut = mesh_mod.data_slice(len(batch_np["rgb"]), mesh)
+                batch = trainset.to_device(
+                    {k: v[cut] for k, v in batch_np.items()}, dev)
             metrics = step_fn(state, batch)
             # float() syncs with the card; log_every keeps steps in flight
             if (batch_idx + 1) % max(cfg.log_every, 1) == 0:
@@ -141,16 +173,16 @@ def train_css(cfgp, max_epochs: int | None = None, device="cuda",
                           float(metrics["loss_uvw"]),
                           float(metrics["loss_mask"]),
                           float(metrics["loss_latent"])))
-            last_batch = batch
+            last_batch = batch_np
 
-        if (epoch + 1) % cfg.analyse_epoch == 0:
+        if (epoch + 1) % cfg.analyse_epoch == 0 and lead:
             net_dir = os.path.join(cfg.log_dir, "net")
             os.makedirs(net_dir, exist_ok=True)
             flax_msgpack.save(os.path.join(net_dir, "css.msgpack"),
                               css_mod.state_to_flax(state.model))
             ckpt_mod.save_train_state(ckpt_dir, state, step=epoch + 1)
             if cfg.plot and last_batch is not None:
-                _dump_pngs(state, last_batch,
+                _dump_pngs(state, trainset.to_device(last_batch, dev),
                            os.path.join(cfg.log_dir, "vis"), epoch)
     return state
 

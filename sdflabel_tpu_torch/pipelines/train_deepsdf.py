@@ -17,8 +17,13 @@ Run: ``python -m sdflabel_tpu_torch.pipelines.train_deepsdf EXPERIMENT_DIR
 It trains on the card unless ``--device cpu`` is given, in fp32 with TF32
 off. The full state (decoder, code table, both Adam groups, step) is
 saved under ``Checkpoints/`` in the port's own format (utils/checkpoint.py;
-JAX uses orbax) and a rerun resumes from it. A data-parallel mesh (JAX's
-``--devices N``) is not ported yet (ROADMAP §1, multi-GPU).
+JAX uses orbax) and a rerun resumes from it.
+
+Data-parallel: ``train_deepsdf(mesh=)`` on each rank of a parallel/mesh.py
+layout steps on its share of every batch's scenes
+(deepsdf_train.shard_train_step), and rank 0 alone writes. ``--devices N``
+(N > 1) spawns the N ranks itself, one card each (NCCL), or N processes
+on the CPU with ``--device cpu`` (gloo).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from sdflabel_tpu_torch.data import sdf_samples
 from sdflabel_tpu_torch.engine import deepsdf_train
 from sdflabel_tpu_torch.engine.refine import _device
 from sdflabel_tpu_torch.models import deepsdf, deepsdf_workspace as ws
+from sdflabel_tpu_torch.parallel import mesh as mesh_mod
 from sdflabel_tpu_torch.utils import checkpoint as ckpt_mod
 
 
@@ -89,11 +95,9 @@ def train_deepsdf(experiment_dir: str, data_source: str | None = None,
     """Train a decoder and its codes per the experiment's specs.json;
     returns the final state. `step_wrapper(step_fn) -> step_fn` may wrap
     the step (a timer, an operator watch); the step's metrics stay on the
-    device unless a log epoch reads them."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_deepsdf: a data-parallel mesh is not ported yet "
-            "(ROADMAP §1, multi-GPU)")
+    device unless a log epoch reads them. `mesh`: this rank's
+    parallel/mesh.py layout, to train data-parallel over its data axis
+    (every rank calls this with the same arguments)."""
     device = _device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     specs = ws.load_experiment_specifications(experiment_dir)
@@ -109,6 +113,15 @@ def train_deepsdf(experiment_dir: str, data_source: str | None = None,
     snapshot_every = int(specs.get("SnapshotFrequency", max(1, num_epochs)))
     n = pack.num_scenes
     bsz, spe = deepsdf_train.epoch_steps(n, tcfg.scenes_per_batch)
+    step = deepsdf_train.train_step
+    lead = True
+    if mesh is not None:
+        step = deepsdf_train.shard_train_step(step, mesh)
+        lead = mesh.rank == 0
+        if bsz % mesh.shape["data"] != 0:
+            raise ValueError(
+                f"scenes_per_batch {bsz} must divide over the mesh "
+                f"({mesh.shape['data']} data shards)")
 
     state = deepsdf_train.init_train_state(
         cfg, tcfg, n, torch.Generator().manual_seed(seed), device)
@@ -122,9 +135,8 @@ def train_deepsdf(experiment_dir: str, data_source: str | None = None,
     tensors = deepsdf_train.TrainTensors(pack, device)
 
     def step_fn(state, scene_idx):
-        return deepsdf_train.train_step(
-            cfg, tcfg, spe, state, tensors, scene_idx,
-            step_generator(seed, state.step, device))
+        return step(cfg, tcfg, spe, state, tensors, scene_idx,
+                    step_generator(seed, state.step, device))
 
     if step_wrapper is not None:
         step_fn = step_wrapper(step_fn)
@@ -138,17 +150,31 @@ def train_deepsdf(experiment_dir: str, data_source: str | None = None,
             scene_idx = torch.as_tensor(order[s * bsz:(s + 1) * bsz],
                                         device=device)
             state, metrics = step_fn(state, scene_idx)
-        if (epoch + 1) % log_every == 0 or epoch == num_epochs - 1:
+        if lead and ((epoch + 1) % log_every == 0
+                     or epoch == num_epochs - 1):
             m = {k: float(v) for k, v in metrics.items()}
             print(f"epoch {epoch + 1}/{num_epochs} loss={m['loss']:.6f} "
                   f"l1={m['loss_l1']:.6f} reg={m['loss_reg']:.2e} "
                   f"scale={m['loss_scale']:.2e} |z|={m['code_norm']:.3f} "
                   f"({time.time() - t0:.1f}s/epoch)")
-        if (epoch + 1) % snapshot_every == 0 or epoch == num_epochs - 1:
+        if lead and ((epoch + 1) % snapshot_every == 0
+                     or epoch == num_epochs - 1):
             save_reference_checkpoints(experiment_dir, cfg, state,
                                        pack.names, "latest", epoch=epoch + 1)
             save_resume_state(experiment_dir, state)
     return state
+
+
+def _rank_main(rank: int, args) -> None:
+    """One rank of ``--devices N``: its card (or the CPU), the mesh of all
+    ranks, and the training."""
+    device = args.device
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(rank)
+        device = f"cuda:{rank}"
+    train_deepsdf(args.experiment_dir, data_source=args.data,
+                  num_epochs=args.epochs, mesh=mesh_mod.make_mesh(),
+                  seed=args.seed, resume=not args.no_resume, device=device)
 
 
 def main(argv=None) -> None:
@@ -157,16 +183,16 @@ def main(argv=None) -> None:
     ap.add_argument("--data", default=None, help="data source override")
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--devices", type=int, default=0,
-                    help="data-parallel over N devices: not ported yet")
+                    help="data-parallel over N devices (0 = single)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-resume", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
     if args.devices > 1:
-        raise NotImplementedError(
-            "train_deepsdf --devices: a data-parallel mesh is not ported yet "
-            "(ROADMAP §1, multi-GPU)")
+        mesh_mod.spawn_ranks(_rank_main, args.devices, (args,),
+                             backend=mesh_mod.default_backend(args.device))
+        return
     train_deepsdf(args.experiment_dir, data_source=args.data,
                   num_epochs=args.epochs, seed=args.seed,
                   resume=not args.no_resume, device=args.device)

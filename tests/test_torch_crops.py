@@ -145,7 +145,8 @@ def test_no_augmentation_equals_pil_path(smooth_db):
 def test_augmented_pixels_match_jax_fast_path(smooth_db, epoch):
     jds = jcrops.Crops(smooth_db, augment=True, seed=5, fast=True,
                        stage="uint8")
-    tds = tcrops.Crops(smooth_db, augment=True, seed=5, stage="uint8")
+    tds = tcrops.Crops(smooth_db, augment=True, seed=5, fast=True,
+                       stage="uint8")
     jds.set_epoch(epoch)
     tds.set_epoch(epoch)
     idx = list(range(len(tds)))  # 128- and 96-px crops in one batch
@@ -162,7 +163,7 @@ def test_augmented_pixels_match_jax_fast_path(smooth_db, epoch):
     assert min(rgb_eq) >= 0.999, rgb_eq
     assert min(uvw_eq) >= 0.995 and min(mask_eq) >= 0.995, (uvw_eq, mask_eq)
     # a float32 batch is the uint8 one normalized
-    f32 = tcrops.Crops(smooth_db, augment=True, seed=5)
+    f32 = tcrops.Crops(smooth_db, augment=True, seed=5, fast=True)
     f32.set_epoch(epoch)
     np.testing.assert_array_equal(_port_batch(f32, idx)["rgb"].numpy(),
                                   tcrops.normalize_rgb(out["rgb"]).numpy())

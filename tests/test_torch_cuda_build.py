@@ -51,3 +51,22 @@ def test_every_source_hashes_its_headers():
                                     [])
         assert {os.path.basename(f) for f in files} >= {
             name + ".cu", "mlp_wgmma.cuh", "wgmma.cuh"}
+
+
+def test_build_dir_lock_excludes_other_processes(csrc):
+    # ranks started together build under one lock: while it is held, a
+    # second process cannot take it
+    import subprocess
+    import sys
+
+    probe = ("import fcntl, sys\n"
+             "f = open(sys.argv[1], 'w')\n"
+             "try:\n"
+             "    fcntl.flock(f, fcntl.LOCK_EX | fcntl.LOCK_NB)\n"
+             "except BlockingIOError:\n"
+             "    sys.exit(3)\n")
+    lock = os.path.join(_cuda.BUILD_DIR, ".lock")
+    with _cuda._build_dir_lock():
+        held = subprocess.run([sys.executable, "-c", probe, lock])
+    free = subprocess.run([sys.executable, "-c", probe, lock])
+    assert (held.returncode, free.returncode) == (3, 0)

@@ -29,6 +29,7 @@ from sdflabel_tpu_torch.data import sdf_samples as tsamples
 from sdflabel_tpu_torch.engine import deepsdf_train as ttrain
 from sdflabel_tpu_torch.models import deepsdf as tds
 from sdflabel_tpu_torch.models import deepsdf_workspace as tws
+from sdflabel_tpu_torch.parallel import mesh as mesh_mod
 from sdflabel_tpu_torch.pipelines import train_deepsdf as tpipe
 from torch_parity_util import jax_tree_to_numpy
 
@@ -413,10 +414,11 @@ def test_entry_point_needs_a_card_unless_asked(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tpipe.train_deepsdf(exp)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tpipe.main([exp, "--devices", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tpipe.train_deepsdf(exp, device="cpu", mesh=object())
+        # nor does a data-parallel mesh take the card's place (its CPU run,
+        # --devices 2 --device cpu, is tests/test_torch_deepsdf_dp.py's)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tpipe.train_deepsdf(exp, mesh=mesh_mod.Mesh(
+                {"data": 2, "rays": 1}, 0, 0, 0))
 
 
 def test_draw_takes_true_rows_half_positive_half_negative():

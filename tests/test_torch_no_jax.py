@@ -48,6 +48,8 @@ EXPECTED = tuple("sdflabel_tpu_torch." + m for m in (
     "models.deepsdf_workspace",
     "engine.deepsdf_train",
     "pipelines.train_deepsdf",
+    "models.css_fused",
+    "parallel.mesh",
 ))
 
 
