@@ -108,14 +108,19 @@ so).
    finite losses, 3 fixed-batch steps lower the loss, the CE kernels on
    every tower; one bf16 step on the card (two batches of 2 crops, seeded
    init) within twice the CPU's own bf16-vs-fp32 gap of the same step on
-   the CPU; ms/step beside phase 6's. (6c) The fused-head net
+   the CPU, and its forward nearer the CPU's bf16 forward than its fp32
+   one (bf16_card_vs_cpu); ms/step beside phase 6's. (6c) The fused-head net
    (``css_fused.fused_from_css`` of phase 6's network): eval outputs
    within 2e-4 of each output's scale of the unfused net's, then 2 train
    steps with the CE kernels, ms/step. (6d, after phase 8) The
    data-parallel CSS step (``parallel/mesh.py``, spawned ranks): one rank
    on NCCL equal to the plain step bit for bit; two ranks sharing the card
-   over gloo, 6 crops each, within 1e-5 of one rank's step on the 12
-   (with two or more cards, also two NCCL ranks, one card each).
+   over gloo, 6 crops each, against one rank's step on the 12: loss,
+   statistics and the parameters where |g| >= 1e-5 within 1e-5 (all
+   parameters within 2 lr), gradients within 1e-3 relative in L2
+   (with two or more cards, also two NCCL ranks, one card each). (6e)
+   ``fast_input = True``: one epoch of ``train_css`` through the fast
+   augmentation chain, and both chains on the card against the CPU.
 7. The KITTI driver: ``tools/quality_suite.py`` builds the first 24 frames
    of the v2 quality suite (``--quality-frames 72``: all of it) through
    the binned splat kernel; ``refine_css`` labels them as ``main.py
@@ -347,18 +352,23 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+# kernel name -> profiler captures kernel_ms needed, where more than one
+EMPTY_CAPTURES: dict = {}
+
+
 def kernel_ms(fn, kernel: str, reps: int = 20) -> float:
     """Device time of one launch of the kernel whose name contains
     `kernel`, without the wrapper's host work: the mean of the profiler's
     kernel times over `reps` calls of `fn` (the profiler may drop a few
     of the launches; the mean is over those it recorded; a capture that
-    recorded none is taken again, up to three times)."""
+    recorded none is taken again, up to three times, printed and kept in
+    EMPTY_CAPTURES)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # CUPTI has dropped every record of a capture
+    for capture in range(1, 4):  # CUPTI has dropped every record of one
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -368,6 +378,10 @@ def kernel_ms(fn, kernel: str, reps: int = 20) -> float:
         count = sum(e.count for e in hits)
         if count:
             break
+    if capture > 1:
+        EMPTY_CAPTURES[kernel] = capture
+        print(f"kernel_ms {kernel}: {capture} profiler captures, the first "
+              f"{capture - 1} with no launch recorded")
     assert count > 0, f"the profiler recorded no launch of {kernel}"
     return sum(e.self_device_time_total for e in hits) / count / 1e3
 
@@ -2434,18 +2448,22 @@ def ce_call_launches(dev, reps: int = 10) -> dict:
 
 
 def train_phase(dev, crops_dir, log_dir, width: int = 64, batch: int = 13,
-                epochs: int = 2, precision: str = "float32"):
+                epochs: int = 2, precision: str = "float32",
+                fast_input: bool = False):
     """train_css on the phase-5 crops with the CE kernels on every tower
-    (phase 6; 6b with precision bfloat16). The stock fast_input = False:
-    the PIL augmentation chain."""
+    (phase 6; 6b with precision bfloat16; 6e with fast_input = True, the
+    fast augmentation chain). The stock fast_input = False: the PIL
+    augmentation chain."""
     cfgp = train_pipe.make_config(crops_dir, log_dir, fused_ce=True,
                                   direct_ce=True, batch_size=batch,
-                                  precision=precision, plot=False)
+                                  precision=precision, plot=False,
+                                  fast_input=fast_input)
     cfg = cfg_mod.TrainCfg.from_ini(cfgp)
     assert (cfg.fused_ce, cfg.direct_ce, cfg.precision, cfg.batch_size,
             cfg.plot, cfg.css_path, cfg.fast_input) == (
-                True, True, precision, batch, False, "", False)
-    tag = "train" if precision == "float32" else "train bf16"
+                True, True, precision, batch, False, "", fast_input)
+    tag = ("train" + (" bf16" if precision != "float32" else "")
+           + (" fast" if fast_input else ""))
     watch = _cpu_op_watch()
     steps = []
 
@@ -2493,7 +2511,7 @@ def train_phase(dev, crops_dir, log_dir, width: int = 64, batch: int = 13,
         assert not watch.cpu_ops
         # u, v, w and mask: one forward and one backward each per step
         assert launched["ce_fwd"] == launched["ce_bwd"] == 4 * len(steps)
-        if precision == "float32":
+        if precision == "float32" and not fast_input:
             ce_launches = ce_call_launches(dev)
 
     # the exported network reloads to the same one (both in fp32)
@@ -2530,7 +2548,8 @@ def train_phase(dev, crops_dir, log_dir, width: int = 64, batch: int = 13,
     assert fixed_losses[3] < fixed_losses[0]
     return state, fixed, launched, dict(
         wall_s=wall, steps=len(steps), batch=batch, width=width,
-        precision=precision, ce_call_launches=ce_launches,
+        precision=precision, fast_input=fast_input,
+        ce_call_launches=ce_launches,
         step_ms=step_ms, steady_ms_per_step=steady,
         images_per_s=batch / steady * 1e3, losses=losses,
         fixed_batch_step_ms=fixed_ms)
@@ -2567,43 +2586,129 @@ def _step_gaps(a, b) -> np.ndarray:
     return np.array([abs(la - lb), float(np.sqrt((d ** 2).sum())), rel])
 
 
+HEADS = ("u_raw", "v_raw", "w_raw", "mask", "latent")
+
+
+def _rms(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float().cpu() - b.float().cpu()).pow(2).mean().sqrt())
+
+
 def bf16_card_vs_cpu(dev, crops_dir, width: int = 64) -> dict:
-    """Phase 6b's check: one bf16 train step (seeded init, width 64, two
-    batches of 2 phase-5 crops) on the card (cuDNN bf16 convs, the CE
-    kernels) against the same step on the CPU (oneDNN, the plain CE),
-    within twice the CPU's own bf16-vs-fp32 gap on the same inputs
-    (tests/test_torch_css_bf16.py's rule, with the port's CPU gap where
-    JAX's stands there; each gap the larger over the two batches)."""
+    """Phase 6b's checks of bf16 on the card against the CPU: a seeded
+    init at width 64 on two batches of 2 phase-5 crops, run in fp32 and in
+    bf16 on each device (the card: cuDNN convolutions and the CE kernels;
+    the CPU: oneDNN and the plain CE).
+    - The train-mode forward: on every head, the card's bf16 outputs lie
+      nearer (RMS) the CPU's bf16 outputs than the CPU's fp32 ones, and
+      they differ from the card's own fp32 outputs by at least half the
+      CPU's bf16-vs-fp32 gap. A card run that computed in fp32 fails
+      both.
+    - One train step: loss, parameter L2 and BatchNorm statistics within
+      twice the CPU's own bf16-vs-fp32 gap (tests/test_torch_css_bf16.py's
+      rule, with the port's CPU gap where JAX's stands there; each gap the
+      larger over the two batches); and the statistics of the card's bf16
+      step differ from its fp32 step's by at least half the CPU's gap.
+      The parameters after Adam's first step move by about lr in each
+      element whatever the precision, so their L2 cannot tell bf16 from
+      fp32: the forward checks do."""
     ds = crops_data.Crops(crops_dir, augment=False, stage="uint8")
     latent = len(ds.gt["0"][0]["latent"])
     cpu = torch.device("cpu")
-    gap, ref = np.zeros(3), np.zeros(3)
+    runs = (("cpu_f32", cpu, torch.float32), ("cpu_bf16", cpu, torch.bfloat16),
+            ("card_f32", dev, torch.float32), ("card_bf16", dev, torch.bfloat16))
+    gap, ref, own = np.zeros(3), np.zeros(3), np.zeros(3)
+    fwd = {k: dict(to_bf16=0.0, to_f32=0.0, own=0.0, ref=0.0) for k in HEADS}
     for idx in ([0, 1], [2, 3]):
         host = crops_data.collate([ds[i] for i in idx])
-        res = {}
-        for name, d, dtype in (("cpu_f32", cpu, torch.float32),
-                               ("cpu_bf16", cpu, torch.bfloat16),
-                               ("card_bf16", dev, torch.bfloat16)):
+        res, outs = {}, {}
+        for name, d, dtype in runs:
+            batch = ds.to_device(host, d)
             model = train_pipe.setup_css(None, width=width,
                                          latent_size=latent, device=d)
             model.compute_dtype = dtype
+            # the forward on a copy: train mode moves the statistics
+            probe = train_pipe.setup_css(None, width=width,
+                                         latent_size=latent, device=d)
+            probe.compute_dtype = dtype
+            with torch.no_grad():
+                outs[name] = probe.train()(crops_data.normalize_rgb(
+                    batch["rgb"]))
             state = css_train.init_train_state(model, 1e-3)
             step = css_train.make_train_step(fused_ce=d.type == "cuda",
                                              direct_ce=True)
-            m = step(state, ds.to_device(host, d))
+            m = step(state, batch)
             res[name] = (float(m["loss"]),
                          _flat(css_mod.state_to_flax(state.model)))
+        for k in HEADS:
+            o = {n: outs[n][k] for n in outs}
+            for key, val in (("to_bf16", _rms(o["card_bf16"], o["cpu_bf16"])),
+                             ("to_f32", _rms(o["card_bf16"], o["cpu_f32"])),
+                             ("own", _rms(o["card_bf16"], o["card_f32"])),
+                             ("ref", _rms(o["cpu_bf16"], o["cpu_f32"]))):
+                fwd[k][key] = max(fwd[k][key], val)
         ref = np.maximum(ref, _step_gaps(res["cpu_bf16"], res["cpu_f32"]))
         gap = np.maximum(gap, _step_gaps(res["card_bf16"], res["cpu_bf16"]))
+        own = np.maximum(own, _step_gaps(res["card_bf16"], res["card_f32"]))
+    print("train bf16: train-mode forward on the card against the CPU "
+          f"(width {width}, 2 x 2 crops), RMS by head: "
+          + "; ".join(f"{k} to CPU bf16 {v['to_bf16']:.4g}, to CPU fp32 "
+                      f"{v['to_f32']:.4g}, to the card's fp32 {v['own']:.4g} "
+                      f"(the CPU's bf16-vs-fp32 {v['ref']:.4g})"
+                      for k, v in fwd.items())
+          + "; need to CPU bf16 < to CPU fp32 and to the card's fp32 >= "
+            "0.5x the CPU's")
     names = ("loss", "params_l2", "stats_rel")
-    print("train bf16: one step on the card against the CPU (width "
-          f"{width}, 2 x 2 crops): "
-          + ", ".join(f"{n} {g:.4g} (the CPU's bf16-vs-fp32 gap {r:.4g})"
-                      for n, g, r in zip(names, gap, ref))
-          + "; need <= 2x each")
+    print("train bf16: one step on the card against the CPU: "
+          + ", ".join(f"{n} {g:.4g} (the CPU's bf16-vs-fp32 gap {r:.4g}, "
+                      f"the card's {o:.4g})"
+                      for n, g, r, o in zip(names, gap, ref, own))
+          + "; need <= 2x each, and the card's stats gap >= 0.5x the CPU's")
+    for k, v in fwd.items():
+        assert v["to_bf16"] < v["to_f32"], (k, v)
+        assert v["own"] >= 0.5 * v["ref"], (k, v)
     assert (gap <= 2 * ref).all(), (gap, ref)
-    return {"card_vs_cpu": dict(zip(names, gap.tolist())),
-            "cpu_bf16_vs_fp32": dict(zip(names, ref.tolist()))}
+    assert own[2] >= 0.5 * ref[2], (own, ref)
+    return {"forward_rms": fwd,
+            "card_vs_cpu": dict(zip(names, gap.tolist())),
+            "cpu_bf16_vs_fp32": dict(zip(names, ref.tolist())),
+            "card_bf16_vs_fp32": dict(zip(names, own.tolist()))}
+
+
+def input_chains_card_vs_cpu(dev, crops_dir, epochs: int = 2) -> dict:
+    """Phase 6e's check of both augmentation chains (data/crops.py) on the
+    card against the same chain on the CPU: every phase-5 crop, augmented
+    from seed 3 over `epochs` epochs, through ``Crops.to_device`` on each.
+    Each chain is held to the tolerance its CPU test holds it to against
+    the JAX package: the fast chain (tests/test_torch_crops.py) RGB within
+    2 LSB with >= 99.9% of values equal, UVW and mask >= 99.5% equal; the
+    PIL chain (tests/test_torch_crops_pil.py) RGB within 1 LSB with >=
+    99.5% equal, UVW and mask >= 99.5% equal."""
+    cpu = torch.device("cpu")
+    tol = {True: (2, 0.999), False: (1, 0.995)}
+    out = {}
+    for fast in (True, False):
+        ds = crops_data.Crops(crops_dir, seed=3, fast=fast, stage="uint8")
+        rgb_diff, shares = 0, {"rgb": 1.0, "uvw": 1.0, "mask": 1.0}
+        for epoch in range(epochs):
+            ds.set_epoch(epoch)
+            host = crops_data.collate([ds[i] for i in range(len(ds))])
+            card, ref = ds.to_device(host, dev), ds.to_device(host, cpu)
+            for k in shares:
+                a, b = card[k].cpu(), ref[k]
+                assert a.shape == b.shape and a.dtype == b.dtype, k
+                shares[k] = min(shares[k], float((a == b).float().mean()))
+            rgb_diff = max(rgb_diff, int((card["rgb"].cpu().int()
+                                          - ref["rgb"].int()).abs().max()))
+        chain = "fast" if fast else "pil"
+        print(f"train {chain} chain: the card against the CPU over "
+              f"{len(ds)} crops x {epochs} epochs, RGB max diff {rgb_diff} "
+              f"LSB, equal shares {json.dumps(shares)} (need RGB <= "
+              f"{tol[fast][0]} LSB with >= {tol[fast][1]:.1%} equal, UVW and "
+              f"mask >= 99.5% equal)")
+        assert rgb_diff <= tol[fast][0] and shares["rgb"] >= tol[fast][1]
+        assert shares["uvw"] >= 0.995 and shares["mask"] >= 0.995
+        out[chain] = dict(rgb_max_diff=rgb_diff, equal_share=shares)
+    return out
 
 
 def fused_phase(dev, state, fixed, fp32_fixed_ms: list, steps: int = 2):
@@ -3478,6 +3583,13 @@ def run_paths(dev, out_dir: str, small: bool = False,
                                         train["fixed_batch_step_ms"])
     seconds["6c"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    _, _, fast_launched, train_fast = train_phase(
+        dev, crops_dir, os.path.join(out_dir, "log_fast"), fast_input=True,
+        **(dict(width=8, batch=2, epochs=1) if small else dict(epochs=1)))
+    train_fast["chains_card_vs_cpu"] = input_chains_card_vs_cpu(dev,
+                                                                crops_dir)
+    seconds["6e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     dsdf_handles, dsdf_train = deepsdf_train_phase(dev, out_dir, small=small)
     seconds["8"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3493,6 +3605,7 @@ def run_paths(dev, out_dir: str, small: bool = False,
     launched = {"full_width": full_launched, "binned_refine": binned_launched,
                 "crops": crops_launched, "train": train_launched,
                 "train_bf16": bf16_launched, "train_fused": fused_launched,
+                "train_fast": fast_launched,
                 "full_width_stage2": stage2_launched, "kitti": kitti_launched,
                 "batched_full_width": batched_launched,
                 "batched_stage2": b_stage2_launched,
@@ -3504,7 +3617,8 @@ def run_paths(dev, out_dir: str, small: bool = False,
                "full_width_stage2": stage2, "batched_stage2": b_stage2,
                "batched_binned": b_binned, "binned_refine": binned,
                "crops": crops, "train": train, "train_bf16": train_bf16,
-               "train_fused": fused, "data_parallel": data_parallel,
+               "train_fused": fused, "train_fast": train_fast,
+               "data_parallel": data_parallel,
                "deepsdf_train": dsdf_train,
                "kitti_driver": kitti, "phase_seconds": seconds}
     handles = dict(rt512=rt512, rt_stage2=rt_stage2, prep=prep,
@@ -3554,7 +3668,8 @@ def main() -> int:
         next(r for r in rows if r["name"] == name)["crop_axis"] = crop_axis
     next(r for r in rows if r["name"] == "select_mlp")["cells"] = \
         check_select_cells(dev)
-    print(f"phase 2: {time.perf_counter() - t0:.1f} s")
+    print(f"phase 2: {time.perf_counter() - t0:.1f} s; kernel_ms captures "
+          f"taken again (kernel: captures): {json.dumps(EMPTY_CAPTURES)}")
     for row in rows:
         alone = row.get("kernel_ms")
         print(f"bound share {row['name']}: bound {row['bound_ms']:.5f} ms, "
@@ -3586,12 +3701,12 @@ def main() -> int:
             row["crop_axis"]["path"] = batched_path
         # the launches on the later slices' paths: the viz of the demo as
         # written (3b), the coarse cells (4e), bf16 training (6b) and the
-        # fused-head net (6c)
+        # fused-head net (6c) and the fast input chain (6e)
         row["launches_by_path"] = {
             path: launched[path].get(row["name"], 0)
             for path in ("demo_viz", "warm_refresh_cells", "coarse_cells",
                          "batched_warm_refresh_cells", "train_bf16",
-                         "train_fused")
+                         "train_fused", "train_fast")
             if launched[path].get(row["name"], 0)}
     print(json.dumps({"card": card, **summary}))
     print(json.dumps({"kernels": rows}))

@@ -208,15 +208,15 @@ class CSSNet(nn.Module):
     """ResNet18-FPN CSS network (resnet_css.py:104-262), built in eval mode.
 
     ``width`` scales every channel count (64 is the reference); the
-    256 bins per NOCS channel never scale. ``dtype`` is the compute dtype
-    (:attr:`compute_dtype`). Input (B, 3, 128, 128). The
-    weights start at zero: :func:`init_params` draws flax's initial ones,
+    256 bins per NOCS channel never scale. The compute dtype is set
+    through :attr:`compute_dtype` (fp32 at first). Input (B, 3, 128, 128).
+    The weights start at zero: :func:`init_params` draws flax's initial ones,
     :func:`state_from_flax` carries trained ones across."""
 
     HEADS = (("u", 256), ("v", 256), ("w", 256), ("mask", 2))
 
     def __init__(self, width: int = 64, latent_size: int = 3,
-                 sm_hardness: float = 100.0, dtype=torch.float32):
+                 sm_hardness: float = 100.0):
         super().__init__()
         wd = width
         self.sm_hardness = sm_hardness
@@ -237,7 +237,6 @@ class CSSNet(nn.Module):
             setattr(self, f"up4_{name}", Up(wd, wd, add_shortcut=False))
             setattr(self, f"out_{name}", Conv(wd, out_ch, 1, bias=True,
                                               mixed=False))
-        self.compute_dtype = dtype
         self.eval()
 
     @property

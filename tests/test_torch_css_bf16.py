@@ -5,16 +5,28 @@ pipelines/train_css.py ``[train] precision``) against sdflabel_tpu's
 XLA on the CPU, oneDNN (the port on the CPU) and cuDNN (the card) each
 round a bf16 convolution's output their own way, so the yardstick is
 JAX's own gap between its bf16 and fp32 runs on the same inputs: the
-port's bf16 run must lie within twice that gap of JAX's bf16 run. As
-measured on these inputs (width 8, 64 px, on the CPU):
+port's bf16 run must lie within twice that gap of JAX's bf16 run. A
+port that computed in fp32 would land at once that gap and pass this
+rule, so two more checks tell bf16 from fp32: the forward's outputs lie
+nearer JAX's bf16 ones than an fp32 run does (RMS at most 0.8 of JAX's
+bf16-vs-fp32 RMS, which the port's fp32 run exceeds), and the step's
+BatchNorm statistics differ from the port's own fp32 step's by at least
+half of JAX's gap. As measured on these inputs (width 8, 64 px, on the
+CPU):
 - forward, train mode, batch 4, max |difference| (JAX's bf16 against
   its fp32, then the port's bf16 against JAX's bf16): u_raw 0.396 /
   0.228; v_raw 0.349 / 0.300; w_raw 0.713 / 0.286; mask 0.435 / 0.157;
-  latent 0.0375 / 0.0263;
+  latent 0.0375 / 0.0263. RMS (JAX's gap, the port's bf16, the port's
+  fp32, each against JAX's bf16): u_raw 0.0249 / 0.0159 / 0.0249; v_raw
+  0.0244 / 0.0168 / 0.0244; w_raw 0.0318 / 0.0184 / 0.0318; mask 0.0294
+  / 0.0175 / 0.0294; latent 0.0172 / 0.0111 / 0.0172;
 - one train step, batch 2, the larger over two batches: loss 5.65e-3 /
   8.77e-3; parameters (L2 over the trainable ones) 0.189 / 0.200;
   BatchNorm statistics (the largest difference over its leaf's largest
-  element) 8.66e-3 / 1.10e-2.
+  element) 8.66e-3 / 1.10e-2; the port's bf16 step against its own fp32
+  step: statistics 1.26e-2. Adam's first step moves each parameter by
+  about lr whatever the precision, so the parameters' L2 cannot tell
+  bf16 from fp32.
 """
 
 import json
@@ -72,18 +84,30 @@ def test_forward_within_twice_jax_bf16_gap(variables):
                              dtype=dt).apply(variables, jnp.asarray(x),
                                              mutable=["batch_stats"])
         jout[dt] = {k: np.asarray(v) for k, v in out.items()}
-    model = tcss.params_from_jax(variables, WIDTH).train()
-    model.compute_dtype = torch.bfloat16
+    tout = {}
+    for dt in (torch.float32, torch.bfloat16):
+        model = tcss.params_from_jax(variables, WIDTH).train()
+        model.compute_dtype = dt
+        with torch.no_grad():
+            tout[dt] = {k: v.numpy() for k, v in
+                        model(torch.as_tensor(x)).items()}
     assert model.conv1.dtype == model.up2_u.DoubleConv_0.Conv_1.dtype \
         == torch.bfloat16
     assert model.out_u.dtype == model.out_lat.dtype == torch.float32
-    with torch.no_grad():
-        tout = model(torch.as_tensor(x))
+
+    def rms(a, b):
+        return float(np.sqrt(((a - b) ** 2).mean()))
+
     for k in ("u_raw", "v_raw", "w_raw", "mask", "latent"):
-        assert tout[k].dtype == torch.float32, k  # fp32 heads
-        jax_gap = np.abs(jout[jnp.bfloat16][k] - jout[jnp.float32][k]).max()
-        gap = np.abs(tout[k].numpy() - jout[jnp.bfloat16][k]).max()
+        got, want = tout[torch.bfloat16][k], jout[jnp.bfloat16][k]
+        assert got.dtype == np.float32, k  # fp32 heads
+        jax_gap = np.abs(want - jout[jnp.float32][k]).max()
+        gap = np.abs(got - want).max()
         assert 0 < gap <= 2 * jax_gap, (k, gap, jax_gap)
+        # nearer JAX's bf16 than an fp32 run: the port's fp32 run fails
+        jax_rms = rms(want, jout[jnp.float32][k])
+        assert rms(got, want) <= 0.8 * jax_rms, (k, rms(got, want), jax_rms)
+        assert rms(tout[torch.float32][k], want) > 0.8 * jax_rms, k
 
 
 def _batch(seed, b=2):
@@ -115,7 +139,7 @@ def test_train_step_within_twice_jax_bf16_gap(variables):
         LR, model=jcss.CSSNet(use_running_average=False, width=WIDTH,
                               dtype=dt), direct_ce=True))
               for dt in (jnp.float32, jnp.bfloat16)}
-    jax_gap, gap = np.zeros(3), np.zeros(3)
+    jax_gap, gap, own = np.zeros(3), np.zeros(3), np.zeros(3)
     for seed in (10, 11):
         b = _batch(seed)
         res = {}
@@ -125,20 +149,25 @@ def test_train_step_within_twice_jax_bf16_gap(variables):
             js, jm = step(js, {k: jnp.asarray(v) for k, v in b.items()})
             res[dt] = (float(jm["loss"]),
                        _flat(jax.tree.map(np.asarray, js.variables)))
-        model = tcss.params_from_jax(variables, WIDTH)
-        model.compute_dtype = torch.bfloat16
-        state = ttrain.init_train_state(model, LR)
-        m = ttrain.make_train_step(direct_ce=True)(
-            state, {k: torch.as_tensor(v) for k, v in b.items()})
-        port = (float(m["loss"]), _flat(tcss.state_to_flax(state.model)))
+        for dt in (torch.float32, torch.bfloat16):
+            model = tcss.params_from_jax(variables, WIDTH)
+            model.compute_dtype = dt
+            state = ttrain.init_train_state(model, LR)
+            m = ttrain.make_train_step(direct_ce=True)(
+                state, {k: torch.as_tensor(v) for k, v in b.items()})
+            res[dt] = (float(m["loss"]),
+                       _flat(tcss.state_to_flax(state.model)))
+            # the parameters stay fp32
+            assert all(p.dtype == torch.float32
+                       for p in state.model.parameters())
         jax_gap = np.maximum(jax_gap, _gaps(res[jnp.bfloat16],
                                             res[jnp.float32]))
-        gap = np.maximum(gap, _gaps(port, res[jnp.bfloat16]))
-        # the parameters stay fp32
-        assert all(p.dtype == torch.float32
-                   for p in state.model.parameters())
+        gap = np.maximum(gap, _gaps(res[torch.bfloat16], res[jnp.bfloat16]))
+        own = np.maximum(own, _gaps(res[torch.bfloat16], res[torch.float32]))
     for name, g, j in zip(("loss", "params", "stats"), gap, jax_gap):
         assert g <= 2 * j, (name, g, j)
+    # the step ran in bf16: its statistics part from the port's fp32 step
+    assert own[2] >= 0.5 * jax_gap[2], (own, jax_gap)
 
 
 @pytest.fixture(scope="module")
