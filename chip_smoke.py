@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Eight phases and their parts; any failure exits non-zero and no phase's
+Nine phases and their parts; any failure exits non-zero and no phase's
 error is caught
 (phase 8 alone halves its batch on running out of card memory, and says
 so).
@@ -90,7 +90,24 @@ so).
    the label, s/crop beside 4c's; (4g) the same four crops prepared at
    ``rendering_area = 96``, whose bucket takes the binned route, for 10
    iterations: the bins, 1c and 1d launch once an iteration for the four,
-   and each crop tracks itself alone within 1e-3.
+   and each crop tracks itself alone within 1e-3. (4h) The rays axis
+   (parallel/sharded_refine.py over parallel/mesh.py): phase 4's crop and
+   runtime, every kernel built before the ranks are spawned; one NCCL
+   rank (rays = 1) must give phase 4's first loss within 1e-5 relative,
+   and two gloo ranks sharing the card (rays = 2: each decodes half the
+   grid through kernel 3, a slice of the band, and renders half the
+   pixel rows through 1a and 1b) the first two losses of the one rank
+   within 1e-4 relative, kernels 1a, 1b, 2 and 3 launched on each rank;
+   the label gap beside 4d's lanes'. (4i, in the same spawn) 4d's four
+   crops through ``make_batched_refine(mesh=)`` with data = 2, two lanes
+   a rank: labels within 1e-3 of 4d's (bit-equality expected and
+   printed).
+9. The renderer demo (run after 4i): ``render_sdf`` of
+   data/optimization/deepsdf_demo.pt at 200x100 px with the disc (the
+   bins kernel and 1c), circle and stamped-circle primitives, each
+   without and with a background image, and ``render_model`` of a seeded
+   ball: every image on the card within the splat tolerance of the
+   CPU's.
 5. Crops: ``make_crops`` renders 26 crops of 128x128 px (grid 40,
    capacity 4096) from data/quality_nets/deepsdf_quality.pt, each through
    the bins kernel and the binned splat forward; the device launches of
@@ -155,7 +172,8 @@ the bins and the binned forward in 5 and the CE kernels in 6 (and in
 6b and 6c, given under ``launches_by_path``); the
 record of each crop-axis kernel also gives its launches in 4d (4f for
 4a and 4b, 4g for the binned trio), and
-``launches_by_path`` those on the paths of 3b (the viz) and 4e. The line
+``launches_by_path`` those on the paths of 3b (the viz), 4e and 9, and
+by rank those of the rays axis (4h) and the data axis (4i). The line
 before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Without a card
 the script exits 2 and prints no result. ``--profile DIR`` adds one more
@@ -168,9 +186,9 @@ designs of the dense splat backward and the nearest neighbour, and phase
 4c's crop
 with the new designs and with the first splat forward and the wmma 4b,
 for comparison; then the train step timed with cuDNN's autotuner on. ``--rehearse-cpu`` runs phases
-3 to 8 on the CPU at a tiny size (2 iterations, 2 suite frames) with the
+3 to 9 on the CPU at a tiny size (2 iterations, 2 suite frames) with the
 kernels' plain versions, then exits 3 without a result: a dry run of the
-control flow for machines without a card (4d included).
+control flow for machines without a card (4d, 4h and 4i included).
 """
 
 from __future__ import annotations
@@ -200,6 +218,7 @@ from sdflabel_tpu_torch.data import crops as crops_data  # noqa: E402
 from sdflabel_tpu_torch.data import sdf_samples  # noqa: E402
 from sdflabel_tpu_torch.engine import css_train  # noqa: E402
 from sdflabel_tpu_torch.engine import deepsdf_train  # noqa: E402
+from sdflabel_tpu_torch.engine import labels as labels_mod  # noqa: E402
 from sdflabel_tpu_torch.engine import refine as refine_mod  # noqa: E402
 from sdflabel_tpu_torch.models import css as css_mod  # noqa: E402
 from sdflabel_tpu_torch.models import css_fused  # noqa: E402
@@ -209,9 +228,11 @@ from sdflabel_tpu_torch.ops import (  # noqa: E402
     splat, splat_cuda)
 from sdflabel_tpu_torch.parallel import batched_refine  # noqa: E402
 from sdflabel_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
+from sdflabel_tpu_torch.parallel import sharded_refine  # noqa: E402
 from sdflabel_tpu_torch.pipelines import evaluate_dump  # noqa: E402
 from sdflabel_tpu_torch.pipelines import make_crops as crops_pipe  # noqa: E402
 from sdflabel_tpu_torch.pipelines import refine_css as pipe  # noqa: E402
+from sdflabel_tpu_torch.pipelines import render_demo  # noqa: E402
 from sdflabel_tpu_torch.pipelines import train_css as train_pipe  # noqa: E402
 from sdflabel_tpu_torch.pipelines import train_deepsdf as dsdf_pipe  # noqa: E402
 from sdflabel_tpu_torch.renderer import rasterer  # noqa: E402
@@ -2002,7 +2023,17 @@ def full_width_phase(dev, rt_demo, sample, prep, iters: int | None = None):
         assert launched["stage2_fwd"] == launched["stage2_bwd"] == 0
     return rt, launched, dict(wall_s=wall, iters=stock.iters,
                               loss0=float(loss[0]),
-                              location=np.asarray(label["location"]).tolist())
+                              location=np.asarray(label["location"]).tolist(),
+                              rotation_y=float(label["rotation_y"]))
+
+
+def _loc_yaw_gap(a: dict, b: dict) -> tuple[float, float]:
+    """(|d location| max over axes, |d rotation_y| mod 2 pi) of two
+    labels."""
+    dyaw = abs(float(a["rotation_y"]) - float(b["rotation_y"]))
+    return (float(np.abs(np.asarray(a["location"], float)
+                         - np.asarray(b["location"], float)).max()),
+            min(dyaw, 2 * np.pi - dyaw))
 
 
 def shifted_crops(prep: dict) -> list[dict]:
@@ -2075,12 +2106,6 @@ def batched_full_width_phase(dev, rt512, sample, prep, full: dict,
     launched = counts()
     assert len(labels) == len(crops)
 
-    def label_gap(a, b):
-        dyaw = abs(float(a["rotation_y"]) - float(b["rotation_y"]))
-        return (float(np.abs(np.asarray(a["location"], float)
-                             - np.asarray(b["location"], float)).max()),
-                min(dyaw, 2 * np.pi - dyaw))
-
     track, gaps, parting = [], [], []
     for i, (got, (params, want), nudged) in enumerate(zip(labels, alone,
                                                           moved)):
@@ -2089,7 +2114,7 @@ def batched_full_width_phase(dev, rt512, sample, prep, full: dict,
         track.append(float(per_iter.max()))
         off = (per_iter > 1e-6).nonzero()
         parting.append(int(off[0]) if len(off) else None)
-        gaps.append((label_gap(got, want), label_gap(nudged, want)))
+        gaps.append((_loc_yaw_gap(got, want), _loc_yaw_gap(nudged, want)))
         print(f"{label_}: crop {i}: parameters within "
               f"{track[-1]:.3g} of the crop alone over all {iters} "
               f"iterations (need <= 1e-3; first iteration over 1e-6: "
@@ -2108,7 +2133,11 @@ def batched_full_width_phase(dev, rt512, sample, prep, full: dict,
                    s_per_crop_ratio_alone=wall / len(crops) / alone_mean,
                    max_track_gap=max(track), first_parting=parting,
                    label_gaps=[g[0] for g in gaps],
-                   moved_start_label_gaps=[g[1] for g in gaps])
+                   moved_start_label_gaps=[g[1] for g in gaps],
+                   labels=[{"location": np.asarray(g["location"],
+                                                   np.float64).tolist(),
+                            "rotation_y": float(g["rotation_y"])}
+                           for g in labels])
     line = (f"{label_}: {len(crops)} crops, {iters} iterations, "
             f"{wall:.3f} s wall, {summary['ms_per_iteration']:.3f} "
             f"ms/iteration, {summary['s_per_crop']:.4f} s/crop (one crop: "
@@ -2363,6 +2392,274 @@ def print_render_launches(label: str, n: int, res: tuple,
           f"{res[0]}x{res[1]} px: {launches['new']} (the first designs' "
           f"chain: {launches['first']}); by kernel "
           f"{json.dumps(launches['by_kernel'])}")
+
+
+
+# ------------------------------------------------------ phases 4h and 4i
+
+RAYS_KERNELS = ("splat_fwd", "splat_bwd", "nn", "select_mlp")
+
+
+def _cpu_prep(prep: dict) -> dict:
+    """A prepared crop with its tensors on the CPU (to pickle to a rank)."""
+    return dict(prep, params0=refine_mod.RefineParams(
+        *(p.detach().cpu() for p in prep["params0"])))
+
+
+def rays_rank(rank: int, out_dir: str, job: dict) -> None:
+    """One rank of phases 4h and 4i (a process of mesh.spawn_ranks, which
+    loads the kernels the parent built): phase 4's runtime rebuilt from
+    its config and seeded decoder; the crop refined by
+    make_sharded_refine_fn over a rays axis of every rank; then, with
+    job['crops'], those crops through make_batched_refine(mesh=) over a
+    data axis of every rank. Each with its wall time and this rank's
+    launches; out_dir/rays_<rank>.pt."""
+    dev = torch.device(job["devices"][rank])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = torch.distributed.get_world_size()
+    cfg512, params512 = decoder_8x512(dev)
+    rt = pipe.RefineRuntime(job["stock"], css_mod.CSSNet(width=8), cfg512,
+                            params512, device=dev)
+    rays = mesh_mod.make_mesh(1, world)
+    data = mesh_mod.make_mesh(world, 1)
+    prep = job["prep"]
+    args = (prep["params0"], prep["nocs_target"], prep["frustum"],
+            prep["fmask"])
+
+    def sharded(iters):
+        return sharded_refine.make_sharded_refine_fn(
+            rt.decoder, dataclasses.replace(rt.refine_config(), iters=iters),
+            rt.grid_points, prep["intrinsics"], prep["crop_hw"], rays,
+            select_decoder=rt.select_decoder, device=dev)
+
+    def timed(fn, *a):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn(*a)
+        if cuda:
+            torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, counts()
+
+    sharded(1)(*args)  # warm-up: lazy loads and the first launches
+    (final, hist), wall, launched = timed(sharded(rt.cfg.iters), *args)
+    out = {"rays": dict(final=[p.cpu() for p in final], hist=hist.cpu(),
+                        wall_s=wall, launches=launched)}
+    if job["crops"] is not None:
+        rt.mesh = data
+        bucket, inputs = pipe.batch_inputs(rt, job["crops"])
+        fn = batched_refine.make_batched_refine(
+            rt.decoder, rt.refine_config(), rt.grid_points, bucket,
+            select_decoder=rt.select_decoder, stage2_fn=rt.stage2_fn,
+            with_extents=True, mesh=data, device=dev)
+        (final, _, ext), wall, launched = timed(fn, *inputs)
+        out["data"] = dict(final=[p.cpu() for p in final],
+                           ext=[t.cpu() for t in ext], wall_s=wall,
+                           launches=launched)
+    torch.save(out, os.path.join(out_dir, f"rays_{rank}.pt"))
+
+
+def _run_rays(out_dir: str, job: dict, world: int, backend: str):
+    """Spawn `world` ranks of rays_rank: (rank 0's results, every rank's,
+    the spawn's seconds); the ranks' refines must agree bit for bit."""
+    for name in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, name))
+    t0 = time.perf_counter()
+    mesh_mod.spawn_ranks(rays_rank, world, (out_dir, job), backend=backend)
+    res = [torch.load(os.path.join(out_dir, f"rays_{r}.pt"),
+                      weights_only=False) for r in range(world)]
+    for r in res[1:]:
+        tensors = [(r["rays"]["final"] + [r["rays"]["hist"]],
+                    res[0]["rays"]["final"] + [res[0]["rays"]["hist"]])]
+        if "data" in r:
+            tensors.append((r["data"]["final"] + r["data"]["ext"],
+                            res[0]["data"]["final"] + res[0]["data"]["ext"]))
+        for got, want in tensors:
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    return res[0], res, time.perf_counter() - t0
+
+
+def _sharded_label(rt512, final, sample, anno):
+    ext = labels_mod.surface_extents(
+        rt512.decoder, rt512.grid_points,
+        final[3].to(rt512.grid_points.device),
+        capacity=rt512.surface_capacity,
+        threshold=rt512.refine_config().surface_threshold)
+    return pipe.finish_label(refine_mod.RefineParams(*final), ext, sample,
+                             anno)
+
+
+def rays_data_phases(dev, out_dir: str, rt512, sample, prep, full: dict,
+                     batched: dict) -> tuple[dict, dict]:
+    """Phases 4h and 4i: phase 4's crop and runtime (the 8x512 decoder, the
+    stock config, the selection kernel, the float16 -> bf16 decode) over
+    the ranks of parallel/mesh.py, the parent having built every kernel.
+
+    4h, the rays axis (parallel/sharded_refine.py): (a) one rank on NCCL
+    (gloo without a card), rays = 1: its first loss within 1e-5 relative
+    of phase 4's single-device run; (b) two gloo ranks sharing the card,
+    rays = 2, each decoding its half of the grid with the selection
+    kernel, its slice of the band and rendering its block of pixel rows
+    with the splat kernels: the first two losses within 1e-4 relative of
+    (a)'s, and kernels 1a, 1b, 2 and 3 launched on each rank; the label
+    after all the iterations printed beside (a)'s and beside phase 4d's
+    lanes' gaps. 4i, the data axis, in the same spawn: phase 4d's four
+    crops through make_batched_refine(mesh=) with data = 2, two lanes a
+    rank: the labels beside 4d's (bit-equal expected: every kernel's crop
+    axis is bit-equal to its launch alone; within 1e-3 m and rad
+    required)."""
+    cuda = dev.type == "cuda"
+    here = f"cuda:{torch.cuda.current_device()}" if cuda else "cpu"
+    anno = prep["anno"]
+    rays_dir = os.path.join(out_dir, "rays")
+    os.makedirs(rays_dir, exist_ok=True)
+    job = dict(devices=[here], stock=rt512.cfg, prep=_cpu_prep(prep),
+               crops=None)
+    backend1 = "nccl" if cuda else "gloo"
+    one, _, secs1 = _run_rays(rays_dir, job, 1, backend1)
+    loss1 = one["rays"]["hist"].numpy()
+    rel0 = abs(float(loss1[0]) - full["loss0"]) / abs(full["loss0"])
+    label1 = _sharded_label(rt512, one["rays"]["final"], sample, anno)
+    iters = len(loss1)
+    gap4 = _loc_yaw_gap(label1, {"location": full["location"],
+                                 "rotation_y": full["rotation_y"]})
+    print(f"4h: (a) 1 rank ({backend1}), rays = 1: first loss "
+          f"{loss1[0]:.7f}, phase 4's {full['loss0']:.7f}, relative "
+          f"{rel0:.3g} (need <= 1e-5); {iters} iterations "
+          f"{one['rays']['wall_s']:.3f} s ({one['rays']['wall_s'] / iters * 1e3:.3f}"
+          f" ms/iteration; phase 4: {full['wall_s'] / iters * 1e3:.3f}); "
+          f"label {np.asarray(label1['location'])}, |d location| "
+          f"{gap4[0]:.3g} m, |d rotation_y| {gap4[1]:.3g} rad from phase "
+          f"4's; launches {one['rays']['launches']} ({secs1:.1f} s with "
+          f"the spawn)")
+    assert rel0 <= 1e-5, rel0
+
+    job = dict(devices=[here] * 2, stock=rt512.cfg, prep=_cpu_prep(prep),
+               crops=[_cpu_prep(c) for c in shifted_crops(prep)])
+    two, every, secs2 = _run_rays(rays_dir, job, 2, "gloo")
+    loss2 = two["rays"]["hist"].numpy()
+    rel = [abs(float(a) - float(b)) / abs(float(b))
+           for a, b in zip(loss2[:2], loss1[:2])]
+    label2 = _sharded_label(rt512, two["rays"]["final"], sample, anno)
+    gap = _loc_yaw_gap(label2, label1)
+    lanes = batched["label_gaps"]
+    by_rank = {k: [r["rays"]["launches"][k] for r in every]
+               for k in RAYS_KERNELS}
+    print(f"4h: (b) 2 gloo ranks on {here}, rays = 2: losses "
+          f"{loss2[:2].tolist()} against (a)'s {loss1[:2].tolist()}, "
+          f"relative {rel} (need <= 1e-4 each); {iters} iterations "
+          f"{two['rays']['wall_s']:.3f} s ({two['rays']['wall_s'] / iters * 1e3:.3f}"
+          f" ms/iteration); label {np.asarray(label2['location'])}, from "
+          f"(a)'s: |d location| {gap[0]:.3g} m, |d rotation_y| {gap[1]:.3g} "
+          f"rad (phase 4d's lanes from each crop alone: "
+          f"{[round(g[0], 6) for g in lanes]} m, "
+          f"{[round(g[1], 6) for g in lanes]} rad); launches by rank "
+          f"{json.dumps(by_rank)}")
+    assert max(rel) <= 1e-4, rel
+    assert all(torch.isfinite(t).all() for t in two["rays"]["final"])
+    if cuda:
+        for k, n in by_rank.items():
+            assert all(x > 0 for x in n), (k, n)
+    rays = dict(rel_first_loss_1rank=rel0, rel_first_losses_2ranks=rel,
+                wall_s_1rank=one["rays"]["wall_s"],
+                wall_s_2ranks=two["rays"]["wall_s"], iters=iters,
+                label_gap_1rank_vs_phase4=gap4, label_gap_2ranks=gap,
+                phase4d_lane_gaps=lanes, launches_by_rank=by_rank,
+                launches_1rank=one["rays"]["launches"],
+                spawn_s=[secs1, secs2])
+
+    final, ext = two["data"]["final"], two["data"]["ext"]
+    got = [pipe.finish_label(
+        refine_mod.RefineParams(*(p[i] for p in final)),
+        labels_mod.SurfaceExtents(*(t[i] for t in ext)), sample, c["anno"])
+        for i, c in enumerate(job["crops"])]
+    gaps = [_loc_yaw_gap(g, w) for g, w in zip(got, batched["labels"])]
+    bit_equal = all(
+        np.asarray(g["location"], np.float64).tolist() == w["location"]
+        and float(g["rotation_y"]) == w["rotation_y"]
+        for g, w in zip(got, batched["labels"]))
+    data_by_rank = {k: [r["data"]["launches"][k] for r in every]
+                    for k in RAYS_KERNELS}
+    print(f"4i: 4d's {len(got)} crops through make_batched_refine(mesh=), "
+          f"data = 2 on 2 gloo ranks, 2 lanes each: {two['data']['wall_s']:.3f}"
+          f" s; labels bit-equal to 4d's: {bit_equal}; |d location|, "
+          f"|d rotation_y| by crop {gaps} (need <= 1e-3); launches by "
+          f"rank {json.dumps(data_by_rank)}")
+    assert max(max(g) for g in gaps) <= 1e-3, gaps
+    if cuda:
+        for k, n in data_by_rank.items():
+            assert all(x > 0 for x in n), (k, n)
+    data = dict(bit_equal=bit_equal, label_gaps=gaps,
+                wall_s=two["data"]["wall_s"], launches_by_rank=data_by_rank)
+    launched = {"rays_sharded": by_rank, "data_mesh": data_by_rank}
+    return launched, dict(rays=rays, data_mesh=data)
+
+
+# ---------------------------------------------------------------- phase 9
+
+def render_demo_phase(dev, out_dir: str, small: bool = False):
+    """Phase 9: pipelines/render_demo.py on the card against the CPU.
+    render_sdf of data/optimization/deepsdf_demo.pt (grid 40, 200x100 px:
+    the disc render takes the bins kernel and the binned forward, 1c) with
+    each primitive, without and with a background image; render_model on
+    a seeded npz ball. Each image within the splat tolerance of the CPU's
+    (>= 99.5% of pixels within 2e-4, all within 1); the launches of the
+    card's renders. The circles and a background render are plain torch
+    on every device, as JAX renders them in plain XLA."""
+    path = os.path.join(ROOT, "data", "optimization", "deepsdf_demo.pt")
+    kw = dict(grid_density=16, crop_size=(100, 50)) if small else {}
+    w, h = kw.get("crop_size", (200, 100))
+    bg = np.random.RandomState(9).rand(3, h, w).astype(np.float32)
+    demo_dir = os.path.join(out_dir, "render_demo")
+    devices = [dev, torch.device("cpu")] if dev.type == "cuda" else [dev]
+    images, walls, launched = {}, {}, {}
+    for d in devices:
+        reset_counts()
+        for prim in ("disc", "circle", "circle_opt"):
+            for use_bg in (False, True):
+                t0 = time.perf_counter()
+                r, out = render_demo.render_sdf(
+                    path, prim, output_dir=demo_dir,
+                    bg=bg if use_bg else None, device=d, **kw)
+                img = r.color.cpu().numpy()
+                walls[(d.type, prim, use_bg)] = time.perf_counter() - t0
+                images.setdefault((prim, use_bg), []).append(img)
+                assert img.shape == (3, h, w) and np.isfinite(img).all()
+                assert png.read(out).any()
+        if d.type == dev.type:
+            launched = counts()
+    rng = np.random.RandomState(4)
+    v = rng.randn(2048, 3).astype(np.float32)
+    v = 0.8 * v / np.linalg.norm(v, axis=1, keepdims=True)
+    ball = os.path.join(out_dir, "ball.npz")
+    np.savez(ball, vertices=v, normals=v / 0.8,
+             colors=rng.rand(2048, 3).astype(np.float32))
+    for d in devices:
+        r, _ = render_demo.render_model(ball, output_dir=demo_dir, device=d)
+        images.setdefault(("model", False), []).append(r.color.cpu().numpy())
+    shares = {}
+    for key, imgs in images.items():
+        assert imgs[0].max() > 0.1, key
+        if len(imgs) == 2:
+            err = np.abs(imgs[0] - imgs[1]).max(0)
+            shares[f"{key[0]}{'+bg' if key[1] else ''}"] = float(
+                (err < 2e-4).mean())
+            assert (err < 2e-4).mean() >= 0.995 and err.max() <= 1.0, \
+                (key, (err >= 2e-4).mean(), err.max())
+    print(f"9: render_demo at {w}x{h} px, share of pixels within 2e-4 of "
+          f"the CPU's: {json.dumps(shares)}; seconds "
+          f"{json.dumps({'/'.join(map(str, k)): round(v, 3) for k, v in walls.items()})}"
+          f"; launches {launched}")
+    if dev.type == "cuda":
+        # the disc render without a background: the bins and 1c, once
+        assert launched["splat_bins"] > 0 and launched["splat_fwd_binned"] > 0
+        assert launched["splat_fwd"] == 0 and launched["splat_bwd_binned"] == 0
+    return launched, dict(px=h * w, shares=shares,
+                          seconds={"/".join(map(str, k)): v
+                                   for k, v in walls.items()})
 
 
 # ---------------------------------------------------------------- phase 5
@@ -3556,6 +3853,13 @@ def run_paths(dev, out_dir: str, small: bool = False,
         dev, rt, sample, prep["anno"], iters=1 if small else 10)
     seconds["4b"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    mesh_launched, meshes = rays_data_phases(dev, out_dir, rt512, sample,
+                                             prep, full, batched)
+    seconds["4h+4i"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    demo9_launched, demo9 = render_demo_phase(dev, out_dir, small=small)
+    seconds["9"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     crops_dir, crops_launched, crops = crops_phase(
         dev, out_dir, **(dict(n_crops=4, grid=16, capacity=512) if small
                          else {}))
@@ -3610,12 +3914,15 @@ def run_paths(dev, out_dir: str, small: bool = False,
                 "batched_full_width": batched_launched,
                 "batched_stage2": b_stage2_launched,
                 "batched_binned": b_binned_launched,
-                "demo_viz": viz_launched, **cells_launched}
+                "demo_viz": viz_launched, "render_demo": demo9_launched,
+                **mesh_launched, **cells_launched}
     summary = {"demo_crop": demo, "demo_viz": demo_viz,
                "pnp_select_bf16": pnp_bf16, "full_width_crop": full,
                "batched_full_width": batched, "coarse_cells": cells,
                "full_width_stage2": stage2, "batched_stage2": b_stage2,
                "batched_binned": b_binned, "binned_refine": binned,
+               "rays_sharded": meshes["rays"],
+               "data_mesh": meshes["data_mesh"], "render_demo": demo9,
                "crops": crops, "train": train, "train_bf16": train_bf16,
                "train_fused": fused, "train_fast": train_fast,
                "data_parallel": data_parallel,
@@ -3680,6 +3987,8 @@ def main() -> int:
         handles, launched, summary = run_paths(
             dev, out_dir, quality_frames=args.quality_frames)
     missing = [k for k, path in PATHS.items() if launched[path][k] == 0]
+    missing += [f"{k} (rays_sharded, rank {r})" for k in RAYS_KERNELS
+                for r, n in enumerate(launched["rays_sharded"][k]) if not n]
     assert not missing, f"kernels not launched on their path: {missing}"
     if args.profile:
         profile_all(args.profile, summary=summary, **handles)
@@ -3701,13 +4010,17 @@ def main() -> int:
             row["crop_axis"]["path"] = batched_path
         # the launches on the later slices' paths: the viz of the demo as
         # written (3b), the coarse cells (4e), bf16 training (6b) and the
-        # fused-head net (6c) and the fast input chain (6e)
+        # fused-head net (6c), the fast input chain (6e) and the render
+        # demo (9); by rank, the rays axis (4h) and the data axis (4i)
         row["launches_by_path"] = {
             path: launched[path].get(row["name"], 0)
             for path in ("demo_viz", "warm_refresh_cells", "coarse_cells",
                          "batched_warm_refresh_cells", "train_bf16",
-                         "train_fused", "train_fast")
+                         "train_fused", "train_fast", "render_demo")
             if launched[path].get(row["name"], 0)}
+        for path in ("rays_sharded", "data_mesh"):
+            if row["name"] in launched[path]:
+                row["launches_by_path"][path] = launched[path][row["name"]]
     print(json.dumps({"card": card, **summary}))
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -9,8 +9,24 @@ rank r sits at data index r // n_rays and rays index r % n_rays. Each
 axis has its process groups: the ranks that share a rays index form a
 data group, and those that share a data index a rays group. The train
 steps (engine/css_train.py, engine/deepsdf_train.py) reduce over the
-data group; the rays groups are built for the sharded render and not used
-yet. The collectives are all_reduce and broadcast only.
+data group, the batched refine (parallel/batched_refine.py) gathers its
+crops over it, and the pixel-sharded render and refine (parallel/rays.py,
+parallel/sharded_refine.py) work over the rays group.
+
+The differentiable collectives keep one convention for cotangents. A
+value every rank holds whole and uses in the same computation (a loss, a
+parameter before it enters a rank's share of the work) has the same
+cotangent on every rank; a value of one rank's share (its pixel block,
+its slice of points, its partial sum) has that rank's own. Each of the
+three collectives has the backward that follows from it: ``all_gather``
+(shares -> whole; backward: this rank's slice), ``sum_to_replicated``
+(partial sums -> whole; backward: the identity) and ``from_replicated``
+(a whole value entering each rank's own share; backward: the sum of the
+ranks' cotangents). A whole value that feeds each rank's share therefore
+goes through ``from_replicated``; its gradient then comes out the same,
+and complete, on every rank, as JAX's shard_map transpose gives it.
+``all_reduce_sum`` sums on both passes, for statistics every rank's loss
+depends on (the data-parallel BatchNorm).
 
 Frame partitioning per process (the reference's mpirun pattern,
 rotate_iou.py:10-14) is :func:`process_frame_subset`.
@@ -145,6 +161,75 @@ class _AllReduceSum(torch.autograd.Function):
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """Differentiable sum of `x` over the ranks of `group`."""
     return _AllReduceSum.apply(x, group)
+
+
+class _SumToReplicated(torch.autograd.Function):
+    """Sum over the group; the sum is whole on every rank, so its
+    cotangent is too, and each partial's cotangent is that one."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_to_replicated(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable sum of the ranks' partials `x`, whole on every rank;
+    its backward is the identity."""
+    return _SumToReplicated.apply(x, group)
+
+
+class _FromReplicated(torch.autograd.Function):
+    """The identity; the backward sums the ranks' cotangents, each the
+    part of the gradient that one rank's share of the work gives."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def from_replicated(x: torch.Tensor, group) -> torch.Tensor:
+    """`x`, held whole on every rank, as it enters this rank's share of the
+    work: the gradient that reaches it is the sum over the ranks."""
+    return _FromReplicated.apply(x, group)
+
+
+class _AllGather(torch.autograd.Function):
+    """Concatenate the ranks' `x` along dim 0, in rank order; the backward
+    takes this rank's slice of the whole (same on every rank)
+    cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        n = dist.get_world_size(group)
+        ctx.rank, ctx.rows = dist.get_rank(group), x.shape[0]
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows], None
+
+
+def all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable all-gather along dim 0 (every rank's `x` has the same
+    shape); gloo and NCCL alike. Bool tensors travel as uint8."""
+    if x.dtype == torch.bool:
+        return _AllGather.apply(x.to(torch.uint8), group).bool()
+    return _AllGather.apply(x, group)
 
 
 def all_reduce_(tensors: list[torch.Tensor], group) -> None:

@@ -162,6 +162,8 @@ class RefineRuntime:
         self.ransac_scene_capacity = ransac_scene_capacity
         self.ransac_cfg = ransac_cfg or ransac.RansacConfig()
         self.css = css_model.to(self.device).eval()
+        # parallel/mesh.py::Mesh whose data axis shards the batched refine
+        self.mesh = None
         self.reset_rng(rng_seed)
 
     def reset_rng(self, rng_seed: int = 1):
@@ -279,10 +281,12 @@ class RefineRuntime:
                 "tra": pose.tra.double().cpu().numpy()}
 
 
-def setup_runtime(cfgp_or_cfg, rng_seed: int = 1,
-                  device="cuda") -> RefineRuntime:
+def setup_runtime(cfgp_or_cfg, rng_seed: int = 1, device="cuda",
+                  mesh=None) -> RefineRuntime:
     """Load the DeepSDF (.pt + .json) and CSS (flax msgpack) weights the
-    config names and build the runtime on `device`."""
+    config names and build the runtime on `device`. `mesh`
+    (parallel/mesh.py): the batched refine then shards each frame's crop
+    batch over its data axis."""
     cfg = (cfgp_or_cfg if isinstance(cfgp_or_cfg, cfg_mod.RefineCfg)
            else cfg_mod.RefineCfg.from_ini(cfgp_or_cfg))
     device = refine_mod._device(device)
@@ -291,8 +295,10 @@ def setup_runtime(cfgp_or_cfg, rng_seed: int = 1,
     css_model = css_mod.load_css(cfg.css_path, width=cfg.css_width,
                                  latent_size=dsdf_cfg.latent_size,
                                  device=device)
-    return RefineRuntime(cfg, css_model, dsdf_cfg, dsdf_params, rng_seed,
-                         device=device)
+    rt = RefineRuntime(cfg, css_model, dsdf_cfg, dsdf_params, rng_seed,
+                       device=device)
+    rt.mesh = mesh
+    return rt
 
 
 def prepare_crop(rt: RefineRuntime, sample: dict, anno: dict, maskrcnn=None,
@@ -558,14 +564,16 @@ def batch_inputs(rt: RefineRuntime, preps: list):
     NOCS target letterboxed with a pixel mask into one bucket, the largest
     h and w rounded up to ``render_bucket``, and the batch padded to the
     next power of two with copies of the last crop (the padded lanes cost
-    time but change no real crop, and keep the set of shapes small).
-    Returns ((bh, bw), (params0, K, nocs, frustum, fmask, pixel_mask)) on
-    the runtime's device."""
+    time but change no real crop, and keep the set of shapes small); under
+    the runtime's mesh, to at least the data axis's size and a multiple of
+    it. Returns ((bh, bw), (params0, K, nocs, frustum, fmask, pixel_mask))
+    on the runtime's device."""
     bucket = rt.cfg.render_bucket or 1
     bh = -(-max(p["crop_hw"][0] for p in preps) // bucket) * bucket
     bw = -(-max(p["crop_hw"][1] for p in preps) // bucket) * bucket
+    nd = rt.mesh.shape["data"] if rt.mesh is not None else 1
     pb = 1
-    while pb < len(preps):
+    while pb < max(len(preps), nd) or pb % nd:
         pb *= 2
     lanes = preps + [preps[-1]] * (pb - len(preps))
     nocs = np.zeros((pb, 3, bh, bw), np.float32)
@@ -600,7 +608,7 @@ def refine_crops_batched(rt: RefineRuntime, sample: dict, preps: list,
     fn = batched_refine.make_batched_refine(
         rt.decoder, rt.refine_config(), rt.grid_points, bucket,
         select_decoder=rt.select_decoder, stage2_fn=rt.stage2_fn,
-        with_extents=True, device=rt.device)
+        with_extents=True, mesh=rt.mesh, device=rt.device)
     final, hist, ext = fn(*args)
     # one read for every crop's label inputs: yaw, scale, trans, latent,
     # the extents and their validity
@@ -647,21 +655,27 @@ def _stack_frame(frame_annos, frame_estimations):
         frame_estimations[key] = np.asarray(frame_estimations[key])
 
 
-def refine_css(cfgp, subset_frames=None, batched=True, device="cuda"):
+def refine_css(cfgp, subset_frames=None, batched=True, device="cuda",
+               mesh=None):
     """The KITTI autolabeling driver (refine_css.py:26): every frame of
     ``[input] kitti_path`` with a car; one ``<frame>.pkl`` of [annotations,
     estimations] per frame in ``[output] labels`` (a frame whose dump
     exists is skipped), then the KITTI and nuScenes evaluation of this
     run's frames. `batched` (the default, as in JAX) refines all of a
     frame's prepared crops at once (``refine_crops_batched``); False
-    refines one annotation after another. Returns (annotations,
+    refines one annotation after another. `mesh` (parallel/mesh.py): every
+    rank of it calls refine_css together; each prepares every crop, the
+    batched refine shards each frame's crops over the data axis, and
+    every rank returns the same labels; only the first rank of the data
+    axis writes the dumps and evaluates. Returns (annotations,
     estimations), each an OrderedDict by frame index."""
     np.random.seed(1)
     cfg = (cfgp if isinstance(cfgp, cfg_mod.RefineCfg)
            else cfg_mod.RefineCfg.from_ini(cfgp))
-    rt = setup_runtime(cfg, device=device)
-    viz_dir = (os.path.join(cfg.labels_out, "viz") if _viz_on(cfg)
-               else None)
+    rt = setup_runtime(cfg, device=device, mesh=mesh)
+    writer = mesh is None or mesh.data_index == 0
+    viz_dir = (os.path.join(cfg.labels_out, "viz")
+               if _viz_on(cfg) and writer else None)
     kitti = kitti_mod.KITTI3D(path=cfg.kitti_path)
     total_annotations, total_estimations = OrderedDict(), OrderedDict()
     os.makedirs(cfg.labels_out, exist_ok=True)
@@ -723,13 +737,16 @@ def refine_css(cfgp, subset_frames=None, batched=True, device="cuda"):
         if not frame_annos:
             continue
         _stack_frame(frame_annos, frame_estimations)
-        with open(dump_path(frame_idx), "wb") as f:
-            pickle.dump([frame_annos, frame_estimations], f)
+        if writer:
+            with open(dump_path(frame_idx), "wb") as f:
+                pickle.dump([frame_annos, frame_estimations], f)
         total_annotations[frame_idx] = frame_annos
         total_estimations[frame_idx] = frame_estimations
 
     if not total_annotations:
         print("No frames processed (all outputs exist); skipping eval.")
+        return total_annotations, total_estimations
+    if not writer:
         return total_annotations, total_estimations
     # the in-process evaluation backfills empty predictions (the reference
     # does so only in evaluate_dump.py:37-44)

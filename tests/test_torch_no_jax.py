@@ -50,6 +50,11 @@ EXPECTED = tuple("sdflabel_tpu_torch." + m for m in (
     "pipelines.train_deepsdf",
     "models.css_fused",
     "parallel.mesh",
+    "parallel.rays",
+    "parallel.sharded_refine",
+    "pipelines.render_demo",
+    "utils.meshio",
+    "utils.profiling",
 ))
 
 

@@ -130,7 +130,18 @@ def test_render_matches_jax_dense():
     for f in jp._fields:
         np.testing.assert_allclose(getattr(tp, f).numpy(),
                                    np.asarray(getattr(jp, f)), atol=1e-6)
-    with pytest.raises(NotImplementedError):
+    # the circle primitive, once refused, renders as JAX's does
+    # (tests/test_torch_render_demo.py holds every primitive)
+    jc, _ = jrast.render(jnp.asarray(K), res, jnp.asarray(pts),
+                         jnp.asarray(nrm), jnp.asarray(nrm),
+                         jnp.asarray(pose), rot="dcm", primitives="circle")
+    tc, _ = trast.render(torch.as_tensor(K), res, torch.as_tensor(pts),
+                         torch.as_tensor(nrm), torch.as_tensor(nrm),
+                         torch.as_tensor(pose), rot="dcm",
+                         primitives="circle")
+    np.testing.assert_allclose(tc.color.numpy(), np.asarray(jc.color),
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="unknown primitives"):
         trast.render(torch.as_tensor(K), res, torch.as_tensor(pts),
                      torch.as_tensor(nrm), torch.as_tensor(nrm),
-                     torch.as_tensor(pose), primitives="circle")
+                     torch.as_tensor(pose), primitives="square")
