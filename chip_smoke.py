@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Nine phases and their parts; any failure exits non-zero and no phase's
+Ten phases and their parts; any failure exits non-zero and no phase's
 error is caught
 (phase 8 alone halves its batch on running out of card memory, and says
 so).
@@ -164,12 +164,28 @@ so).
    (two full-batch ranks would need ~77 GiB), from phase 8's state,
    against one rank's step: loss within 1e-6 relative, state within rtol
    2e-5 / atol 1e-7.
+10. The quality suite's nets remade (run after phase 7):
+   ``tools/quality_suite.py`` fits its 4-shape 3x96 DeepSDF for 300
+   steps, builds 4 v1 frames from the fitted decoder (each car's 320^2
+   render through the bins kernel and 1c) and trains the suite CSS net
+   for 20 steps at width 16, batch 8 (the script's own loss: four
+   cross-entropies through kernel 5, forward and backward, and 10 x the
+   latent MSE), everything under the run's temporary directory. Every
+   number finite, the L1 and the loss falling, the fitted decoder's L1
+   on a fixed point set below its initial one; one fit step card against
+   CPU (parameters within 1e-5, the L1 within 1e-6 relative) and one CSS
+   step from the seeded init (loss within 1e-4 relative, >= 99.5% of the
+   parameters within 1e-5 and all within 2 lr, the statistics within
+   1e-4 / 1e-5); the written nets read back by the driver's loaders
+   equal to the trained ones.
 
 Each kernel's launches are counted on the path that runs it (set to 0
 just before the path, read just after): the dense splat, NN and selection
 kernels in phase 4, the stage-2 kernels in 4c, the binned backward in 4b,
 the bins and the binned forward in 5 and the CE kernels in 6 (and in
-6b and 6c, given under ``launches_by_path``); the
+6b and 6c, given under ``launches_by_path``, with the bins and 1c on
+phase 10's v1 frames, ``suite_v1``, and the CE kernels on its CSS
+training, ``suite_css``); the
 record of each crop-axis kernel also gives its launches in 4d (4f for
 4a and 4b, 4g for the binned trio), and
 ``launches_by_path`` those on the paths of 3b (the viz), 4e and 9, and
@@ -186,7 +202,7 @@ designs of the dense splat backward and the nearest neighbour, and phase
 4c's crop
 with the new designs and with the first splat forward and the wmma 4b,
 for comparison; then the train step timed with cuDNN's autotuner on. ``--rehearse-cpu`` runs phases
-3 to 9 on the CPU at a tiny size (2 iterations, 2 suite frames) with the
+3 to 10 on the CPU at a tiny size (2 iterations, 2 suite frames) with the
 kernels' plain versions, then exits 3 without a result: a dry run of the
 control flow for machines without a card (4d, 4h and 4i included).
 """
@@ -3558,7 +3574,8 @@ def kitti_phase(dev, out_dir, n_frames: int = 24, iters: int = 60):
     suite = os.path.join(out_dir, "quality_suite")
     reset_counts()
     t0 = time.perf_counter()
-    meta = quality_suite.build_suite(suite, n_frames, device=dev)
+    meta = quality_suite.build_suite(suite, n_frames, profile="v2",
+                                     device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -3627,6 +3644,171 @@ def kitti_phase(dev, out_dir, n_frames: int = 24, iters: int = 60):
                           tiers=meta["difficulty_tiers"], build_s=build_s,
                           stage2_route=route, **batched_summary,
                           sequential=runs["sequential"][1])
+
+
+# --------------------------------------------------------------- phase 10
+
+def _max_gap(a: dict, b: dict) -> float:
+    la, lb = deepsdf_train._leaves(a), deepsdf_train._leaves(b)
+    assert len(la) == len(lb)
+    return max(float((x.cpu() - y.cpu()).abs().max()) for x, y in
+               zip(la, lb))
+
+
+def _fit_step_card_vs_cpu(dev, params, steps: int = 5) -> dict:
+    """From the fitted decoder with a fresh Adam state, `steps` fit steps
+    on the card (draws from a seeded CPU generator), then one more step
+    on the card and on the CPU from that same state and draws: parameters
+    within 1e-5 (1% of the learning rate; the matmuls sum in other
+    orders), the L1 within 1e-6 relative."""
+    qs = quality_suite
+    gen = torch.Generator().manual_seed(qs.SEED + 5)
+    state = qs.fit_state(params)
+    for _ in range(steps):
+        state, _ = qs.fit_step(state, *(d.to(dev) for d in
+                                        qs.fit_draw(gen, "cpu")))
+    draws = qs.fit_draw(gen, "cpu")
+    cpu_state = qs.FitState(
+        deepsdf._map_tree(lambda t: t.cpu(), state.params),
+        deepsdf_train.AdamState(
+            state.opt.count.cpu(),
+            deepsdf._map_tree(lambda t: t.cpu(), state.opt.mu),
+            deepsdf._map_tree(lambda t: t.cpu(), state.opt.nu)), state.step)
+    card, l_card = qs.fit_step(state, *(d.to(dev) for d in draws))
+    cpu, l_cpu = qs.fit_step(cpu_state, *draws)
+    gap = _max_gap(card.params, cpu.params)
+    rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    assert gap <= 1e-5 and rel <= 1e-6, (gap, rel)
+    return dict(param_gap=gap, l1_rel=rel)
+
+
+def _css_step_card_vs_cpu(dev, frames_meta, suite: str, width: int,
+                          batch: int) -> dict:
+    """One suite-CSS step from the seeded init on the same batch, on the
+    card (cuDNN convolutions without TF32, kernel 5) and on the CPU (the
+    plain cross-entropy): the loss within 1e-4 relative, >= 99.5% of the
+    parameters within 1e-5 and all within 2 lr (Adam's first step is
+    lr x sign(g): the biases that a BatchNorm follows have no true
+    gradient, and their fp32 noise takes either sign), the batch
+    statistics within 1e-4 relative and 1e-5."""
+    qs = quality_suite
+    sample = qs.crop_sampler(frames_meta, suite, device="cpu")
+    samples = [sample() for _ in range(batch)]
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        model = css_mod.init_params(css_mod.CSSNet(width=width),
+                                    torch.Generator().manual_seed(qs.SEED))
+        model = model.to(d).train()
+        opt = css_train.Adam(model.named_parameters(), qs.LR)
+        loss = qs.css_step(model, opt, qs.stack_batch(samples, d))
+        out[d.type] = (float(loss), {k: v.cpu() for k, v in
+                                     model.state_dict().items()})
+    (l_card, card), (l_cpu, cpu) = out[dev.type], out["cpu"]
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    params = torch.cat([(card[k] - cpu[k]).abs().flatten() for k in card
+                        if not k.endswith((".mean", ".var"))])
+    share = float((params <= 1e-5).float().mean())
+    for k in card:
+        if k.endswith((".mean", ".var")):
+            torch.testing.assert_close(card[k], cpu[k], rtol=1e-4,
+                                       atol=1e-5)
+    assert rel <= 1e-4 and share >= 0.995, (rel, share)
+    assert float(params.max()) <= 2 * qs.LR * 1.01, float(params.max())
+    return dict(loss_rel=rel, share_within_1e5=share,
+                param_max_gap=float(params.max()))
+
+
+def suite_remake_phase(dev, out_dir: str, small: bool = False):
+    """Phase 10: tools/quality_suite.py remakes the suite's nets: 300 fit
+    steps of the 4-shape DeepSDF, 4 v1 frames from the fitted decoder
+    (each car's 320^2 render through the bins kernel and 1c), 20 suite-CSS
+    steps at width 16 and batch 8 (kernel 5 forward and backward on each of
+    the four cross-entropy terms), the nets written under the run's
+    temporary directory. Every number finite, the L1 and the loss falling;
+    one fit step and one CSS step card against CPU; the written nets read
+    back by the driver's loaders equal to what was trained."""
+    qs = quality_suite
+    fit_steps, n_frames, css_steps, width, batch = (
+        (20, 1, 2, 8, 2) if small else (300, 4, 20, 16, 8))
+    work = os.path.join(out_dir, "suite_remake")
+    suite, nets = os.path.join(work, "suite"), os.path.join(work, "nets")
+    os.makedirs(nets)
+    seconds, launched = {}, {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds[key] = time.perf_counter() - t0
+        return out
+
+    cfg, params, fit_l1 = timed("fit", lambda: qs.fit_deepsdf(
+        fit_steps, device=dev, log_every=100))
+    fit_l1 = fit_l1.cpu().numpy()
+    k = max(1, fit_steps // 6)
+    eval_l1 = qs.fit_eval_l1(cfg, params)
+    eval_l1_init = qs.fit_eval_l1(cfg, qs.init_fit(dev).params)
+    assert np.isfinite(fit_l1).all() and np.isfinite(eval_l1)
+    assert fit_l1[-k:].mean() < fit_l1[:k].mean() and eval_l1 < eval_l1_init
+    fit_check = _fit_step_card_vs_cpu(dev, params)
+
+    reset_counts()
+    rend = qs.Renderer(deepsdf.sdf_fn(cfg, params), dev)
+    frames_meta, _ = timed("frames", lambda: qs.build_frames(
+        suite, n_frames, rend, "v1"))
+    launched["suite_v1"] = counts()
+    cars = sum(len(m[1]) for m in frames_meta)
+    assert len(frames_meta) == n_frames and cars > 0
+    for _name, annos, nocs, mask in frames_meta:
+        assert np.isfinite(nocs).all() and mask.any()
+        for a in annos:
+            assert np.isfinite(a["location"] + a["dimensions"]).all()
+
+    reset_counts()
+    model, css_loss = timed("css", lambda: qs.train_suite_css(
+        frames_meta, suite, width=width, steps=css_steps, batch=batch,
+        device=dev, log_every=10))
+    launched["suite_css"] = counts()
+    css_loss = css_loss.cpu().numpy()
+    k = max(1, css_steps // 4)
+    assert np.isfinite(css_loss).all()
+    # (a rehearsal's 2 steps of 2 crops are too few to fall surely)
+    assert small or css_loss[-k:].mean() < css_loss[:k].mean(), css_loss
+    css_check = _css_step_card_vs_cpu(dev, frames_meta, suite, width,
+                                      batch)
+
+    # written, then read back by the loaders the driver uses
+    dsdf_path = os.path.join(nets, "deepsdf_quality.pt")
+    css_path = os.path.join(nets, "css_quality.msgpack")
+    deepsdf.save_torch_checkpoint(dsdf_path, cfg, params)
+    qs.save_css(css_path, model)
+    _, back = deepsdf.load_torch_checkpoint(dsdf_path, device=dev)
+    assert _max_gap(back, params) == 0.0
+    css_back = css_mod.load_css(css_path, width, device=dev)
+    trained = model.state_dict()
+    assert all(torch.equal(v, trained[k])
+               for k, v in css_back.state_dict().items())
+    print(f"10: suite remake: fit {fit_steps} steps L1 {fit_l1[0]:.5f} -> "
+          f"{fit_l1[-1]:.5f}, fixed-set L1 {eval_l1:.5f} (init "
+          f"{eval_l1_init:.5f}); {n_frames} v1 frames, {cars} cars; CSS "
+          f"{css_steps} steps loss {css_loss[0]:.4f} -> {css_loss[-1]:.4f}; "
+          f"card against CPU: fit {json.dumps(fit_check)}, CSS "
+          f"{json.dumps(css_check)}; nets read back equal; seconds "
+          f"{json.dumps({k: round(v, 3) for k, v in seconds.items()})}; "
+          f"launches {json.dumps(launched)}")
+    if dev.type == "cuda":
+        assert launched["suite_v1"]["splat_bins"] > 0
+        assert launched["suite_v1"]["splat_fwd_binned"] > 0
+        assert launched["suite_css"]["ce_fwd"] > 0
+        assert launched["suite_css"]["ce_bwd"] > 0
+    return launched, dict(
+        fit_steps=fit_steps, fit_l1_first=float(fit_l1[0]),
+        fit_l1_last=float(fit_l1[-1]), fit_eval_l1=eval_l1,
+        fit_eval_l1_init=eval_l1_init, frames=n_frames, cars=cars,
+        css_steps=css_steps, css_loss_first=float(css_loss[0]),
+        css_loss_last=float(css_loss[-1]), fit_card_vs_cpu=fit_check,
+        css_card_vs_cpu=css_check, seconds=seconds)
 
 
 # ------------------------------------------------------- --profile (option)
@@ -3810,7 +3992,7 @@ def profile_all(out_dir: str, rt512, rt_stage2, prep, sample, state, fixed,
 
 def run_paths(dev, out_dir: str, small: bool = False,
               quality_frames: int = 24):
-    """Phases 3 to 8, each timed; `small` cuts them to a CPU rehearsal's
+    """Phases 3 to 10, each timed; `small` cuts them to a CPU rehearsal's
     size. Returns what --profile drives again, the launches of each path
     and its summary."""
     tiny = dict(iters=2) if small else {}
@@ -3905,6 +4087,9 @@ def run_paths(dev, out_dir: str, small: bool = False,
         dev, out_dir, **(dict(n_frames=2, iters=2) if small
                          else dict(n_frames=quality_frames)))
     seconds["7"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    remake_launched, remake = suite_remake_phase(dev, out_dir, small=small)
+    seconds["10"] = time.perf_counter() - t0
     print(f"phase seconds: {json.dumps(seconds)}")
     launched = {"full_width": full_launched, "binned_refine": binned_launched,
                 "crops": crops_launched, "train": train_launched,
@@ -3915,7 +4100,7 @@ def run_paths(dev, out_dir: str, small: bool = False,
                 "batched_stage2": b_stage2_launched,
                 "batched_binned": b_binned_launched,
                 "demo_viz": viz_launched, "render_demo": demo9_launched,
-                **mesh_launched, **cells_launched}
+                **mesh_launched, **cells_launched, **remake_launched}
     summary = {"demo_crop": demo, "demo_viz": demo_viz,
                "pnp_select_bf16": pnp_bf16, "full_width_crop": full,
                "batched_full_width": batched, "coarse_cells": cells,
@@ -3927,7 +4112,8 @@ def run_paths(dev, out_dir: str, small: bool = False,
                "train_fused": fused, "train_fast": train_fast,
                "data_parallel": data_parallel,
                "deepsdf_train": dsdf_train,
-               "kitti_driver": kitti, "phase_seconds": seconds}
+               "kitti_driver": kitti, "suite_remake": remake,
+               "phase_seconds": seconds}
     handles = dict(rt512=rt512, rt_stage2=rt_stage2, prep=prep,
                    sample=sample, state=state, fixed=fixed)
     return handles, launched, summary
@@ -4010,13 +4196,15 @@ def main() -> int:
             row["crop_axis"]["path"] = batched_path
         # the launches on the later slices' paths: the viz of the demo as
         # written (3b), the coarse cells (4e), bf16 training (6b) and the
-        # fused-head net (6c), the fast input chain (6e) and the render
-        # demo (9); by rank, the rays axis (4h) and the data axis (4i)
+        # fused-head net (6c), the fast input chain (6e), the render demo
+        # (9), the suite's v1 frames and its CSS training (10); by rank,
+        # the rays axis (4h) and the data axis (4i)
         row["launches_by_path"] = {
             path: launched[path].get(row["name"], 0)
             for path in ("demo_viz", "warm_refresh_cells", "coarse_cells",
                          "batched_warm_refresh_cells", "train_bf16",
-                         "train_fused", "train_fast", "render_demo")
+                         "train_fused", "train_fast", "render_demo",
+                         "suite_v1", "suite_css")
             if launched[path].get(row["name"], 0)}
         for path in ("rays_sharded", "data_mesh"):
             if row["name"] in launched[path]:

@@ -34,9 +34,9 @@ from collections import OrderedDict, defaultdict
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from sdflabel_tpu_torch import config as cfg_mod
+from sdflabel_tpu_torch.data import crops as crops_data
 from sdflabel_tpu_torch.data import kitti as kitti_mod
 from sdflabel_tpu_torch.engine import labels as labels_mod
 from sdflabel_tpu_torch.engine import refine as refine_mod
@@ -52,23 +52,27 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-def _resize_pass(img: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
-    img = F.interpolate(img, size=size, mode="bilinear", align_corners=False,
-                        antialias=True)
-    return torch.clamp(torch.floor(img + 0.5), 0, 255)  # back to uint8
-
-
 def transform_bgr_crop(crop_bgr: np.ndarray, device="cpu"):
     """BGR float crop -> (normalized, plain) (3, 128, 128) float32 tensors
-    (refinement.py:60-84). PIL's bilinear resize antialiases when it
-    shrinks and resamples the width, then the height, through a uint8
-    image; here each pass is F.interpolate(antialias=True) rounded back to
-    uint8 values, which agrees with PIL to one level in 255."""
+    (refinement.py:60-84): PIL's ``Image.resize((128, 128), BILINEAR)`` of
+    the uint8 RGB crop, rebuilt bit for bit on `device` from Pillow's
+    integer tables (data/crops.py::pil_bilinear_table, ::pil_resample:
+    the width pass, then the height pass, each rounded to uint8)."""
     rgb8 = (np.clip(crop_bgr[..., ::-1], 0, 1) * 255).astype(np.uint8)
-    img = torch.as_tensor(np.ascontiguousarray(rgb8)).to(device)
-    img = img.permute(2, 0, 1)[None].float()
-    img = _resize_pass(img, (img.shape[2], 128))
-    arr = _resize_pass(img, (128, 128))[0] / 255.0
+    h, w = rgb8.shape[:2]
+    tabs = [crops_data.pil_bilinear_table(n, crops_data.SIZE)
+            for n in (w, h)]
+    k = max(idx.shape[1] for idx, _ in tabs)
+
+    def stacked(i):
+        return torch.as_tensor(np.stack(
+            [np.pad(t[i], ((0, 0), (0, k - t[i].shape[1]))) for t in tabs]
+        )[None], device=device)
+
+    img = torch.as_tensor(np.ascontiguousarray(rgb8), device=device)
+    img = img.permute(2, 0, 1)[None]
+    arr = crops_data.pil_resample(img, stacked(0), stacked(1))[0].float() \
+        / 255.0
     mean = torch.tensor(IMAGENET_MEAN, device=arr.device)[:, None, None]
     std = torch.tensor(IMAGENET_STD, device=arr.device)[:, None, None]
     return (arr - mean) / std, arr

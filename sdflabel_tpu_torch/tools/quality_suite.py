@@ -1,46 +1,80 @@
-"""Build the v2 autolabel-quality suite: synthetic KITTI-format frames.
+"""Build the autolabel-quality suite and its nets: synthetic KITTI frames.
 
-The frame builder of scripts/make_quality_suite.py (profile v2), without
-its DeepSDF fit and CSS training: the frames come from the committed
-``data/quality_nets/deepsdf_quality.pt`` and the same seeded draws
-(``np.random.RandomState(SEED + 2)``, in the same order), so the suite is
-the one the JAX package generates, and the committed
-``css_quality_v2.msgpack`` (width 24) labels it. Six conditions in turn:
-clean, occluded, truncated, distant, sparse LIDAR and a hard mix, with
-KITTI truncation and occlusion flags, so difficulties 0-2 are all
-populated. Each car's appearance is its NOCS render on a 320 x 320 canvas
-(the row-binned splat kernel on the card); its ground-truth label is
-engine/labels.py::get_kitti_label, the code the driver's labels come from.
+The port of scripts/make_quality_suite.py, on the card by default:
+
+1. ``fit_deepsdf``: one 3x96 DeepSDF decoder fitted to the four
+   car-proportioned rounded boxes of ``SHAPES``, one per unit-sphere
+   anchor latent (L1 on SDFs clipped to +-0.1, optax-order Adam at 1e-3);
+2. the frames, from the same seeded draws as JAX's
+   (``np.random.RandomState(SEED + 2)``, in the same order): profile v1,
+   1-3 disjoint cars a frame on a ground plane, or profile v2, six
+   conditions in turn (clean, occluded, truncated, distant, sparse LIDAR
+   and a hard mix) with KITTI truncation and occlusion flags, so that
+   difficulties 0-2 are all populated. Each car's appearance is its NOCS
+   render on a 320 x 320 canvas (the bins kernel and the row-binned splat
+   forward on the card); its ground-truth label is
+   engine/labels.py::get_kitti_label, the code the driver's labels come
+   from;
+3. ``train_suite_css``: the suite's CSS network trained on jittered crops
+   re-read from the written PNGs (the driver's own crop transform), its
+   four cross-entropy terms through kernel 5 on the card; with
+   ``--weak-steps`` also an undertrained "weak" net.
 
 Writes ``training/{image_2,velodyne,calib,label_2}``, the
 ``mv3d_kitti_split/trainval.txt`` split and ``suite_meta.json``, which
-data/kitti.py::KITTI3D reads:
+data/kitti.py::KITTI3D reads, and the fitted and trained nets in the
+formats the JAX package's loaders read, under ``--nets-out`` only: the
+committed ``data/quality_nets/`` is read (``--skip-fit`` takes its
+decoder) and never written. Without ``--skip-fit`` the frames come from
+the fitted decoder, as in JAX.
 
-    python -m sdflabel_tpu_torch.tools.quality_suite --frames 72 \\
-        --out data/quality_suite_v2
+    python -m sdflabel_tpu_torch.tools.quality_suite             # v1, all
+    python -m sdflabel_tpu_torch.tools.quality_suite --profile v2 \\
+        --weak-steps 800
+    python -m sdflabel_tpu_torch.tools.quality_suite --profile v2 \\
+        --frames 72 --skip-fit --skip-css --out data/quality_suite_v2
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import time
 
 import numpy as np
 import torch
 
 from sdflabel_tpu_torch.data import kitti as kitti_mod
+from sdflabel_tpu_torch.engine import css_train
+from sdflabel_tpu_torch.engine import deepsdf_train
 from sdflabel_tpu_torch.engine import labels as labels_mod
 from sdflabel_tpu_torch.engine import refine as refine_mod
+from sdflabel_tpu_torch.models import css as css_mod
 from sdflabel_tpu_torch.models import deepsdf
+from sdflabel_tpu_torch.ops import ce_cuda
 from sdflabel_tpu_torch.ops import grid as grid_ops
 from sdflabel_tpu_torch.ops import splat_cuda
+from sdflabel_tpu_torch.pipelines import refine_css as refine_pipe
 from sdflabel_tpu_torch.renderer import rasterer
+from sdflabel_tpu_torch.utils import flax_msgpack
 
 SEED = 11
 NETS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "data", "quality_nets")
-CSS_WIDTH = 24  # the suite's CSS network, css_quality_v2.msgpack
+NETS_OUT = os.path.join("data", "quality_nets_remade")
+CSS_WIDTH = 24  # the v2 suite's CSS network, css_quality_v2.msgpack
+# each profile's defaults (make_quality_suite.py:729-735)
+PROFILES = {"v1": dict(frames=60, css_steps=4000, css_width=16,
+                       out=os.path.join("data", "quality_suite"), suffix=""),
+            "v2": dict(frames=72, css_steps=6000, css_width=CSS_WIDTH,
+                       out=os.path.join("data", "quality_suite_v2"),
+                       suffix="_v2")}
+FIT_STEPS = 3500
+FIT_POINTS = 4096  # uniform points a fit step, and as many near the box
+LR = 1e-3
+MAX_MISSES = 1000  # frame draws in a row that give no frame before giving up
 
 IMG_H, IMG_W = 256, 832
 FOCAL, CX, CY = 460.0, 416.0, 128.0
@@ -63,6 +97,155 @@ VELO_TO_CAM = np.array([[0.0, -1.0, 0.0, 0.0],
                         [1.0, 0.0, 0.0, 0.0]])
 CONDITIONS = ("clean", "occluded", "truncated", "distant", "sparse",
               "hard_mix")
+
+
+def _no_tf32() -> None:
+    # fp32 matmuls and convolutions stay fp32 on the card, as JAX's
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+# ------------------------------------------------------------- the fit
+
+def box_sdf(pts: torch.Tensor, half: torch.Tensor,
+            radius: float = 0.06) -> torch.Tensor:
+    """Signed distance of (..., 3) points to the box of half extents
+    `half` with its edges rounded by `radius` (make_quality_suite.py:83)."""
+    q = pts.abs() - (half - radius)
+    outside = torch.linalg.norm(q.clamp(min=0.0), dim=-1)
+    inside = q.max(-1).values.clamp(max=0.0)
+    return outside + inside - radius
+
+
+def fit_config() -> deepsdf.DeepSDFConfig:
+    return deepsdf.DeepSDFConfig(latent_size=3, dims=(96, 96, 96))
+
+
+@dataclasses.dataclass
+class FitState:
+    """The decoder's parameters, their Adam state and the steps taken."""
+
+    params: dict
+    opt: deepsdf_train.AdamState
+    step: int = 0
+
+
+def fit_state(params: dict) -> FitState:
+    """`params` with a fresh Adam state."""
+    zeros = deepsdf_train._zeros_like
+    count = torch.zeros((), dtype=torch.int32,
+                        device=deepsdf_train._leaves(params)[0].device)
+    return FitState(params, deepsdf_train.AdamState(count, zeros(params),
+                                                    zeros(params)))
+
+
+def init_fit(device="cpu") -> FitState:
+    """The decoder's initial weights from a torch.Generator seeded with
+    SEED (JAX's come from PRNGKey(SEED): other numbers, the same law)."""
+    return fit_state(deepsdf.init_params(
+        fit_config(), torch.Generator().manual_seed(SEED), device=device))
+
+
+def fit_draw(generator: torch.Generator, device="cpu"):
+    """One step's draws, on `device` from `generator`: the shape index
+    (0-dim), FIT_POINTS points uniform in +-1.05 and their N(0, 1) noise
+    (jax.random's rows cannot be drawn by torch: the port draws its
+    own)."""
+    shape_idx = torch.randint(0, len(SHAPES), (), generator=generator,
+                              device=device)
+    pu = torch.rand(FIT_POINTS, 3, generator=generator, device=device) \
+        * 2.1 - 1.05
+    noise = torch.randn(FIT_POINTS, 3, generator=generator, device=device)
+    return shape_idx, pu, noise
+
+
+def fit_step(state: FitState, shape_idx: torch.Tensor, pu: torch.Tensor,
+             noise: torch.Tensor) -> tuple[FitState, torch.Tensor]:
+    """One Adam step on given draws (make_quality_suite.py:100-116): the
+    uniform points and the same points scaled to the shape's box plus
+    0.05 noise, the target clip(box_sdf, +-0.1), L1 on the clipped
+    prediction. Returns the new state and the L1 (0-dim, not read
+    back)."""
+    dev = pu.device
+    lats = torch.as_tensor(np.stack([s[0] for s in SHAPES]),
+                           dtype=torch.float32, device=dev)
+    halves = torch.as_tensor(np.stack([s[1] for s in SHAPES]),
+                             dtype=torch.float32, device=dev)
+    lat, half = lats[shape_idx], halves[shape_idx]
+    ps = pu * (half / half.max())  # densify near the box surface
+    pts = torch.cat([pu, ps + 0.05 * noise])
+    target = box_sdf(pts, half).clamp(-0.1, 0.1)
+    leaves = [x.detach().requires_grad_(True)
+              for x in deepsdf_train._leaves(state.params)]
+    params = deepsdf_train._rebuild(state.params, iter(leaves))
+    pred = deepsdf.sdf_fn(fit_config(), params)(lat, pts).clamp(-0.1, 0.1)
+    loss = (pred - target).abs().mean()
+    # the scale head takes no gradient: zeros, as in JAX
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
+    updates, opt = deepsdf_train.adam_update(state.opt, grads, LR)
+    new = deepsdf_train._rebuild(state.params, iter(
+        [p.detach() + u for p, u in zip(leaves, updates)]))
+    return FitState(new, opt, state.step + 1), loss.detach()
+
+
+def fit_deepsdf(steps: int = FIT_STEPS,
+                generator: torch.Generator | None = None, device="cuda",
+                log_every: int = 500):
+    """Fit one decoder to all four (latent, half) anchor pairs
+    (make_quality_suite.py:90-126): `steps` of :func:`fit_draw` then
+    :func:`fit_step`, the draws from `generator` (by default one on
+    `device` seeded with SEED + 1). Returns (config, parameters, the L1
+    of every step as a (steps,) tensor)."""
+    device = refine_mod._device(device)
+    _no_tf32()
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(SEED + 1)
+    state = init_fit(device)
+    losses = []
+    for i in range(steps):
+        state, loss = fit_step(state, *fit_draw(generator, device))
+        losses.append(loss)
+        if i % log_every == 0:
+            print(f"  deepsdf fit step {i}: L1 {float(loss):.5f}",
+                  flush=True)
+    losses = torch.stack(losses) if losses else torch.zeros(0)
+    if steps:
+        print(f"  deepsdf fit final: L1 {float(losses[-1]):.5f}",
+              flush=True)
+    return fit_config(), state.params, losses
+
+
+def fit_eval_points(n: int = 16384, seed: int = SEED + 7):
+    """A fixed evaluation set for any fitted decoder: per shape `n`
+    points drawn as a fit step draws them (numpy, `seed`): (4, 2n, 3)
+    points and their clipped box SDFs (4, 2n)."""
+    rng = np.random.RandomState(seed)
+    pts, tgt = [], []
+    for _lat, half in SHAPES:
+        pu = rng.uniform(-1.05, 1.05, (n, 3))
+        ps = pu * (half / half.max()) + 0.05 * rng.randn(n, 3)
+        p = torch.as_tensor(np.concatenate([pu, ps]), dtype=torch.float32)
+        pts.append(p)
+        tgt.append(box_sdf(p, torch.as_tensor(half, dtype=torch.float32))
+                   .clamp(-0.1, 0.1))
+    return torch.stack(pts), torch.stack(tgt)
+
+
+def fit_eval_l1(cfg: deepsdf.DeepSDFConfig, params: dict) -> float:
+    """The decoder's L1 on :func:`fit_eval_points`, every shape with its
+    anchor latent, the prediction clipped as in the fit."""
+    pts, tgt = fit_eval_points()
+    dev = deepsdf_train._leaves(params)[0].device
+    fn = deepsdf.sdf_fn(cfg, params)
+    total = 0.0
+    with torch.no_grad():
+        for (lat, _half), p, t in zip(SHAPES, pts, tgt):
+            pred = fn(torch.as_tensor(lat, dtype=torch.float32, device=dev),
+                      p.to(dev)).clamp(-0.1, 0.1)
+            total += float((pred.cpu() - t).abs().mean())
+    return total / len(SHAPES)
 
 
 class Renderer:
@@ -148,6 +331,70 @@ def sample_objects(rng, n_obj):
             boxes.append(box)
             objs.append(obj)
     return objs
+
+
+def _paste(frame, crop_box, nocs, mask):
+    """Paste one car's render into the frame's BGR image and its
+    full-frame NOCS and mask (for the CSS training)."""
+    image, full_nocs, full_mask = frame
+    l, t_, rr, b = crop_box
+    rgb = np.transpose(nocs, (1, 2, 0))
+    image[t_:b, l:rr][mask] = rgb[..., ::-1][mask]  # stored BGR
+    full_nocs[:, t_:b, l:rr][:, mask] = np.transpose(rgb[mask], (1, 0))
+    full_mask[t_:b, l:rr] |= mask
+
+
+def _new_frame(rng):
+    return (rng.uniform(0.25, 0.45, (IMG_H, IMG_W, 3)).astype(np.float32),
+            np.zeros((3, IMG_H, IMG_W), np.float32),
+            np.zeros((IMG_H, IMG_W), bool))
+
+
+def build_frame(rend: Renderer, rng):
+    """One v1 scene (make_quality_suite.py:232-295): 1-3 disjoint cars
+    rendered and pasted far to near, each car's padded render box as its
+    2D box. Returns (BGR image, camera-frame LIDAR, annotations,
+    full-frame NOCS (3, H, W), mask (H, W)) or None."""
+    objs = sample_objects(rng, rng.randint(1, 4))
+    if not objs:
+        return None
+    frame = _new_frame(rng)
+    lidar_parts, annos = [], []
+    for obj in sorted(objs, key=lambda o: -o["trans"][2]):
+        r = render_car(rend, obj["latent"], obj["yaw"], obj["scale"],
+                       obj["trans"])
+        if r is None:
+            continue
+        crop_box, nocs, mask, vis_cam, _depth, _uv = r
+        _paste(frame, crop_box, nocs, mask)
+        n_vis = len(vis_cam)
+        keep = rng.permutation(n_vis)[: min(n_vis, 3500)]
+        lidar_parts.append(vis_cam[keep] + rng.randn(len(keep), 3) * 0.008)
+        label, _, _ = labels_mod.get_kitti_label(
+            rend.decoder, rend.grid, obj["latent"], np.array([obj["scale"]]),
+            obj["trans"] / obj["scale"], np.array([obj["yaw"]]), np.eye(4),
+            np.asarray(crop_box), capacity=CAPACITY)
+        if label is None:
+            continue
+        annos.append({
+            "bbox": crop_box,
+            "location": [float(x) for x in label["location"]],
+            "dimensions": [float(x) for x in label["dimensions"]],
+            "rotation_y": float(label["rotation_y"]),
+            "alpha": float(label["alpha"]),
+            "latent": obj["latent"],
+        })
+    if not annos:
+        return None
+    ground = np.stack([rng.uniform(-12, 12, 8000),
+                       np.full(8000, GROUND_Y) + rng.randn(8000) * 0.01,
+                       rng.uniform(4.0, 24.0, 8000)], 1)
+    clutter = np.stack([rng.uniform(-12, 12, 2000),
+                        rng.uniform(-1.2, GROUND_Y, 2000),
+                        rng.uniform(18.0, 26.0, 2000)], 1)
+    lidar_cam = np.concatenate(lidar_parts + [ground, clutter])
+    return (frame[0], lidar_cam.astype(np.float32), annos, frame[1],
+            frame[2])
 
 
 def _car(rng, z_lo, z_hi, x_frac=0.55):
@@ -284,7 +531,7 @@ def build_frame_v2(rend: Renderer, rng, condition):
     """One scene (make_quality_suite.py:448-553): every car rendered and
     pasted far to near over an owner/depth buffer, LIDAR of rear cars
     blocked against the buffer, KITTI truncation and occlusion flags.
-    Returns (BGR image, camera-frame LIDAR, annotations) or None."""
+    Returns what :func:`build_frame` returns, or None."""
     objs, spec = sample_objects_v2(rng, condition)
     if not objs:
         return None
@@ -297,7 +544,7 @@ def build_frame_v2(rend: Renderer, rng, condition):
     if not rendered:
         return None
 
-    image = rng.uniform(0.25, 0.45, (IMG_H, IMG_W, 3)).astype(np.float32)
+    frame = _new_frame(rng)
     owner = np.full((IMG_H, IMG_W), -1, np.int32)
     zbuf = np.full((IMG_H, IMG_W), np.inf, np.float32)
     n_own = {}
@@ -306,8 +553,7 @@ def build_frame_v2(rend: Renderer, rng, condition):
     for i in order:
         _obj, (crop_box, nocs, mask, _vis, depth, _uv) = rendered[i]
         l, t_, rr, b = crop_box
-        rgb = np.transpose(nocs, (1, 2, 0))
-        image[t_:b, l:rr][mask] = rgb[..., ::-1][mask]  # stored BGR
+        _paste(frame, crop_box, nocs, mask)
         owner[t_:b, l:rr][mask] = i
         zbuf[t_:b, l:rr][mask] = depth[mask]
         n_own[i] = int(mask.sum())
@@ -366,7 +612,8 @@ def build_frame_v2(rend: Renderer, rng, condition):
                         rng.uniform(-1.2, GROUND_Y, nc),
                         rng.uniform(18.0, 28.0, nc)], 1)
     lidar_cam = np.concatenate(lidar_parts + [ground, clutter])
-    return image, lidar_cam.astype(np.float32), annos
+    return (frame[0], lidar_cam.astype(np.float32), annos, frame[1],
+            frame[2])
 
 
 def write_kitti_frame(root, name, image, lidar_cam, annos):
@@ -427,39 +674,61 @@ def difficulty_counts(frame_annos):
     return counts
 
 
-def build_suite(out: str, n_frames: int = 72, device="cuda",
-                nets: str = NETS) -> dict:
-    """Write the first `n_frames` frames of the v2 suite under `out`;
-    returns the suite's meta (also written to suite_meta.json)."""
-    device = refine_mod._device(device)
+def _frame_loop(profile: str, rend: Renderer, rng):
+    """The frames of `profile` in order, each (name, condition, what
+    build_frame returns), skipping the draws that give no frame
+    (make_quality_suite.py:760-778); raises after MAX_MISSES such draws
+    in a row (a decoder without a usable surface), where JAX's loop would
+    never end."""
+    n = misses = 0
+    while misses < MAX_MISSES:
+        if profile == "v2":
+            condition = CONDITIONS[n % len(CONDITIONS)]
+            built = build_frame_v2(rend, rng, condition)
+        else:
+            condition = "clean"
+            built = build_frame(rend, rng)
+        misses = 0 if built is not None else misses + 1
+        if built is not None:
+            yield f"{n:06d}", condition, built
+            n += 1
+    raise RuntimeError(f"no frame in {MAX_MISSES} draws in a row: the "
+                       "decoder's surface gives no car")
+
+
+def build_frames(out: str, n_frames: int, rend: Renderer,
+                 profile: str = "v1"):
+    """Write the first `n_frames` frames of `profile` and the split under
+    `out`. Returns (frames_meta: (name, annotations, full-frame NOCS,
+    mask) a frame, conditions by name)."""
     training = os.path.join(out, "training")
     for sub in ("image_2", "label_2", "calib", "velodyne"):
         os.makedirs(os.path.join(training, sub), exist_ok=True)
     os.makedirs(os.path.join(out, "mv3d_kitti_split"), exist_ok=True)
-    dcfg, dparams = deepsdf.load_torch_checkpoint(
-        os.path.join(nets, "deepsdf_quality.pt"), device=device)
-    rend = Renderer(deepsdf.sdf_fn(dcfg, dparams), device)
     rng = np.random.RandomState(SEED + 2)
-    names, frame_annos, conditions = [], [], {}
-    while len(names) < n_frames:
-        condition = CONDITIONS[len(names) % len(CONDITIONS)]
-        built = build_frame_v2(rend, rng, condition)
-        if built is None:
-            continue
-        image, lidar_cam, annos = built
-        name = f"{len(names):06d}"
+    frames_meta, conditions = [], {}
+    frames = _frame_loop(profile, rend, rng)
+    while len(frames_meta) < n_frames:
+        name, condition, (image, lidar_cam, annos, nocs, mask) = next(frames)
         write_kitti_frame(out, name, image, lidar_cam, annos)
-        frame_annos.append(annos)
+        frames_meta.append((name, annos, nocs, mask))
         conditions[name] = condition
-        names.append(name)
     with open(os.path.join(out, "mv3d_kitti_split", "trainval.txt"),
               "w") as f:
-        f.write("\n".join(names) + "\n")
-    meta = {"profile": "v2", "frames": len(names),
-            "objects": sum(len(a) for a in frame_annos), "seed": SEED,
-            "img_hw": [IMG_H, IMG_W], "css_width": CSS_WIDTH,
-            "difficulty_tiers": difficulty_counts(frame_annos),
-            "conditions": conditions, "weak_css": None,
+        f.write("\n".join(m[0] for m in frames_meta) + "\n")
+    return frames_meta, conditions
+
+
+def write_meta(out: str, profile: str, frames_meta, conditions,
+               css_width: int | None = None, weak_css: str | None = None
+               ) -> dict:
+    """suite_meta.json as JAX writes it (make_quality_suite.py:804-814)."""
+    meta = {"profile": profile, "frames": len(frames_meta),
+            "objects": sum(len(m[1]) for m in frames_meta), "seed": SEED,
+            "img_hw": [IMG_H, IMG_W],
+            "css_width": css_width or PROFILES[profile]["css_width"],
+            "difficulty_tiers": difficulty_counts(m[1] for m in frames_meta),
+            "conditions": conditions, "weak_css": weak_css,
             "shapes": [{"latent": s[0].tolist(), "half": s[1].tolist()}
                        for s in SHAPES]}
     with open(os.path.join(out, "suite_meta.json"), "w") as f:
@@ -467,16 +736,241 @@ def build_suite(out: str, n_frames: int = 72, device="cuda",
     return meta
 
 
+def build_suite(out: str, n_frames: int | None = None, profile: str = "v1",
+                device="cuda", nets: str = NETS) -> dict:
+    """Write the first `n_frames` frames of `profile` (its default count
+    when None) under `out` from the decoder in `nets`; returns the
+    suite's meta (also written to suite_meta.json)."""
+    device = refine_mod._device(device)
+    dcfg, dparams = deepsdf.load_torch_checkpoint(
+        os.path.join(nets, "deepsdf_quality.pt"), device=device)
+    rend = Renderer(deepsdf.sdf_fn(dcfg, dparams), device)
+    frames_meta, conditions = build_frames(
+        out, n_frames or PROFILES[profile]["frames"], rend, profile)
+    return write_meta(out, profile, frames_meta, conditions)
+
+
+# ------------------------------------------------------ the CSS training
+
+def crop_sampler(frames_meta, tree: str, jitter: int = 3, device="cpu"):
+    """sample() -> (normalized crop (3, 128, 128) on `device`, NOCS bins
+    (3, 128, 128) int32, mask (128, 128) int32, latent (3,)): one jittered
+    annotation crop of a written frame, read back as the driver reads it
+    (BGR / 255) and resized by the driver's transform, its targets by
+    floor-nearest sampling of the full-frame NOCS and mask; the draws from
+    np.random.RandomState(SEED + 3) in JAX's order
+    (make_quality_suite.py:609-637)."""
+    cache = {}
+    for name, _annos, _nocs, _mask in frames_meta:
+        img = kitti_mod.read_bgr(
+            os.path.join(tree, "training", "image_2", f"{name}.png"))
+        cache[name] = img.astype(np.float32) / 255.0
+    rng = np.random.RandomState(SEED + 3)
+    flat = [(name, a, nocs, mask)
+            for name, annos, nocs, mask in frames_meta for a in annos]
+
+    def sample():
+        name, anno, full_nocs, full_mask = flat[rng.randint(len(flat))]
+        l, t_, r, b = anno["bbox"]
+        jl = np.clip(l + rng.randint(-jitter, jitter + 1), 0, IMG_W - 2)
+        jt = np.clip(t_ + rng.randint(-jitter, jitter + 1), 0, IMG_H - 2)
+        jr = np.clip(r + rng.randint(-jitter, jitter + 1), jl + 2, IMG_W - 1)
+        jb = np.clip(b + rng.randint(-jitter, jitter + 1), jt + 2, IMG_H - 1)
+        crop, _ = refine_pipe.transform_bgr_crop(cache[name][jt:jb, jl:jr],
+                                                 device=device)
+        ch, cw = jb - jt, jr - jl
+        ys = (np.arange(128) * ch // 128).clip(max=ch - 1)
+        xs = (np.arange(128) * cw // 128).clip(max=cw - 1)
+        nocs128 = full_nocs[:, jt + ys[:, None], jl + xs[None, :]]
+        mask128 = full_mask[jt + ys[:, None], jl + xs[None, :]]
+        bins = np.clip(np.round(nocs128 * 255), 0, 255).astype(np.int32)
+        bins = bins * mask128[None].astype(np.int32)
+        return crop, bins, mask128.astype(np.int32), anno["latent"]
+
+    return sample
+
+
+def suite_css_loss(pred: dict, bins: torch.Tensor, mask: torch.Tensor,
+                   latent: torch.Tensor) -> torch.Tensor:
+    """The suite training's loss (make_quality_suite.py:652-661), not
+    engine/css_train.py's: one NLL of each NOCS head's log-softmax over all
+    B x 128 x 128 pixels against its bins times the mask (the logits are
+    not masked), the mask head's NLL with weight 1, and 10 x the latent's
+    MSE. Each NLL is the mean cross-entropy of the head's raw logits,
+    kernel 5 on the card."""
+    ce = ce_cuda.fused_cross_entropy
+    nll = ce(pred["u_raw"], bins[:, 0])
+    nll = nll + ce(pred["v_raw"], bins[:, 1])
+    nll = nll + ce(pred["w_raw"], bins[:, 2])
+    nll = nll + ce(pred["mask"], mask)
+    return nll + 10.0 * torch.mean(torch.square(pred["latent"] - latent))
+
+
+def css_step(model: css_mod.CSSNet, opt: css_train.Adam, batch
+             ) -> torch.Tensor:
+    """One Adam step of the suite's training on a batch (the stacked
+    crops, bins, masks and latents of :func:`crop_sampler`, on the
+    model's device); returns the loss (0-dim, not read back)."""
+    pred = model(batch[0], decode=False)
+    loss = suite_css_loss(pred, *batch[1:])
+    opt.zero_grad()
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def stack_batch(samples, device) -> tuple:
+    """:func:`crop_sampler`'s samples as one batch on `device`."""
+    xs, tbs, tms, tls = zip(*samples)
+    return (torch.stack(xs).to(device),
+            torch.as_tensor(np.stack(tbs), device=device),
+            torch.as_tensor(np.stack(tms), device=device),
+            torch.as_tensor(np.stack(tls), dtype=torch.float32,
+                            device=device))
+
+
+def train_suite_css(frames_meta, tree: str, width: int = 16,
+                    steps: int = 4000, batch: int = 8, jitter: int = 3,
+                    init: dict | None = None, device="cuda",
+                    log_every: int = 250):
+    """Train the suite's CSSNet (make_quality_suite.py:602-678): every
+    parameter (nothing frozen), BatchNorm on the batch statistics, Adam
+    at 1e-3 in optax's order, `steps` batches of :func:`crop_sampler`.
+    `init` (flax variables {'params', 'batch_stats'}) is the start; None
+    draws one from a generator seeded with SEED. Returns the trained net
+    (in train mode) and the loss of every step as a (steps,) tensor."""
+    device = refine_mod._device(device)
+    _no_tf32()
+    if init is None:
+        model = css_mod.init_params(css_mod.CSSNet(width=width),
+                                    torch.Generator().manual_seed(SEED))
+    else:
+        model = css_mod.params_from_jax(init, width)
+    model = model.to(device).train()
+    opt = css_train.Adam(model.named_parameters(), LR)
+    sample = crop_sampler(frames_meta, tree, jitter, device)
+    losses = []
+    for i in range(steps):
+        losses.append(css_step(model, opt, stack_batch(
+            [sample() for _ in range(batch)], device)))
+        if i % log_every == 0:
+            print(f"  css train step {i}: loss {float(losses[-1]):.4f}",
+                  flush=True)
+    losses = torch.stack(losses) if losses else torch.zeros(0)
+    if steps:
+        print(f"  css train final: loss {float(losses[-1]):.4f}",
+              flush=True)
+    return model, losses
+
+
+def save_css(path: str, model: css_mod.CSSNet) -> None:
+    """The net as flax msgpack, where the JAX package's
+    pipelines/train_css.py::load_checkpoint and the driver read it."""
+    flax_msgpack.save(path, css_mod.state_to_flax(model))
+
+
+# ---------------------------------------------------------------- the CLI
+
+def check_nets_out(path: str) -> str:
+    """`path`, refused where it resolves into the committed nets."""
+    real = os.path.realpath(path)
+    for committed in {os.path.realpath(NETS),
+                      os.path.realpath(os.path.join("data",
+                                                    "quality_nets"))}:
+        if real == committed or real.startswith(committed + os.sep):
+            raise ValueError(f"--nets-out {path}: the committed nets in "
+                             f"{committed} are never written; choose "
+                             "another directory")
+    return path
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--frames", type=int, default=72)
-    ap.add_argument("--out", default="data/quality_suite_v2")
+    ap.add_argument("--profile", choices=("v1", "v2"), default="v1",
+                    help="v1: 1-3 disjoint cars a frame; v2: the six "
+                         "conditions (occlusion, truncation, distance, "
+                         "sparse LIDAR), difficulties 0-2")
+    ap.add_argument("--frames", type=int, default=0,
+                    help="0 = the profile's default (v1: 60, v2: 72)")
+    ap.add_argument("--css-steps", type=int, default=0,
+                    help="0 = the profile's default (v1: 4000, v2: 6000)")
+    ap.add_argument("--fit-steps", type=int, default=FIT_STEPS)
+    ap.add_argument("--css-width", type=int, default=0,
+                    help="0 = the profile's default (v1: 16, v2: 24)")
+    ap.add_argument("--weak-steps", type=int, default=0,
+                    help="also train an undertrained weak CSS net with "
+                         "this many steps (suggested 800)")
+    ap.add_argument("--skip-fit", action="store_true",
+                    help="build the frames from the committed "
+                         "deepsdf_quality.pt")
+    ap.add_argument("--skip-css", action="store_true",
+                    help="train no CSS net (the committed ones label)")
+    ap.add_argument("--out", default=None,
+                    help="the suite's directory (v1: data/quality_suite, "
+                         "v2: data/quality_suite_v2)")
+    ap.add_argument("--nets-out", default=NETS_OUT,
+                    help="where fitted and trained nets are written; "
+                         "never data/quality_nets")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    meta = build_suite(args.out, args.frames, args.device)
+
+    prof = PROFILES[args.profile]
+    out = args.out or prof["out"]
+    nets_out = check_nets_out(args.nets_out)
+    n_frames = args.frames or prof["frames"]
+    css_steps = args.css_steps or prof["css_steps"]
+    css_width = args.css_width or prof["css_width"]
+    device = refine_mod._device(args.device)
+    seconds = {}
+
+    t0 = time.perf_counter()
+    if args.skip_fit:
+        print("loading the committed DeepSDF ...", flush=True)
+        dcfg, dparams = deepsdf.load_torch_checkpoint(
+            os.path.join(NETS, "deepsdf_quality.pt"), device=device)
+    else:
+        print("fitting the 4-shape DeepSDF ...", flush=True)
+        dcfg, dparams, _ = fit_deepsdf(args.fit_steps, device=device)
+        os.makedirs(nets_out, exist_ok=True)
+        deepsdf.save_torch_checkpoint(
+            os.path.join(nets_out, "deepsdf_quality.pt"), dcfg, dparams)
+    seconds["fit"] = time.perf_counter() - t0
+
+    print(f"generating {n_frames} frames ({args.profile}) ...", flush=True)
+    t0 = time.perf_counter()
+    rend = Renderer(deepsdf.sdf_fn(dcfg, dparams), device)
+    frames_meta, conditions = build_frames(out, n_frames, rend,
+                                           args.profile)
+    seconds["frames"] = time.perf_counter() - t0
+    n_obj = sum(len(m[1]) for m in frames_meta)
+    print(f"suite: {len(frames_meta)} frames, {n_obj} objects, difficulty "
+          f"tiers {difficulty_counts(m[1] for m in frames_meta)}",
+          flush=True)
+
+    suffix = prof["suffix"]
+    nets = [(f"css_quality{suffix}.msgpack", css_steps, "css")]
+    if args.skip_css:
+        nets = []
+    if args.weak_steps:
+        nets.append((f"css_quality{suffix}_weak.msgpack", args.weak_steps,
+                     "css_weak"))
+    for fname, steps, key in nets:
+        print(f"training the suite CSSNet ({fname}, {steps} steps) ...",
+              flush=True)
+        t0 = time.perf_counter()
+        model, _ = train_suite_css(frames_meta, out, width=css_width,
+                                   steps=steps, device=device)
+        os.makedirs(nets_out, exist_ok=True)
+        save_css(os.path.join(nets_out, fname), model)
+        seconds[key] = time.perf_counter() - t0
+    meta = write_meta(out, args.profile, frames_meta, conditions,
+                      css_width, f"css_quality{suffix}_weak.msgpack"
+                      if args.weak_steps else None)
     print(f"suite: {meta['frames']} frames, {meta['objects']} objects, "
-          f"difficulty tiers {meta['difficulty_tiers']}, written to "
-          f"{args.out}")
+          f"written to {out}, nets to {nets_out}; seconds "
+          f"{json.dumps({k: round(v, 3) for k, v in seconds.items()})}",
+          flush=True)
+    return meta, seconds
 
 
 if __name__ == "__main__":

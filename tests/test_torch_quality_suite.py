@@ -1,49 +1,57 @@
 """The port's quality-suite builder (tools/quality_suite.py) against
-scripts/make_quality_suite.py --profile v2 on its first two frames (the
-clean and the occluded condition), both from the committed quality
-DeepSDF: the written labels to the 1e-4 their four decimals carry (the
-boxes exactly), >= 99.5% of image bytes equal (a footprint bit may flip at
-a disc's edge), the same LIDAR point counts and the same suite_meta.json."""
+scripts/make_quality_suite.py on the first two frames of each profile
+(v2: the clean and the occluded condition; v1: two frames of 1-3 disjoint
+cars), both from the committed quality DeepSDF (``--skip-fit
+--skip-css``, so that neither writes a net): the written labels to the
+1e-4 their four decimals carry (the boxes exactly), >= 99.5% of image
+bytes equal (a footprint bit may flip at a disc's edge), the same LIDAR
+point counts and the same suite_meta.json."""
 
 import json
 import os
-import sys
+import pathlib
 
 import numpy as np
 import pytest
 
 from sdflabel_tpu_torch.data import kitti as tkitti
 from sdflabel_tpu_torch.tools import quality_suite
+from torch_parity_util import few_threads  # noqa: F401 (autouse)
+from torch_parity_util import jax_quality_suite, shared_jax_quality_suite
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_FRAMES = 2
+
+
+def _jax_suite(tmp_path_factory, profile):
+    if profile == "v1":  # shared with test_torch_quality_css.py
+        root, _ = shared_jax_quality_suite(tmp_path_factory, profile,
+                                           N_FRAMES)
+    else:
+        root, _ = jax_quality_suite(
+            tmp_path_factory.mktemp(f"jax_{profile}"), profile, N_FRAMES)
+    return pathlib.Path(root)
+
+
+def _torch_suite(tmp_path_factory, profile):
+    troot = tmp_path_factory.mktemp(f"torch_suite_{profile}") / "suite"
+    quality_suite.main(["--profile", profile, "--frames", str(N_FRAMES),
+                        "--skip-fit", "--skip-css", "--out", str(troot),
+                        "--device", "cpu"])
+    return troot
 
 
 @pytest.fixture(scope="module")
 def suites(tmp_path_factory):
-    """(JAX's suite dir, the port's suite dir)."""
-    jroot = tmp_path_factory.mktemp("jax_suite")
-    os.makedirs(jroot / "data")
-    os.symlink(os.path.join(REPO, "data", "quality_nets"),
-               jroot / "data" / "quality_nets")
-    sys.path.insert(0, os.path.join(REPO, "scripts"))
-    try:
-        import make_quality_suite as mqs
-    finally:
-        sys.path.remove(os.path.join(REPO, "scripts"))
-    cwd, argv = os.getcwd(), sys.argv
-    try:
-        os.chdir(jroot)
-        sys.argv = ["make_quality_suite.py", "--profile", "v2", "--frames",
-                    str(N_FRAMES), "--skip-fit", "--skip-css"]
-        mqs.main()
-    finally:
-        os.chdir(cwd)
-        sys.argv = argv
-    troot = tmp_path_factory.mktemp("torch_suite") / "suite"
-    quality_suite.main(["--frames", str(N_FRAMES), "--out", str(troot),
-                        "--device", "cpu"])
-    return jroot / "data" / "quality_suite_v2", troot
+    """(JAX's v2 suite dir, the port's v2 suite dir)."""
+    return (_jax_suite(tmp_path_factory, "v2"),
+            _torch_suite(tmp_path_factory, "v2"))
+
+
+@pytest.fixture(scope="module")
+def suites_v1(tmp_path_factory):
+    """(JAX's v1 suite dir, the port's v1 suite dir)."""
+    return (_jax_suite(tmp_path_factory, "v1"),
+            _torch_suite(tmp_path_factory, "v1"))
 
 
 def _labels(root, name):
@@ -52,9 +60,7 @@ def _labels(root, name):
         return [line.split() for line in f.read().splitlines()]
 
 
-@pytest.mark.parametrize("frame", range(N_FRAMES))
-def test_frames_match_jax(suites, frame):
-    jroot, troot = suites
+def _check_frame(jroot, troot, frame):
     name = f"{frame:06d}"
     jl, tl = _labels(jroot, name), _labels(troot, name)
     assert len(tl) == len(jl) > 0
@@ -81,14 +87,35 @@ def test_frames_match_jax(suites, frame):
         assert f.read() == jc
 
 
-def test_split_and_meta_match_jax(suites):
-    jroot, troot = suites
-    for rel in (("mv3d_kitti_split", "trainval.txt"),):
-        with open(os.path.join(jroot, *rel)) as f, \
-                open(os.path.join(troot, *rel)) as g:
-            assert g.read() == f.read()
+def _check_split_and_meta(jroot, troot):
+    rel = ("mv3d_kitti_split", "trainval.txt")
+    with open(os.path.join(jroot, *rel)) as f, \
+            open(os.path.join(troot, *rel)) as g:
+        assert g.read() == f.read()
     with open(jroot / "suite_meta.json") as f, \
             open(troot / "suite_meta.json") as g:
         jm, tm = json.load(f), json.load(g)
     assert tm == jm
+    return tm
+
+
+@pytest.mark.parametrize("frame", range(N_FRAMES))
+def test_frames_match_jax(suites, frame):
+    _check_frame(*suites, frame)
+
+
+def test_split_and_meta_match_jax(suites):
+    tm = _check_split_and_meta(*suites)
     assert tm["conditions"] == {"000000": "clean", "000001": "occluded"}
+
+
+@pytest.mark.parametrize("frame", range(N_FRAMES))
+def test_v1_frames_match_jax(suites_v1, frame):
+    _check_frame(*suites_v1, frame)
+
+
+def test_v1_split_and_meta_match_jax(suites_v1):
+    tm = _check_split_and_meta(*suites_v1)
+    assert tm["profile"] == "v1" and tm["css_width"] == 16
+    assert tm["conditions"] == {"000000": "clean", "000001": "clean"}
+    assert tm["weak_css"] is None

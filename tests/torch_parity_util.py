@@ -1,9 +1,17 @@
 """Helpers shared by the tests that hold sdflabel_tpu_torch against
 sdflabel_tpu: both packages take the same numpy inputs."""
 
+import fcntl
+import os
+import pickle
+import shutil
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 
 def jax_tree_to_numpy(tree):
@@ -47,3 +55,92 @@ class JaxRankSource:
         self.key, sub = jax.random.split(self.key)
         return torch.as_tensor(jax_ransac_ranks(sub, num_valid,
                                                 self.num_hypotheses))
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+QUALITY_TREES = {"v1": "quality_suite", "v2": "quality_suite_v2"}
+
+
+def make_quality_suite_module():
+    """scripts/make_quality_suite.py as a module."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    try:
+        import make_quality_suite
+    finally:
+        sys.path.remove(os.path.join(REPO, "scripts"))
+    return make_quality_suite
+
+
+def jax_quality_suite(work, profile: str, n_frames: int):
+    """Run scripts/make_quality_suite.py --profile `profile` --frames
+    `n_frames` --skip-fit --skip-css in the directory `work`, whose
+    data/quality_nets links to the committed nets: the run only reads
+    them (without --skip-fit or --skip-css it would write through the
+    link). Returns the suite's directory and the frames its frame builder
+    returned, as (name, annotations, full-frame NOCS, mask) tuples."""
+    mqs = make_quality_suite_module()
+    os.makedirs(os.path.join(work, "data"))
+    os.symlink(os.path.join(REPO, "data", "quality_nets"),
+               os.path.join(work, "data", "quality_nets"))
+    built = []
+    builders = {"v1": "build_frame", "v2": "build_frame_v2"}
+    original = getattr(mqs, builders[profile])
+
+    def spy(*args, **kw):
+        out = original(*args, **kw)
+        if out is not None:
+            built.append(out)
+        return out
+
+    cwd, argv, tree = os.getcwd(), sys.argv, mqs.TREE
+    try:
+        os.chdir(work)
+        setattr(mqs, builders[profile], spy)
+        # main() points the module's TREE at the v2 tree and leaves it
+        # there; v1 writes to the module's default
+        mqs.TREE = os.path.join("data", QUALITY_TREES["v1"])
+        sys.argv = ["make_quality_suite.py", "--profile", profile,
+                    "--frames", str(n_frames), "--skip-fit", "--skip-css"]
+        mqs.main()
+    finally:
+        os.chdir(cwd)
+        sys.argv = argv
+        mqs.TREE = tree
+        setattr(mqs, builders[profile], original)
+    frames = [(f"{i:06d}", out[2], out[3], out[4])
+              for i, out in enumerate(built)]
+    return os.path.join(work, "data", QUALITY_TREES[profile]), frames
+
+
+def shared_jax_quality_suite(tmp_path_factory, profile: str, n_frames: int):
+    """:func:`jax_quality_suite` made once a test session: the first test
+    process to ask builds it in the session's shared temporary directory
+    (under xdist the workers' common parent), the others wait for it and
+    read it. Returns what jax_quality_suite returns."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    name = f"jax_quality_{profile}_{n_frames}"
+    work, done = root / name, root / f"{name}.pkl"
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not done.exists():
+            if work.exists():
+                shutil.rmtree(work)
+            built = jax_quality_suite(str(work), profile, n_frames)
+            with open(f"{done}.tmp", "wb") as f:
+                pickle.dump(built, f)
+            os.replace(f"{done}.tmp", done)
+        with open(done, "rb") as f:
+            return pickle.load(f)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """At most 2 torch threads in the module that imports this fixture:
+    small CPU operators slow down many times over when the parallel test
+    workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
