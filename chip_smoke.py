@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Ten phases and their parts; any failure exits non-zero and no phase's
+Eleven phases and their parts; any failure exits non-zero and no phase's
 error is caught
 (phase 8 alone halves its batch on running out of card memory, and says
 so).
@@ -98,7 +98,15 @@ so).
    grid through kernel 3, a slice of the band, and renders half the
    pixel rows through 1a and 1b) the first two losses of the one rank
    within 1e-4 relative, kernels 1a, 1b, 2 and 3 launched on each rank;
-   the label gap beside 4d's lanes'. (4i, in the same spawn) 4d's four
+   the label gap beside 4d's lanes'. 4h, binned, in the same spawns: the
+   rays render of 4096 seeded surfels at 128x96 px (6144 px a block on
+   two ranks, the row-binned route) with the gradients of sum(image^2),
+   against the unsharded render on the card (the image within 1e-5, the
+   gradients within 1e-4 of their largest element), and phase 4b's crop
+   (rendering area 96, the demo decoder) refined for 10 iterations over
+   the rays axis: the first loss on one rank within 1e-5 relative of
+   phase 4b's, the first two on two ranks within 1e-4 of one rank's; the
+   bins, 1c and 1d launched on every rank. (4i, in the same spawn) 4d's four
    crops through ``make_batched_refine(mesh=)`` with data = 2, two lanes
    a rank: labels within 1e-3 of 4d's (bit-equality expected and
    printed).
@@ -178,6 +186,17 @@ so).
    parameters within 1e-5 and all within 2 lr, the statistics within
    1e-4 / 1e-5); the written nets read back by the driver's loaders
    equal to the trained ones.
+11. The demo's assets remade (run after phase 10): ``tools/demo_assets.py``
+   at JAX's defaults but for the CSS steps (2500 fit steps of the 3x64
+   decoder, the scene rendered through the bins kernel and 1c, 500 of
+   JAX's 800 CSS steps at width 8, batch 4 through kernel 5) under the
+   run's temporary directory. The
+   scene's crop box, visible points, NOCS image and label against the same
+   scene on the CPU from the fitted decoder; one fit step and one CSS
+   step card against CPU (phase 10's criteria); the assets read back by
+   the driver's loaders equal to what was made; ``refine_css_demo`` on
+   them for 60 iterations: the label within phase 3's criterion of the
+   remade ground truth (location < 0.1 m, yaw < 0.05 rad).
 
 Each kernel's launches are counted on the path that runs it (set to 0
 just before the path, read just after): the dense splat, NN and selection
@@ -185,11 +204,13 @@ kernels in phase 4, the stage-2 kernels in 4c, the binned backward in 4b,
 the bins and the binned forward in 5 and the CE kernels in 6 (and in
 6b and 6c, given under ``launches_by_path``, with the bins and 1c on
 phase 10's v1 frames, ``suite_v1``, and the CE kernels on its CSS
-training, ``suite_css``); the
+training, ``suite_css``; the bins, 1c and the CE kernels on phase 11's
+remake, ``demo_assets``); the
 record of each crop-axis kernel also gives its launches in 4d (4f for
 4a and 4b, 4g for the binned trio), and
 ``launches_by_path`` those on the paths of 3b (the viz), 4e and 9, and
-by rank those of the rays axis (4h) and the data axis (4i). The line
+by rank those of the rays axis (4h, the binned trio included) and the
+data axis (4i). The line
 before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Without a card
 the script exits 2 and prints no result. ``--profile DIR`` adds one more
@@ -202,7 +223,7 @@ designs of the dense splat backward and the nearest neighbour, and phase
 4c's crop
 with the new designs and with the first splat forward and the wmma 4b,
 for comparison; then the train step timed with cuDNN's autotuner on. ``--rehearse-cpu`` runs phases
-3 to 10 on the CPU at a tiny size (2 iterations, 2 suite frames) with the
+3 to 11 on the CPU at a tiny size (2 iterations, 2 suite frames) with the
 kernels' plain versions, then exits 3 without a result: a dry run of the
 control flow for machines without a card (4d, 4h and 4i included).
 """
@@ -244,6 +265,7 @@ from sdflabel_tpu_torch.ops import (  # noqa: E402
     splat, splat_cuda)
 from sdflabel_tpu_torch.parallel import batched_refine  # noqa: E402
 from sdflabel_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
+from sdflabel_tpu_torch.parallel import rays as rays_mod  # noqa: E402
 from sdflabel_tpu_torch.parallel import sharded_refine  # noqa: E402
 from sdflabel_tpu_torch.pipelines import evaluate_dump  # noqa: E402
 from sdflabel_tpu_torch.pipelines import make_crops as crops_pipe  # noqa: E402
@@ -252,6 +274,7 @@ from sdflabel_tpu_torch.pipelines import render_demo  # noqa: E402
 from sdflabel_tpu_torch.pipelines import train_css as train_pipe  # noqa: E402
 from sdflabel_tpu_torch.pipelines import train_deepsdf as dsdf_pipe  # noqa: E402
 from sdflabel_tpu_torch.renderer import rasterer  # noqa: E402
+from sdflabel_tpu_torch.tools import demo_assets  # noqa: E402
 from sdflabel_tpu_torch.tools import quality_suite  # noqa: E402
 from sdflabel_tpu_torch.utils import png  # noqa: E402
 
@@ -2390,7 +2413,8 @@ def binned_refine_phase(dev, rt_demo, sample, anno, iters: int = 10):
           f"{loss[0]:.5f} -> {loss[-1]:.5f}, launches {launched}")
     assert np.isfinite(loss[applied]).all()
     assert all(torch.isfinite(t).all() for t in final)
-    summary = dict(wall_s=wall, iters=iters, px=h * w)
+    summary = dict(wall_s=wall, iters=iters, px=h * w, loss0=float(loss[0]),
+                   loss1=float(loss[1]) if iters > 1 else None)
     if dev.type == "cuda":
         assert launched["splat_fwd_binned"] == launched["splat_bwd_binned"] \
             == launched["splat_bins"] == iters
@@ -2399,7 +2423,7 @@ def binned_refine_phase(dev, rt_demo, sample, anno, iters: int = 10):
             dev, rt.surface_capacity, (h, w), backward=True)
         print_render_launches("binned refine", rt.surface_capacity, (h, w),
                               summary["render_launches"])
-    return launched, summary
+    return launched, summary, prep
 
 
 def print_render_launches(label: str, n: int, res: tuple,
@@ -2414,6 +2438,9 @@ def print_render_launches(label: str, n: int, res: tuple,
 # ------------------------------------------------------ phases 4h and 4i
 
 RAYS_KERNELS = ("splat_fwd", "splat_bwd", "nn", "select_mlp")
+BINNED_KERNELS = ("splat_bins", "splat_fwd_binned", "splat_bwd_binned")
+BINNED_OUT = ("img", "g_pose", "g_pts")
+RAYS_BINNED_RES = (128, 96)  # 6144 px a block on two ranks
 
 
 def _cpu_prep(prep: dict) -> dict:
@@ -2475,7 +2502,52 @@ def rays_rank(rank: int, out_dir: str, job: dict) -> None:
         out["data"] = dict(final=[p.cpu() for p in final],
                            ext=[t.cpu() for t in ext], wall_s=wall,
                            launches=launched)
+    if job.get("binned") is not None:
+        out["binned"] = binned_rays_work(dev, rays, job["binned"], timed)
     torch.save(out, os.path.join(out_dir, f"rays_{rank}.pt"))
+
+
+def binned_rays_work(dev, rays, job: dict, timed) -> dict:
+    """The binned part of a rays_rank (4h, binned): the rays render of
+    job['render'] at a size whose blocks take the row-binned route, with
+    the gradients of sum(image^2) in the pose and the points; then phase
+    4b's crop (job['prep'], the demo runtime at rendering_area = 96)
+    refined over the rays axis. Each with its wall time and launches."""
+    r = job["render"]
+    render = rays_mod.make_rays_sharded_render(rays, r["K"], r["res"])
+    pose = torch.as_tensor(r["pose"], device=dev).requires_grad_(True)
+    pts = torch.as_tensor(r["pts"], device=dev).requires_grad_(True)
+
+    def draw():
+        img = render(pts, torch.as_tensor(r["normals"], device=dev), pose,
+                     torch.as_tensor(r["mask"], device=dev))
+        img.square().sum().backward()
+        return img
+
+    draw()  # warm-up
+    pose.grad = pts.grad = None
+    img, wall, launched = timed(draw)
+    out = {"render": dict(img=img.detach().cpu(), g_pose=pose.grad.cpu(),
+                          g_pts=pts.grad.cpu(), wall_s=wall,
+                          launches=launched)}
+    dcfg, dparams = deepsdf.load_torch_checkpoint(job["dsdf"], device=dev)
+    rt = pipe.RefineRuntime(job["cfg"], css_mod.CSSNet(width=8), dcfg,
+                            dparams, device=dev)
+    prep = job["prep"]
+
+    def sharded(iters):
+        return sharded_refine.make_sharded_refine_fn(
+            rt.decoder, dataclasses.replace(rt.refine_config(), iters=iters),
+            rt.grid_points, prep["intrinsics"], prep["crop_hw"], rays,
+            select_decoder=rt.select_decoder, device=dev)
+
+    args = (prep["params0"], prep["nocs_target"], prep["frustum"],
+            prep["fmask"])
+    sharded(1)(*args)  # warm-up
+    (final, hist), wall, launched = timed(sharded(rt.cfg.iters), *args)
+    out["refine"] = dict(final=[p.cpu() for p in final], hist=hist.cpu(),
+                         wall_s=wall, launches=launched)
+    return out
 
 
 def _run_rays(out_dir: str, job: dict, world: int, backend: str):
@@ -2493,6 +2565,14 @@ def _run_rays(out_dir: str, job: dict, world: int, backend: str):
         if "data" in r:
             tensors.append((r["data"]["final"] + r["data"]["ext"],
                             res[0]["data"]["final"] + res[0]["data"]["ext"]))
+        if "binned" in r:
+            got, want = r["binned"], res[0]["binned"]
+            tensors.append(([got["render"][k] for k in BINNED_OUT]
+                            + got["refine"]["final"]
+                            + [got["refine"]["hist"]],
+                            [want["render"][k] for k in BINNED_OUT]
+                            + want["refine"]["final"]
+                            + [want["refine"]["hist"]]))
         for got, want in tensors:
             assert all(torch.equal(a, b) for a, b in zip(got, want))
     return res[0], res, time.perf_counter() - t0
@@ -2508,8 +2588,90 @@ def _sharded_label(rt512, final, sample, anno):
                              anno)
 
 
+def binned_rays_job(rt_demo, prep: dict, iters: int) -> dict:
+    """4h's binned inputs: a render of 4096 seeded surfels at
+    RAYS_BINNED_RES, and phase 4b's prepared crop with its runtime's
+    config (the demo's at rendering_area = 96) and decoder."""
+    rng = np.random.RandomState(0)
+    n = 4096
+    normals = rng.randn(n, 3).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = [0, 0, 5]
+    render = dict(K=rasterer.calibration_matrix(RAYS_BINNED_RES),
+                  res=RAYS_BINNED_RES,
+                  pts=rng.uniform(-1, 1, (n, 3)).astype(np.float32),
+                  normals=normals, pose=pose,
+                  mask=rng.uniform(size=n) > 0.2)
+    return dict(render=render, prep=_cpu_prep(prep),
+                cfg=dataclasses.replace(rt_demo.cfg, rendering_area=96,
+                                        iters=iters),
+                dsdf=os.path.join(ROOT, "data", "optimization",
+                                  "deepsdf_demo.pt"))
+
+
+def _unsharded_render(dev, r: dict) -> tuple[dict, dict]:
+    """The rays job's render unsharded on `dev` (rasterer.render), with the
+    gradients of sum(image^2) and its launches."""
+    pose = torch.as_tensor(r["pose"], device=dev).requires_grad_(True)
+    pts = torch.as_tensor(r["pts"], device=dev).requires_grad_(True)
+    normals = torch.as_tensor(r["normals"], device=dev)
+    reset_counts()
+    rendering, _ = rasterer.render(
+        torch.as_tensor(r["K"], device=dev), r["res"], pts, normals, normals,
+        pose, point_mask=torch.as_tensor(r["mask"], device=dev), rot="dcm",
+        output_nocs=True)
+    rendering.color.square().sum().backward()
+    launched = counts()
+    return dict(img=rendering.color.detach().cpu(), g_pose=pose.grad.cpu(),
+                g_pts=pts.grad.cpu()), launched
+
+
+def _binned_rays_checks(dev, runs: dict, binned: dict, job: dict) -> dict:
+    """4h, binned: the rays render of each run (1 rank, 2 ranks) against
+    the unsharded render on the same device (the image within 1e-5, the
+    gradients within 1e-4 of their largest element), the sharded refine's
+    first loss on 1 rank within 1e-5 relative of phase 4b's and the first
+    two on 2 ranks within 1e-4 of 1 rank's; the bins, 1c and 1d launched
+    on every rank for both."""
+    ref, ref_launched = _unsharded_render(dev, job["render"])
+    w, h = RAYS_BINNED_RES
+    out = dict(res=[w, h], unsharded_launches=ref_launched)
+    for name, ranks in runs.items():
+        first = ranks[0]["binned"]
+        gaps = {k: float((first["render"][k] - ref[k]).abs().max()
+                         / (1.0 if k == "img" else ref[k].abs().max()))
+                for k in BINNED_OUT}
+        hist = first["refine"]["hist"].numpy()
+        by_rank = {f"{part}:{k}": [r["binned"][part]["launches"][k]
+                                   for r in ranks]
+                   for part in ("render", "refine") for k in BINNED_KERNELS}
+        out[name] = dict(
+            block_px=w * h // len(ranks), render_gaps=gaps,
+            render_ms=first["render"]["wall_s"] * 1e3,
+            losses=hist[:2].tolist(),
+            refine_ms_per_iteration=first["refine"]["wall_s"] / len(hist)
+            * 1e3, launches_by_rank=by_rank)
+        assert gaps["img"] <= 1e-5 and max(gaps["g_pose"],
+                                           gaps["g_pts"]) <= 1e-4, gaps
+        assert all(torch.isfinite(t).all() for t in first["refine"]["final"])
+        if dev.type == "cuda":
+            for k, n in by_rank.items():
+                assert all(x > 0 for x in n), (name, k, n)
+    loss1, loss2 = out["1 rank"]["losses"], out["2 ranks"]["losses"]
+    out["rel_first_loss_1rank_vs_4b"] = abs(loss1[0] - binned["loss0"]) \
+        / abs(binned["loss0"])
+    out["rel_first_losses_2ranks"] = [abs(a - b) / abs(b)
+                                      for a, b in zip(loss2, loss1)]
+    print(f"4h, binned: {json.dumps(out)}")
+    assert out["rel_first_loss_1rank_vs_4b"] <= 1e-5, out
+    assert max(out["rel_first_losses_2ranks"]) <= 1e-4, out
+    return out
+
+
 def rays_data_phases(dev, out_dir: str, rt512, sample, prep, full: dict,
-                     batched: dict) -> tuple[dict, dict]:
+                     batched: dict, binned_job: dict, binned: dict
+                     ) -> tuple[dict, dict]:
     """Phases 4h and 4i: phase 4's crop and runtime (the 8x512 decoder, the
     stock config, the selection kernel, the float16 -> bf16 decode) over
     the ranks of parallel/mesh.py, the parent having built every kernel.
@@ -2533,9 +2695,9 @@ def rays_data_phases(dev, out_dir: str, rt512, sample, prep, full: dict,
     rays_dir = os.path.join(out_dir, "rays")
     os.makedirs(rays_dir, exist_ok=True)
     job = dict(devices=[here], stock=rt512.cfg, prep=_cpu_prep(prep),
-               crops=None)
+               crops=None, binned=binned_job)
     backend1 = "nccl" if cuda else "gloo"
-    one, _, secs1 = _run_rays(rays_dir, job, 1, backend1)
+    one, every1, secs1 = _run_rays(rays_dir, job, 1, backend1)
     loss1 = one["rays"]["hist"].numpy()
     rel0 = abs(float(loss1[0]) - full["loss0"]) / abs(full["loss0"])
     label1 = _sharded_label(rt512, one["rays"]["final"], sample, anno)
@@ -2554,7 +2716,8 @@ def rays_data_phases(dev, out_dir: str, rt512, sample, prep, full: dict,
     assert rel0 <= 1e-5, rel0
 
     job = dict(devices=[here] * 2, stock=rt512.cfg, prep=_cpu_prep(prep),
-               crops=[_cpu_prep(c) for c in shifted_crops(prep)])
+               crops=[_cpu_prep(c) for c in shifted_crops(prep)],
+               binned=binned_job)
     two, every, secs2 = _run_rays(rays_dir, job, 2, "gloo")
     loss2 = two["rays"]["hist"].numpy()
     rel = [abs(float(a) - float(b)) / abs(float(b))
@@ -2579,13 +2742,15 @@ def rays_data_phases(dev, out_dir: str, rt512, sample, prep, full: dict,
     if cuda:
         for k, n in by_rank.items():
             assert all(x > 0 for x in n), (k, n)
+    rays_binned = _binned_rays_checks(
+        dev, {"1 rank": every1, "2 ranks": every}, binned, binned_job)
     rays = dict(rel_first_loss_1rank=rel0, rel_first_losses_2ranks=rel,
                 wall_s_1rank=one["rays"]["wall_s"],
                 wall_s_2ranks=two["rays"]["wall_s"], iters=iters,
                 label_gap_1rank_vs_phase4=gap4, label_gap_2ranks=gap,
                 phase4d_lane_gaps=lanes, launches_by_rank=by_rank,
                 launches_1rank=one["rays"]["launches"],
-                spawn_s=[secs1, secs2])
+                spawn_s=[secs1, secs2], binned=rays_binned)
 
     final, ext = two["data"]["final"], two["data"]["ext"]
     got = [pipe.finish_label(
@@ -2610,7 +2775,11 @@ def rays_data_phases(dev, out_dir: str, rt512, sample, prep, full: dict,
             assert all(x > 0 for x in n), (k, n)
     data = dict(bit_equal=bit_equal, label_gaps=gaps,
                 wall_s=two["data"]["wall_s"], launches_by_rank=data_by_rank)
-    launched = {"rays_sharded": by_rank, "data_mesh": data_by_rank}
+    binned_by_rank = {k: [r["binned"]["render"]["launches"][k]
+                          + r["binned"]["refine"]["launches"][k]
+                          for r in every] for k in BINNED_KERNELS}
+    launched = {"rays_sharded": {**by_rank, **binned_by_rank},
+                "data_mesh": data_by_rank}
     return launched, dict(rays=rays, data_mesh=data)
 
 
@@ -3655,49 +3824,55 @@ def _max_gap(a: dict, b: dict) -> float:
                zip(la, lb))
 
 
-def _fit_step_card_vs_cpu(dev, params, steps: int = 5) -> dict:
-    """From the fitted decoder with a fresh Adam state, `steps` fit steps
-    on the card (draws from a seeded CPU generator), then one more step
-    on the card and on the CPU from that same state and draws: parameters
-    within 1e-5 (1% of the learning rate; the matmuls sum in other
-    orders), the L1 within 1e-6 relative."""
+def _fit_step_card_vs_cpu(dev, params, steps: int = 5, cfg=None,
+                          shapes=quality_suite.SHAPES) -> dict:
+    """From the fitted decoder `cfg` (by default the suite's) with a fresh
+    Adam state, `steps` fit steps on `shapes` on the card (draws from a
+    seeded CPU generator), then one more step on the card and on the CPU
+    from that same state and draws: parameters within 1e-5 (1% of the
+    learning rate; the matmuls sum in other orders), the L1 within 1e-6
+    relative."""
     qs = quality_suite
     gen = torch.Generator().manual_seed(qs.SEED + 5)
     state = qs.fit_state(params)
+
+    def draw():
+        return qs.fit_draw(gen, "cpu", len(shapes))
+
     for _ in range(steps):
-        state, _ = qs.fit_step(state, *(d.to(dev) for d in
-                                        qs.fit_draw(gen, "cpu")))
-    draws = qs.fit_draw(gen, "cpu")
+        state, _ = qs.fit_step(state, *(d.to(dev) for d in draw()), cfg,
+                               shapes)
+    draws = draw()
     cpu_state = qs.FitState(
         deepsdf._map_tree(lambda t: t.cpu(), state.params),
         deepsdf_train.AdamState(
             state.opt.count.cpu(),
             deepsdf._map_tree(lambda t: t.cpu(), state.opt.mu),
             deepsdf._map_tree(lambda t: t.cpu(), state.opt.nu)), state.step)
-    card, l_card = qs.fit_step(state, *(d.to(dev) for d in draws))
-    cpu, l_cpu = qs.fit_step(cpu_state, *draws)
+    card, l_card = qs.fit_step(state, *(d.to(dev) for d in draws), cfg,
+                               shapes)
+    cpu, l_cpu = qs.fit_step(cpu_state, *draws, cfg, shapes)
     gap = _max_gap(card.params, cpu.params)
     rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
     assert gap <= 1e-5 and rel <= 1e-6, (gap, rel)
     return dict(param_gap=gap, l1_rel=rel)
 
 
-def _css_step_card_vs_cpu(dev, frames_meta, suite: str, width: int,
-                          batch: int) -> dict:
-    """One suite-CSS step from the seeded init on the same batch, on the
-    card (cuDNN convolutions without TF32, kernel 5) and on the CPU (the
-    plain cross-entropy): the loss within 1e-4 relative, >= 99.5% of the
-    parameters within 1e-5 and all within 2 lr (Adam's first step is
-    lr x sign(g): the biases that a BatchNorm follows have no true
-    gradient, and their fp32 noise takes either sign), the batch
-    statistics within 1e-4 relative and 1e-5."""
+def _css_step_card_vs_cpu(dev, draw, width: int, batch: int,
+                          seed: int) -> dict:
+    """One CSS step (quality_suite.css_step) from the init seeded with
+    `seed` on the same batch of `draw()`s, on the card (cuDNN convolutions
+    without TF32, kernel 5) and on the CPU (the plain cross-entropy): the
+    loss within 1e-4 relative, >= 99.5% of the parameters within 1e-5 and
+    all within 2 lr (Adam's first step is lr x sign(g): the biases that a
+    BatchNorm follows have no true gradient, and their fp32 noise takes
+    either sign), the batch statistics within 1e-4 relative and 1e-5."""
     qs = quality_suite
-    sample = qs.crop_sampler(frames_meta, suite, device="cpu")
-    samples = [sample() for _ in range(batch)]
+    samples = [draw() for _ in range(batch)]
     out = {}
     for d in (dev, torch.device("cpu")):
         model = css_mod.init_params(css_mod.CSSNet(width=width),
-                                    torch.Generator().manual_seed(qs.SEED))
+                                    torch.Generator().manual_seed(seed))
         model = model.to(d).train()
         opt = css_train.Adam(model.named_parameters(), qs.LR)
         loss = qs.css_step(model, opt, qs.stack_batch(samples, d))
@@ -3775,8 +3950,9 @@ def suite_remake_phase(dev, out_dir: str, small: bool = False):
     assert np.isfinite(css_loss).all()
     # (a rehearsal's 2 steps of 2 crops are too few to fall surely)
     assert small or css_loss[-k:].mean() < css_loss[:k].mean(), css_loss
-    css_check = _css_step_card_vs_cpu(dev, frames_meta, suite, width,
-                                      batch)
+    css_check = _css_step_card_vs_cpu(
+        dev, qs.crop_sampler(frames_meta, suite, device="cpu"), width, batch,
+        qs.SEED)
 
     # written, then read back by the loaders the driver uses
     dsdf_path = os.path.join(nets, "deepsdf_quality.pt")
@@ -3809,6 +3985,155 @@ def suite_remake_phase(dev, out_dir: str, small: bool = False):
         css_steps=css_steps, css_loss_first=float(css_loss[0]),
         css_loss_last=float(css_loss[-1]), fit_card_vs_cpu=fit_check,
         css_card_vs_cpu=css_check, seconds=seconds)
+
+
+# --------------------------------------------------------------- phase 11
+
+# JAX's 800 CSS steps took 101.3 s of the phase's 122.8 s on the H100
+# (126.7 ms a step, held by the host's launches): the phase takes 500
+DEMO_CSS_STEPS = 500
+
+def demo_assets_phase(dev, out_dir: str, small: bool = False):
+    """Phase 11: tools/demo_assets.py remakes the demo's assets on the card
+    (JAX's 2500 fit steps of the 3x64 decoder, the scene, DEMO_CSS_STEPS
+    of JAX's 800 CSS steps at width 8, batch 4) under the run's temporary
+    directory.
+    The scene's crop box, visible points and NOCS image against the same
+    scene rendered on the CPU from the fitted decoder; one fit step and
+    one CSS step card against CPU (phase 10's helpers). The launches on
+    the `demo_assets` path: the bins and 1c once for the scene's render,
+    kernel 5 four times forward and backward a CSS step. The written
+    assets read back by the driver's loaders equal to what was made, then
+    refine_css_demo on them for 60 iterations: the label's gap to the
+    remade ground truth within phase 3's criterion (location < 0.1 m,
+    yaw < 0.05 rad)."""
+    da = demo_assets
+    fit_steps, css_steps, iters = ((20, 2, 2) if small else
+                                   (da.FIT_STEPS, DEMO_CSS_STEPS, None))
+    out = os.path.join(out_dir, "demo_assets")
+    seconds = {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds[key] = time.perf_counter() - t0
+        return res
+
+    dcfg, dparams, fit_l1 = timed("fit", lambda: da.fit_deepsdf(
+        fit_steps, device=dev))
+    fit_l1 = fit_l1.cpu().numpy()
+    k = max(1, fit_steps // 6)
+    assert np.isfinite(fit_l1).all() and fit_l1[-k:].mean() < \
+        fit_l1[:k].mean(), fit_l1
+
+    def scene(device, params):
+        rend = quality_suite.Renderer(deepsdf.sdf_fn(dcfg, params), device,
+                                      da.CAPACITY)
+        crop_box, nocs, mask, vis_cam = da.render_gt(rend)
+        sample = da.build_sample(crop_box, nocs, mask, vis_cam)
+        return (crop_box, nocs, mask, vis_cam, sample,
+                da.gt_label(rend, crop_box, sample))
+
+    reset_counts()
+    crop_box, nocs, mask, vis_cam, sample, anno = timed(
+        "scene", lambda: scene(dev, dparams))
+    scene_launched = counts()
+    cpu_params = deepsdf._map_tree(lambda t: t.cpu(), dparams)
+    c_box, c_nocs, c_mask, c_vis, _, c_anno = scene(torch.device("cpu"),
+                                                     cpu_params)
+    nocs_share = (float((np.abs(nocs - c_nocs) <= 2e-4).all(0).mean())
+                  if nocs.shape == c_nocs.shape else 0.0)
+    mask_share = (float((mask == c_mask).mean())
+                  if mask.shape == c_mask.shape else 0.0)
+    label_gap_cpu = max(float(np.abs(np.asarray(anno[f]) -
+                                     np.asarray(c_anno[f])).max())
+                        for f in ("location", "dimensions", "rotation_y"))
+    vs_cpu = dict(crop_box=list(crop_box), crop_box_cpu=list(c_box),
+                  n_vis=len(vis_cam), n_vis_cpu=len(c_vis),
+                  nocs_within_2e4=nocs_share, mask_equal=mask_share,
+                  label_gap=label_gap_cpu)
+    print(f"11: demo scene card against CPU: {json.dumps(vs_cpu)}")
+    assert tuple(crop_box) == tuple(c_box)
+    assert abs(len(vis_cam) - len(c_vis)) <= 2, vs_cpu
+    assert nocs_share >= 0.995 and mask_share >= 0.995, vs_cpu
+    assert label_gap_cpu <= 1e-5, vs_cpu
+    fit_check = _fit_step_card_vs_cpu(dev, dparams, cfg=dcfg,
+                                      shapes=da.SHAPES)
+
+    reset_counts()
+    model, css_loss = timed("css", lambda: da.train_css(
+        sample, anno, nocs, mask, steps=css_steps, device=dev))
+    css_launched = counts()
+    launched = {k: scene_launched[k] + css_launched[k]
+                for k in scene_launched}
+    css_loss = css_loss.cpu().numpy()
+    k = max(1, css_steps // 4)
+    assert np.isfinite(css_loss).all()
+    assert small or css_loss[-k:].mean() < css_loss[:k].mean(), css_loss
+    css_check = _css_step_card_vs_cpu(
+        dev, da.crop_sampler(sample, anno, nocs, mask, device="cpu"),
+        da.CSS_WIDTH, da.CSS_BATCH, da.SEED)
+
+    # written, read back by the driver's loaders, then refined
+    da.write_assets(out, dcfg, dparams, model, sample, anno,
+                    da.maskrcnn_labels(anno, mask))
+    cfg = cfg_mod.RefineCfg.from_ini(cfg_mod.load_ini(
+        os.path.join(out, "config_demo.ini")))
+    back_sample = pipe.load_demo_sample(out)
+    maskrcnn = pipe.load_demo_maskrcnn(out)
+    assert back_sample["gt"] == [anno]
+    assert all(np.array_equal(back_sample[f], sample[f])
+               for f in ("image", "depth", "lidar"))
+    assert maskrcnn["masks"][0].sum() > 0
+    _, back = deepsdf.load_torch_checkpoint(cfg.deepsdf_path, device=dev)
+    assert _max_gap(back, dparams) == 0.0
+    css_back = css_mod.load_css(cfg.css_path, cfg.css_width, device=dev)
+    trained = model.state_dict()
+    assert all(torch.equal(v, trained[k])
+               for k, v in css_back.state_dict().items())
+    cfg = dataclasses.replace(cfg, viz_type="none",
+                              **({"iters": iters} if iters else {}))
+    rt = pipe.setup_runtime(cfg, device=dev)
+    annos, ests = timed("refine", lambda: pipe.refine_css_demo(
+        cfg, sample=back_sample, device=dev, rt=rt, maskrcnn=maskrcnn))
+    # (a rehearsal's 2 CSS steps may leave RANSAC without a pose)
+    assert small or len(ests["location"]) == 1, ests
+    loc_err = dyaw = float("nan")
+    if len(ests["location"]):
+        loc_err = float(np.linalg.norm(
+            np.asarray(ests["location"][0], float)
+            - np.asarray(anno["location"], float)))
+        dyaw = abs(float(ests["rotation_y"][0]) - anno["rotation_y"])
+        dyaw = min(dyaw, abs(dyaw - 2 * np.pi))
+    print(f"11: demo assets remade: fit {fit_steps} steps L1 "
+          f"{fit_l1[0]:.5f} -> {fit_l1[-1]:.5f}; scene box {list(crop_box)}"
+          f", {len(vis_cam)} visible points, {int(mask.sum())} mask px, "
+          f"GT location {anno['location']}; CSS {css_steps} steps loss "
+          f"{css_loss[0]:.4f} -> {css_loss[-1]:.4f}; card against CPU: fit "
+          f"{json.dumps(fit_check)}, CSS {json.dumps(css_check)}; assets "
+          f"read back equal; refine_css_demo {cfg.iters} iterations: "
+          f"location {np.asarray(ests['location']).tolist()}, "
+          f"|d location| {loc_err:.4f} m, "
+          f"|d yaw| {dyaw:.4f} rad; seconds "
+          f"{json.dumps({k: round(v, 3) for k, v in seconds.items()})}; "
+          f"launches {json.dumps(launched)}")
+    if not small:  # the full 60 iterations land on the annotation
+        assert loc_err < 0.1 and dyaw < 0.05, (loc_err, dyaw)
+    if dev.type == "cuda":
+        assert scene_launched["splat_bins"] == 1
+        assert scene_launched["splat_fwd_binned"] == 1
+        assert css_launched["ce_fwd"] == css_launched["ce_bwd"] \
+            == 4 * css_steps
+    return {"demo_assets": launched}, dict(
+        fit_steps=fit_steps, fit_l1_first=float(fit_l1[0]),
+        fit_l1_last=float(fit_l1[-1]), scene_vs_cpu=vs_cpu,
+        css_steps=css_steps, css_loss_first=float(css_loss[0]),
+        css_loss_last=float(css_loss[-1]), fit_card_vs_cpu=fit_check,
+        css_card_vs_cpu=css_check, refine_iters=cfg.iters,
+        label_location_gap_m=loc_err, label_yaw_gap_rad=dyaw,
+        seconds=seconds)
 
 
 # ------------------------------------------------------- --profile (option)
@@ -3992,7 +4317,7 @@ def profile_all(out_dir: str, rt512, rt_stage2, prep, sample, state, fixed,
 
 def run_paths(dev, out_dir: str, small: bool = False,
               quality_frames: int = 24):
-    """Phases 3 to 10, each timed; `small` cuts them to a CPU rehearsal's
+    """Phases 3 to 11, each timed; `small` cuts them to a CPU rehearsal's
     size. Returns what --profile drives again, the launches of each path
     and its summary."""
     tiny = dict(iters=2) if small else {}
@@ -4031,12 +4356,13 @@ def run_paths(dev, out_dir: str, small: bool = False,
         dev, rt, rt512, sample, prep, iters=1 if small else 10)
     seconds["4g"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    binned_launched, binned = binned_refine_phase(
+    binned_launched, binned, binned_prep = binned_refine_phase(
         dev, rt, sample, prep["anno"], iters=1 if small else 10)
     seconds["4b"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    mesh_launched, meshes = rays_data_phases(dev, out_dir, rt512, sample,
-                                             prep, full, batched)
+    mesh_launched, meshes = rays_data_phases(
+        dev, out_dir, rt512, sample, prep, full, batched,
+        binned_rays_job(rt, binned_prep, iters=1 if small else 10), binned)
     seconds["4h+4i"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     demo9_launched, demo9 = render_demo_phase(dev, out_dir, small=small)
@@ -4090,6 +4416,9 @@ def run_paths(dev, out_dir: str, small: bool = False,
     t0 = time.perf_counter()
     remake_launched, remake = suite_remake_phase(dev, out_dir, small=small)
     seconds["10"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    assets_launched, assets = demo_assets_phase(dev, out_dir, small=small)
+    seconds["11"] = time.perf_counter() - t0
     print(f"phase seconds: {json.dumps(seconds)}")
     launched = {"full_width": full_launched, "binned_refine": binned_launched,
                 "crops": crops_launched, "train": train_launched,
@@ -4100,7 +4429,8 @@ def run_paths(dev, out_dir: str, small: bool = False,
                 "batched_stage2": b_stage2_launched,
                 "batched_binned": b_binned_launched,
                 "demo_viz": viz_launched, "render_demo": demo9_launched,
-                **mesh_launched, **cells_launched, **remake_launched}
+                **mesh_launched, **cells_launched, **remake_launched,
+                **assets_launched}
     summary = {"demo_crop": demo, "demo_viz": demo_viz,
                "pnp_select_bf16": pnp_bf16, "full_width_crop": full,
                "batched_full_width": batched, "coarse_cells": cells,
@@ -4113,7 +4443,7 @@ def run_paths(dev, out_dir: str, small: bool = False,
                "data_parallel": data_parallel,
                "deepsdf_train": dsdf_train,
                "kitti_driver": kitti, "suite_remake": remake,
-               "phase_seconds": seconds}
+               "demo_assets": assets, "phase_seconds": seconds}
     handles = dict(rt512=rt512, rt_stage2=rt_stage2, prep=prep,
                    sample=sample, state=state, fixed=fixed)
     return handles, launched, summary
@@ -4173,7 +4503,8 @@ def main() -> int:
         handles, launched, summary = run_paths(
             dev, out_dir, quality_frames=args.quality_frames)
     missing = [k for k, path in PATHS.items() if launched[path][k] == 0]
-    missing += [f"{k} (rays_sharded, rank {r})" for k in RAYS_KERNELS
+    missing += [f"{k} (rays_sharded, rank {r})"
+                for k in RAYS_KERNELS + BINNED_KERNELS
                 for r, n in enumerate(launched["rays_sharded"][k]) if not n]
     assert not missing, f"kernels not launched on their path: {missing}"
     if args.profile:
@@ -4204,7 +4535,7 @@ def main() -> int:
             for path in ("demo_viz", "warm_refresh_cells", "coarse_cells",
                          "batched_warm_refresh_cells", "train_bf16",
                          "train_fused", "train_fast", "render_demo",
-                         "suite_v1", "suite_css")
+                         "suite_v1", "suite_css", "demo_assets")
             if launched[path].get(row["name"], 0)}
         for path in ("rays_sharded", "data_mesh"):
             if row["name"] in launched[path]:

@@ -117,8 +117,9 @@ def box_sdf(pts: torch.Tensor, half: torch.Tensor,
     return outside + inside - radius
 
 
-def fit_config() -> deepsdf.DeepSDFConfig:
-    return deepsdf.DeepSDFConfig(latent_size=3, dims=(96, 96, 96))
+def fit_config(dims: tuple = (96, 96, 96)) -> deepsdf.DeepSDFConfig:
+    """The fitted decoder: latent size 3, fp32 hidden layers `dims`."""
+    return deepsdf.DeepSDFConfig(latent_size=3, dims=tuple(dims))
 
 
 @dataclasses.dataclass
@@ -139,19 +140,22 @@ def fit_state(params: dict) -> FitState:
                                                     zeros(params)))
 
 
-def init_fit(device="cpu") -> FitState:
+def init_fit(device="cpu", cfg: deepsdf.DeepSDFConfig | None = None,
+             seed: int = SEED) -> FitState:
     """The decoder's initial weights from a torch.Generator seeded with
-    SEED (JAX's come from PRNGKey(SEED): other numbers, the same law)."""
+    `seed` (JAX's come from PRNGKey(seed): other numbers, the same law)."""
     return fit_state(deepsdf.init_params(
-        fit_config(), torch.Generator().manual_seed(SEED), device=device))
+        cfg or fit_config(), torch.Generator().manual_seed(seed),
+        device=device))
 
 
-def fit_draw(generator: torch.Generator, device="cpu"):
+def fit_draw(generator: torch.Generator, device="cpu",
+             n_shapes: int = len(SHAPES)):
     """One step's draws, on `device` from `generator`: the shape index
-    (0-dim), FIT_POINTS points uniform in +-1.05 and their N(0, 1) noise
-    (jax.random's rows cannot be drawn by torch: the port draws its
-    own)."""
-    shape_idx = torch.randint(0, len(SHAPES), (), generator=generator,
+    (0-dim, below `n_shapes`), FIT_POINTS points uniform in +-1.05 and
+    their N(0, 1) noise (jax.random's rows cannot be drawn by torch: the
+    port draws its own)."""
+    shape_idx = torch.randint(0, n_shapes, (), generator=generator,
                               device=device)
     pu = torch.rand(FIT_POINTS, 3, generator=generator, device=device) \
         * 2.1 - 1.05
@@ -160,16 +164,18 @@ def fit_draw(generator: torch.Generator, device="cpu"):
 
 
 def fit_step(state: FitState, shape_idx: torch.Tensor, pu: torch.Tensor,
-             noise: torch.Tensor) -> tuple[FitState, torch.Tensor]:
-    """One Adam step on given draws (make_quality_suite.py:100-116): the
-    uniform points and the same points scaled to the shape's box plus
-    0.05 noise, the target clip(box_sdf, +-0.1), L1 on the clipped
-    prediction. Returns the new state and the L1 (0-dim, not read
-    back)."""
+             noise: torch.Tensor, cfg: deepsdf.DeepSDFConfig | None = None,
+             shapes=SHAPES) -> tuple[FitState, torch.Tensor]:
+    """One Adam step on given draws (make_quality_suite.py:100-116) of the
+    decoder `cfg` (by default :func:`fit_config`) on the (latent, half)
+    pairs `shapes`: the uniform points and the same points scaled to the
+    shape's box plus 0.05 noise, the target clip(box_sdf, +-0.1), L1 on
+    the clipped prediction. Returns the new state and the L1 (0-dim, not
+    read back)."""
     dev = pu.device
-    lats = torch.as_tensor(np.stack([s[0] for s in SHAPES]),
+    lats = torch.as_tensor(np.stack([s[0] for s in shapes]),
                            dtype=torch.float32, device=dev)
-    halves = torch.as_tensor(np.stack([s[1] for s in SHAPES]),
+    halves = torch.as_tensor(np.stack([s[1] for s in shapes]),
                              dtype=torch.float32, device=dev)
     lat, half = lats[shape_idx], halves[shape_idx]
     ps = pu * (half / half.max())  # densify near the box surface
@@ -178,7 +184,8 @@ def fit_step(state: FitState, shape_idx: torch.Tensor, pu: torch.Tensor,
     leaves = [x.detach().requires_grad_(True)
               for x in deepsdf_train._leaves(state.params)]
     params = deepsdf_train._rebuild(state.params, iter(leaves))
-    pred = deepsdf.sdf_fn(fit_config(), params)(lat, pts).clamp(-0.1, 0.1)
+    pred = deepsdf.sdf_fn(cfg or fit_config(), params)(lat, pts).clamp(
+        -0.1, 0.1)
     loss = (pred - target).abs().mean()
     # the scale head takes no gradient: zeros, as in JAX
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -192,20 +199,26 @@ def fit_step(state: FitState, shape_idx: torch.Tensor, pu: torch.Tensor,
 
 def fit_deepsdf(steps: int = FIT_STEPS,
                 generator: torch.Generator | None = None, device="cuda",
-                log_every: int = 500):
-    """Fit one decoder to all four (latent, half) anchor pairs
-    (make_quality_suite.py:90-126): `steps` of :func:`fit_draw` then
-    :func:`fit_step`, the draws from `generator` (by default one on
-    `device` seeded with SEED + 1). Returns (config, parameters, the L1
-    of every step as a (steps,) tensor)."""
+                log_every: int = 500,
+                cfg: deepsdf.DeepSDFConfig | None = None, shapes=SHAPES,
+                seed: int = SEED):
+    """Fit one decoder `cfg` (by default :func:`fit_config`) to every
+    (latent, half) pair of `shapes` (make_quality_suite.py:90-126):
+    `steps` of :func:`fit_draw` then :func:`fit_step` from
+    :func:`init_fit`'s weights drawn with `seed`, the draws from
+    `generator` (by default one on `device` seeded with seed + 1).
+    Returns (config, parameters, the L1 of every step as a (steps,)
+    tensor)."""
     device = refine_mod._device(device)
     _no_tf32()
+    cfg = cfg or fit_config()
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(SEED + 1)
-    state = init_fit(device)
+        generator = torch.Generator(device=device).manual_seed(seed + 1)
+    state = init_fit(device, cfg, seed)
     losses = []
     for i in range(steps):
-        state, loss = fit_step(state, *fit_draw(generator, device))
+        state, loss = fit_step(state, *fit_draw(generator, device,
+                                                len(shapes)), cfg, shapes)
         losses.append(loss)
         if i % log_every == 0:
             print(f"  deepsdf fit step {i}: L1 {float(loss):.5f}",
@@ -214,7 +227,7 @@ def fit_deepsdf(steps: int = FIT_STEPS,
     if steps:
         print(f"  deepsdf fit final: L1 {float(losses[-1]):.5f}",
               flush=True)
-    return fit_config(), state.params, losses
+    return cfg, state.params, losses
 
 
 def fit_eval_points(n: int = 16384, seed: int = SEED + 7):
@@ -249,12 +262,13 @@ def fit_eval_l1(cfg: deepsdf.DeepSDFConfig, params: dict) -> float:
 
 
 class Renderer:
-    """The decoder's surface on the grid-40 lattice and its NOCS render on
-    the canvas, on `device`."""
+    """The decoder's surface on the grid-40 lattice at `capacity` points
+    and its NOCS render, on `device`."""
 
-    def __init__(self, decoder, device):
+    def __init__(self, decoder, device, capacity: int = CAPACITY):
         self.decoder = decoder
         self.device = torch.device(device)
+        self.capacity = capacity
         self.grid = grid_ops.generate_point_grid(40, device=self.device)
 
     def surface(self, latent):
@@ -262,15 +276,18 @@ class Renderer:
             surf, _ = grid_ops.surface_from_decoder(
                 self.decoder, torch.as_tensor(latent, dtype=torch.float32,
                                               device=self.device),
-                self.grid, capacity=CAPACITY)
+                self.grid, capacity=self.capacity)
         return surf
 
-    def render(self, K, surf, pose):
+    def render(self, K, surf, pose, resolution=(CANVAS, CANVAS)):
+        """The disc NOCS render at `resolution` (w, h), by default the
+        canvas (the bins kernel and 1c on the card from 4096 px up)."""
         with torch.no_grad():
             return rasterer.render(
-                K, (CANVAS, CANVAS), surf.points, surf.normals, surf.normals,
-                pose, point_mask=surf.mask, rot="dcm", primitives="disc",
-                output_nocs=True, bin_px=splat_cuda.BIN_AUTO_PX)
+                K, tuple(resolution), surf.points, surf.normals,
+                surf.normals, pose, point_mask=surf.mask, rot="dcm",
+                primitives="disc", output_nocs=True,
+                bin_px=splat_cuda.BIN_AUTO_PX)
 
 
 def render_car(rend: Renderer, latent, yaw, scale, trans_cam, pad=6):
@@ -752,14 +769,43 @@ def build_suite(out: str, n_frames: int | None = None, profile: str = "v1",
 
 # ------------------------------------------------------ the CSS training
 
+def jitter_box(rng, bbox, jitter: int, img_hw: tuple[int, int]):
+    """The box (l, t, r, b) with each side moved by a draw in
+    [-jitter, jitter] from `rng` (left, top, right, bottom in turn) and
+    clamped to the (h, w) image, at least 2 px wide and high
+    (make_quality_suite.py:620-623, make_demo_assets.py:245-248)."""
+    img_h, img_w = img_hw
+    l, t_, r, b = bbox
+    jl = np.clip(l + rng.randint(-jitter, jitter + 1), 0, img_w - 2)
+    jt = np.clip(t_ + rng.randint(-jitter, jitter + 1), 0, img_h - 2)
+    jr = np.clip(r + rng.randint(-jitter, jitter + 1), jl + 2, img_w - 1)
+    jb = np.clip(b + rng.randint(-jitter, jitter + 1), jt + 2, img_h - 1)
+    return jl, jt, jr, jb
+
+
+def crop_targets(full_nocs, full_mask, box):
+    """The CSS targets of the window `box` (l, t, r, b) of a full-frame
+    NOCS (3, H, W) and mask (H, W): each sampled floor-nearest at
+    128 x 128, the NOCS as int32 bins round(255 x) (0 off the mask), the
+    mask as int32."""
+    jl, jt, jr, jb = box
+    ch, cw = jb - jt, jr - jl
+    ys = (np.arange(128) * ch // 128).clip(max=ch - 1)
+    xs = (np.arange(128) * cw // 128).clip(max=cw - 1)
+    nocs128 = full_nocs[:, jt + ys[:, None], jl + xs[None, :]]
+    mask128 = full_mask[jt + ys[:, None], jl + xs[None, :]]
+    bins = np.clip(np.round(nocs128 * 255), 0, 255).astype(np.int32)
+    bins = bins * mask128[None].astype(np.int32)  # background -> bin 0
+    return bins, mask128.astype(np.int32)
+
+
 def crop_sampler(frames_meta, tree: str, jitter: int = 3, device="cpu"):
     """sample() -> (normalized crop (3, 128, 128) on `device`, NOCS bins
     (3, 128, 128) int32, mask (128, 128) int32, latent (3,)): one jittered
     annotation crop of a written frame, read back as the driver reads it
     (BGR / 255) and resized by the driver's transform, its targets by
-    floor-nearest sampling of the full-frame NOCS and mask; the draws from
-    np.random.RandomState(SEED + 3) in JAX's order
-    (make_quality_suite.py:609-637)."""
+    :func:`crop_targets`; the draws from np.random.RandomState(SEED + 3)
+    in JAX's order (make_quality_suite.py:609-637)."""
     cache = {}
     for name, _annos, _nocs, _mask in frames_meta:
         img = kitti_mod.read_bgr(
@@ -771,21 +817,12 @@ def crop_sampler(frames_meta, tree: str, jitter: int = 3, device="cpu"):
 
     def sample():
         name, anno, full_nocs, full_mask = flat[rng.randint(len(flat))]
-        l, t_, r, b = anno["bbox"]
-        jl = np.clip(l + rng.randint(-jitter, jitter + 1), 0, IMG_W - 2)
-        jt = np.clip(t_ + rng.randint(-jitter, jitter + 1), 0, IMG_H - 2)
-        jr = np.clip(r + rng.randint(-jitter, jitter + 1), jl + 2, IMG_W - 1)
-        jb = np.clip(b + rng.randint(-jitter, jitter + 1), jt + 2, IMG_H - 1)
+        jl, jt, jr, jb = jitter_box(rng, anno["bbox"], jitter,
+                                    (IMG_H, IMG_W))
         crop, _ = refine_pipe.transform_bgr_crop(cache[name][jt:jb, jl:jr],
                                                  device=device)
-        ch, cw = jb - jt, jr - jl
-        ys = (np.arange(128) * ch // 128).clip(max=ch - 1)
-        xs = (np.arange(128) * cw // 128).clip(max=cw - 1)
-        nocs128 = full_nocs[:, jt + ys[:, None], jl + xs[None, :]]
-        mask128 = full_mask[jt + ys[:, None], jl + xs[None, :]]
-        bins = np.clip(np.round(nocs128 * 255), 0, 255).astype(np.int32)
-        bins = bins * mask128[None].astype(np.int32)
-        return crop, bins, mask128.astype(np.int32), anno["latent"]
+        bins, mask = crop_targets(full_nocs, full_mask, (jl, jt, jr, jb))
+        return crop, bins, mask, anno["latent"]
 
     return sample
 
@@ -829,38 +866,48 @@ def stack_batch(samples, device) -> tuple:
                             device=device))
 
 
-def train_suite_css(frames_meta, tree: str, width: int = 16,
-                    steps: int = 4000, batch: int = 8, jitter: int = 3,
-                    init: dict | None = None, device="cuda",
-                    log_every: int = 250):
-    """Train the suite's CSSNet (make_quality_suite.py:602-678): every
-    parameter (nothing frozen), BatchNorm on the batch statistics, Adam
-    at 1e-3 in optax's order, `steps` batches of :func:`crop_sampler`.
+def train_css(sample, width: int, steps: int, batch: int,
+              init: dict | None = None, seed: int = SEED, device="cuda",
+              log_every: int = 250, what: str = "css train"):
+    """Train a CSSNet of `width` on `steps` batches of `batch` draws of
+    `sample()` (crop, bins, mask, latent, as :func:`crop_sampler` gives
+    them): every parameter (nothing frozen), BatchNorm on the batch
+    statistics, Adam at 1e-3 in optax's order, :func:`suite_css_loss`.
     `init` (flax variables {'params', 'batch_stats'}) is the start; None
-    draws one from a generator seeded with SEED. Returns the trained net
+    draws one from a generator seeded with `seed`. Returns the trained net
     (in train mode) and the loss of every step as a (steps,) tensor."""
     device = refine_mod._device(device)
     _no_tf32()
     if init is None:
         model = css_mod.init_params(css_mod.CSSNet(width=width),
-                                    torch.Generator().manual_seed(SEED))
+                                    torch.Generator().manual_seed(seed))
     else:
         model = css_mod.params_from_jax(init, width)
     model = model.to(device).train()
     opt = css_train.Adam(model.named_parameters(), LR)
-    sample = crop_sampler(frames_meta, tree, jitter, device)
     losses = []
     for i in range(steps):
         losses.append(css_step(model, opt, stack_batch(
             [sample() for _ in range(batch)], device)))
         if i % log_every == 0:
-            print(f"  css train step {i}: loss {float(losses[-1]):.4f}",
+            print(f"  {what} step {i}: loss {float(losses[-1]):.4f}",
                   flush=True)
     losses = torch.stack(losses) if losses else torch.zeros(0)
     if steps:
-        print(f"  css train final: loss {float(losses[-1]):.4f}",
-              flush=True)
+        print(f"  {what} final: loss {float(losses[-1]):.4f}", flush=True)
     return model, losses
+
+
+def train_suite_css(frames_meta, tree: str, width: int = 16,
+                    steps: int = 4000, batch: int = 8, jitter: int = 3,
+                    init: dict | None = None, device="cuda",
+                    log_every: int = 250):
+    """Train the suite's CSSNet (make_quality_suite.py:602-678):
+    :func:`train_css` on :func:`crop_sampler`'s crops of the written
+    frames, seeded with SEED."""
+    device = refine_mod._device(device)
+    return train_css(crop_sampler(frames_meta, tree, jitter, device), width,
+                     steps, batch, init, SEED, device, log_every)
 
 
 def save_css(path: str, model: css_mod.CSSNet) -> None:
@@ -871,17 +918,23 @@ def save_css(path: str, model: css_mod.CSSNet) -> None:
 
 # ---------------------------------------------------------------- the CLI
 
+def refuse_committed(path: str, committed, flag: str, what: str) -> str:
+    """`path`, refused where it resolves to or into one of the `committed`
+    directories (each resolved from the working directory where
+    relative)."""
+    real = os.path.realpath(path)
+    for c in sorted({os.path.realpath(d) for d in committed}):
+        if real == c or real.startswith(c + os.sep):
+            raise ValueError(f"{flag} {path}: the committed {what} in {c} "
+                             "are never written; choose another directory")
+    return path
+
+
 def check_nets_out(path: str) -> str:
     """`path`, refused where it resolves into the committed nets."""
-    real = os.path.realpath(path)
-    for committed in {os.path.realpath(NETS),
-                      os.path.realpath(os.path.join("data",
-                                                    "quality_nets"))}:
-        if real == committed or real.startswith(committed + os.sep):
-            raise ValueError(f"--nets-out {path}: the committed nets in "
-                             f"{committed} are never written; choose "
-                             "another directory")
-    return path
+    return refuse_committed(path, (NETS, os.path.join("data",
+                                                      "quality_nets")),
+                            "--nets-out", "nets")
 
 
 def main(argv=None):

@@ -9,7 +9,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "cv2",
            "sdflabel_tpu", "scripts", "make_quality_suite",
-           "run_quality_benchmark")
+           "run_quality_benchmark", "make_demo_assets")
 
 _SCRIPT = f"""
 import importlib, pkgutil, sys
@@ -36,6 +36,7 @@ EXPECTED = tuple("sdflabel_tpu_torch." + m for m in (
     "eval.detection3d",
     "pipelines.evaluate_dump",
     "tools.quality_suite",
+    "tools.demo_assets",
     "main",
     "data.kitti",
     "ops.splat_cuda",

@@ -2,8 +2,10 @@
 rays render and one step of the sharded refine on the card against the
 same on the CPU (the CPU tests hold the CPU side against JAX), and the
 kernels, not their plain versions, on each rank's share: the splat pair
-on its pixel block, the NN kernel in its 3D loss, the selection kernel on
-its grid block.
+on its pixel block (the dense pair at 64x32 px and a 32x32 crop, the
+bins, 1c and 1d at 128x96 px and a 96x96 crop, whose blocks of 4096 px
+and more take the row-binned route), the NN kernel in its 3D loss, the
+selection kernel on its grid block.
 
 Tolerances: the image to the splat tolerance (>= 99.5% of pixels within
 2e-4: a footprint bit may flip within rounding of the disc's edge), the
@@ -23,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from sdflabel_tpu_torch.ops import _cuda
+from sdflabel_tpu_torch.ops import _cuda, splat_cuda
 from sdflabel_tpu_torch.parallel import mesh as mesh_mod
 from sdflabel_tpu_torch.renderer.rasterer import calibration_matrix
 import torch_dp_worker as dpw
@@ -32,16 +34,25 @@ import torch_sharded_worker as worker
 pytestmark = pytest.mark.cuda
 
 
-def _job():
+# (render, refine crop) sizes: dense blocks (1024 px a rank for the render,
+# 512 for the refine), then row-binned ones (6144 and 4608 px)
+SIZES = {"dense": ((64, 32), (32, 32)), "binned": ((128, 96), (96, 96))}
+# the kernels each rank must launch at each size
+KERNELS = {"dense": ("splat_fwd", "splat_bwd", "nn", "select_mlp"),
+           "binned": ("splat_bins", "splat_fwd_binned", "splat_bwd_binned",
+                      "nn", "select_mlp")}
+
+
+def _job(size):
+    res, crop_hw = SIZES[size]
     rng = np.random.RandomState(0)
     pts = rng.uniform(-1, 1, (2048, 3)).astype(np.float32)
     normals = rng.randn(2048, 3).astype(np.float32)
     normals /= np.linalg.norm(normals, axis=1, keepdims=True)
     pose = np.eye(4, dtype=np.float32)
     pose[:3, 3] = [0, 0, 5]
-    crop_hw = (32, 32)
     frustum = (rng.randn(2048, 3) * 0.4 + [0, 0, 8.0]).astype(np.float32)
-    return dict(K=calibration_matrix((64, 32)), res=(64, 32), pts=pts,
+    return dict(K=calibration_matrix(res), res=res, pts=pts,
                 normals=normals, pose=pose, mask=rng.uniform(size=2048) > 0.2,
                 spec=dict(latent_size=3, dims=(128,) * 8,
                           norm_layers=tuple(range(8)), latent_in=(4,),
@@ -53,20 +64,30 @@ def _job():
                 init=[[0.45], [0.05, -0.02, 4.05], [2.08], [0.6, 0.0, 0.8]])
 
 
+@pytest.fixture(scope="module", params=sorted(SIZES))
+def size(request):
+    return request.param
+
+
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
+def ranks(size, tmp_path_factory):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     _cuda.build_all()  # the ranks only load the built libraries
     out = str(tmp_path_factory.mktemp("card"))
-    mesh_mod.spawn_ranks(worker.card_rank, 2, (out, _job()), backend="gloo")
+    mesh_mod.spawn_ranks(worker.card_rank, 2, (out, _job(size)),
+                         backend="gloo")
     return dpw.load(out, "card", 2)
 
 
-def test_kernels_run_on_each_ranks_share(ranks):
+def test_kernels_run_on_each_ranks_share(size, ranks):
+    res, crop_hw = SIZES[size]
+    binned = splat_cuda.bin_policy(res[0] * res[1] // 2) > 0
+    assert binned == (splat_cuda.bin_policy(crop_hw[0] * crop_hw[1] // 2)
+                      > 0) == (size == "binned")
     for r in ranks:
-        assert all(n > 0 for n in r["cuda"]["launches"].values()), \
-            r["cuda"]["launches"]
+        launched = r["cuda"]["launches"]
+        assert all(launched[k] > 0 for k in KERNELS[size]), launched
         assert not any(r["cpu"]["launches"].values())
 
 

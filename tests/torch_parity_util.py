@@ -61,14 +61,47 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUALITY_TREES = {"v1": "quality_suite", "v2": "quality_suite_v2"}
 
 
-def make_quality_suite_module():
-    """scripts/make_quality_suite.py as a module."""
+def script_module(name: str):
+    """scripts/<name>.py as a module."""
+    import importlib
+
     sys.path.insert(0, os.path.join(REPO, "scripts"))
     try:
-        import make_quality_suite
+        return importlib.import_module(name)
     finally:
         sys.path.remove(os.path.join(REPO, "scripts"))
-    return make_quality_suite
+
+
+def make_quality_suite_module():
+    """scripts/make_quality_suite.py as a module."""
+    return script_module("make_quality_suite")
+
+
+DEMO = os.path.join(REPO, "data", "optimization")
+
+
+def committed_demo_scene():
+    """The committed demo scene, which scripts/make_demo_assets.py wrote:
+    (sample as load_demo_sample reads it, the annotation, the crop's NOCS
+    (3, ch, cw) and mask (ch, cw)). The NOCS and mask are read back from
+    the image: the mask where the image differs from the background noise
+    the script drew first (np.random.RandomState(0)), the NOCS there as
+    the pasted BGR pixels in RGB order, 0 elsewhere (the script's CSS
+    targets zero the NOCS off the mask)."""
+    import json
+
+    data = np.load(os.path.join(DEMO, "kitti_sample.npz"))
+    sample = {k: data[k] for k in
+              ("image", "depth", "orig_cam", "world_to_cam", "lidar")}
+    anno = json.loads(str(data["annos_json"]))["gt"][0]
+    h, w, _ = sample["image"].shape
+    background = np.random.RandomState(0).uniform(
+        0.25, 0.45, (h, w, 3)).astype(np.float32)
+    l, t_, r, b = anno["bbox"]
+    crop = sample["image"][t_:b, l:r]
+    mask = (crop != background[t_:b, l:r]).any(-1)
+    nocs = np.transpose(crop[..., ::-1] * mask[..., None], (2, 0, 1))
+    return sample, anno, np.ascontiguousarray(nocs, np.float32), mask
 
 
 def jax_quality_suite(work, profile: str, n_frames: int):

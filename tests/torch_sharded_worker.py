@@ -70,21 +70,24 @@ def sharded_rank(rank, out, jobs):
     _dump(out, "sharded", rank, res)
 
 
-def rays_rank(rank, out, job):
-    """make_rays_sharded_render on the rays axis of all the ranks: the
-    image, and the gradients of sum(image^2) in the pose and the points."""
+def rays_rank(rank, out, jobs):
+    """make_rays_sharded_render on the rays axis of all the ranks, for each
+    job {K, res, pts, normals, pose, mask}: the image, and the gradients
+    of sum(image^2) in the pose and the points."""
     world = torch.distributed.get_world_size()
     mesh = mesh_mod.make_mesh(1, world)
     _share_cores(world)
-    render = trays.make_rays_sharded_render(mesh, job["K"], job["res"])
-    pose = torch.as_tensor(job["pose"]).requires_grad_(True)
-    pts = torch.as_tensor(job["pts"]).requires_grad_(True)
-    img = render(pts, torch.as_tensor(job["normals"]), pose,
-                 torch.as_tensor(job["mask"]))
-    img.square().sum().backward()
-    _dump(out, "rays", rank, {"img": img.detach().numpy(),
-                              "g_pose": pose.grad.numpy(),
-                              "g_pts": pts.grad.numpy()})
+    res = []
+    for job in jobs:
+        render = trays.make_rays_sharded_render(mesh, job["K"], job["res"])
+        pose = torch.as_tensor(job["pose"]).requires_grad_(True)
+        pts = torch.as_tensor(job["pts"]).requires_grad_(True)
+        img = render(pts, torch.as_tensor(job["normals"]), pose,
+                     torch.as_tensor(job["mask"]))
+        img.square().sum().backward()
+        res.append({"img": img.detach().numpy(), "g_pose": pose.grad.numpy(),
+                    "g_pts": pts.grad.numpy()})
+    _dump(out, "rays", rank, res)
 
 
 def _stub_pose(self, *args, **kwargs):
@@ -146,7 +149,8 @@ def card_rank(rank, out, job):
     gradients of sum(image^2), and one sharded refine step through an
     sphere bent by an 8x128 DeepSDF, whose selection decoder takes the
     selection kernel for the DeepSDF; with
-    the launches of kernels 1a, 1b, 2 and 3 on this rank."""
+    the launches of kernels 1a, 1b, 2 and 3 and of the binned trio (the
+    bins, 1c, 1d) on this rank."""
     from sdflabel_tpu_torch.models import deepsdf as tds
     from sdflabel_tpu_torch.ops import grid as tgrid
     from sdflabel_tpu_torch.ops import mlp_cuda, nn_cuda, splat_cuda
@@ -157,7 +161,10 @@ def card_rank(rank, out, job):
     _share_cores(2)
     counters = {"splat_fwd": splat_cuda.SPLAT_FWD,
                 "splat_bwd": splat_cuda.SPLAT_BWD, "nn": nn_cuda.NN_FWD,
-                "select_mlp": mlp_cuda.SELECT_MLP}
+                "select_mlp": mlp_cuda.SELECT_MLP,
+                "splat_bins": splat_cuda.SPLAT_BINS,
+                "splat_fwd_binned": splat_cuda.SPLAT_FWD_BINNED,
+                "splat_bwd_binned": splat_cuda.SPLAT_BWD_BINNED}
     res = {}
     for dev in ("cuda", "cpu"):
         for c in counters.values():
