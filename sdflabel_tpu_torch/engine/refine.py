@@ -19,7 +19,8 @@ express. Both loops therefore step through ``batch_step``, optax's Adam
 and SGD arithmetic written out (the sequential loop on a crop axis of one;
 torch.optim.Adam's update rounds another way, and the refine carries an
 ulp to centimetres), and neither reads anything back to the host inside
-the loop.
+the loop. Under a profiler both mark each iteration and its refresh,
+forward pass, backward pass and step as spans (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 from sdflabel_tpu_torch.engine import losses
 from sdflabel_tpu_torch.ops import geometry, grid as grid_ops
 from sdflabel_tpu_torch.renderer import rasterer as rast_mod
+from sdflabel_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,24 +224,33 @@ def make_refine_fn(sdf_decoder, cfg: RefineConfig, grid_points: torch.Tensor,
         cand_idx = None
         hist = []
         for it in range(cfg.iters):
-            if use_warm and it % cfg.warm_refresh == 0:
-                cand_idx = _refresh(sel, cfg, params.latent, grid_points)
-            leaves = RefineParams(*(p.requires_grad_(True) for p in params))
-            loss, l2d, l3d = iteration(leaves, K, nocs_target, frustum_pts,
-                                       frustum_mask, pixel_mask, cand_idx)
-            grads = torch.autograd.grad(loss, list(leaves), allow_unused=True)
-            params = RefineParams(*(p.detach() for p in leaves))
-            # NaN / zero-loss guard (optimizer.py:149-151): no step at all,
-            # so neither the parameters nor the optimizer state move; on
-            # the card, without a host read
-            ok = torch.isfinite(loss) & (loss != 0.0)
-            hist.append((loss.detach(), l2d.detach(), l3d.detach(), ok,
-                         params))
-            new, state = batch_step(
-                cfg, RefineParams(*(p[None] for p in params)),
-                [(torch.zeros_like(p) if g is None else g)[None]
-                 for p, g in zip(params, grads)], ok[None], state)
-            params = RefineParams(*(p[0] for p in new))
+            with span("refine.iteration"):
+                if use_warm and it % cfg.warm_refresh == 0:
+                    with span("refine.refresh"):
+                        cand_idx = _refresh(sel, cfg, params.latent,
+                                            grid_points)
+                leaves = RefineParams(*(p.requires_grad_(True)
+                                        for p in params))
+                with span("refine.forward"):
+                    loss, l2d, l3d = iteration(
+                        leaves, K, nocs_target, frustum_pts, frustum_mask,
+                        pixel_mask, cand_idx)
+                with span("refine.backward"):
+                    grads = torch.autograd.grad(loss, list(leaves),
+                                                allow_unused=True)
+                with span("refine.step"):
+                    params = RefineParams(*(p.detach() for p in leaves))
+                    # NaN / zero-loss guard (optimizer.py:149-151): no step
+                    # at all, so neither the parameters nor the optimizer
+                    # state move; on the card, without a host read
+                    ok = torch.isfinite(loss) & (loss != 0.0)
+                    hist.append((loss.detach(), l2d.detach(), l3d.detach(),
+                                 ok, params))
+                    new, state = batch_step(
+                        cfg, RefineParams(*(p[None] for p in params)),
+                        [(torch.zeros_like(p) if g is None else g)[None]
+                         for p, g in zip(params, grads)], ok[None], state)
+                    params = RefineParams(*(p[0] for p in new))
         return params, RefineStepOut(
             loss=torch.stack([x[0] for x in hist]),
             loss_2d=torch.stack([x[1] for x in hist]),
@@ -333,22 +344,32 @@ def make_refine_batch_fn(sdf_decoder, cfg: RefineConfig,
         cand_idx = None
         hist = []
         for it in range(cfg.iters):
-            if use_warm and it % cfg.warm_refresh == 0:
-                cand_idx = _refresh(sel, cfg, params.latent, grid_points)
-            leaves = RefineParams(*(p.requires_grad_(True) for p in params))
-            loss, l2d, l3d = iteration(leaves, K, nocs_target, frustum_pts,
-                                       frustum_mask, pixel_mask, cand_idx)
-            # crops do not couple: the gradient of the sum is each crop's
-            grads = torch.autograd.grad(loss.sum(), list(leaves),
-                                        allow_unused=True)
-            params = RefineParams(*(p.detach() for p in leaves))
-            grads = [torch.zeros_like(p) if g is None else g
-                     for p, g in zip(params, grads)]
-            # the guard, per crop and on the card: no host read
-            ok = torch.isfinite(loss) & (loss != 0.0)
-            hist.append((loss.detach(), l2d.detach(), l3d.detach(), ok,
-                         params))
-            params, state = batch_step(cfg, params, grads, ok, state)
+            with span("refine.iteration"):
+                if use_warm and it % cfg.warm_refresh == 0:
+                    with span("refine.refresh"):
+                        cand_idx = _refresh(sel, cfg, params.latent,
+                                            grid_points)
+                leaves = RefineParams(*(p.requires_grad_(True)
+                                        for p in params))
+                with span("refine.forward"):
+                    loss, l2d, l3d = iteration(
+                        leaves, K, nocs_target, frustum_pts, frustum_mask,
+                        pixel_mask, cand_idx)
+                with span("refine.backward"):
+                    # crops do not couple: the gradient of the sum is each
+                    # crop's
+                    grads = torch.autograd.grad(loss.sum(), list(leaves),
+                                                allow_unused=True)
+                with span("refine.step"):
+                    params = RefineParams(*(p.detach() for p in leaves))
+                    grads = [torch.zeros_like(p) if g is None else g
+                             for p, g in zip(params, grads)]
+                    # the guard, per crop and on the card: no host read
+                    ok = torch.isfinite(loss) & (loss != 0.0)
+                    hist.append((loss.detach(), l2d.detach(), l3d.detach(),
+                                 ok, params))
+                    params, state = batch_step(cfg, params, grads, ok,
+                                               state)
         return params, RefineStepOut(
             loss=torch.stack([x[0] for x in hist], 1),
             loss_2d=torch.stack([x[1] for x in hist], 1),

@@ -28,6 +28,7 @@ import torch
 from sdflabel_tpu_torch.engine import labels as labels_mod
 from sdflabel_tpu_torch.engine import refine as refine_mod
 from sdflabel_tpu_torch.parallel import mesh as mesh_mod
+from sdflabel_tpu_torch.utils.profiling import span
 
 
 def make_batched_refine(sdf_decoder, cfg: refine_mod.RefineConfig,
@@ -57,10 +58,11 @@ def make_batched_refine(sdf_decoder, cfg: refine_mod.RefineConfig,
         out = refine(params0, K, nocs, frustum, fmask, pixel_masks)
         if with_extents:
             final = out[0]
-            out += (labels_mod.surface_extents(
-                sdf_decoder, grid_points.to(final.latent.device),
-                final.latent, capacity=cfg.surface_capacity,
-                threshold=cfg.surface_threshold),)
+            with span("refine.extents"):
+                out += (labels_mod.surface_extents(
+                    sdf_decoder, grid_points.to(final.latent.device),
+                    final.latent, capacity=cfg.surface_capacity,
+                    threshold=cfg.surface_threshold),)
         if mesh is None or mesh.shape["data"] == 1:
             return out
         return _gather_tree(out, mesh.data_group)

@@ -47,6 +47,7 @@ from sdflabel_tpu_torch.ops import mlp_cuda, pnp, ransac
 from sdflabel_tpu_torch.parallel import batched_refine
 from sdflabel_tpu_torch.renderer import rasterer as rast_mod
 from sdflabel_tpu_torch.utils import viz, viz3d
+from sdflabel_tpu_torch.utils.profiling import span
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -605,38 +606,51 @@ def refine_crops_batched(rt: RefineRuntime, sample: dict, preps: list,
     every crop's parameters and extents; the labels (None dropped) in the
     crops' order. With `viz_dir` (and a viz_type) each crop's trajectory
     is drawn from its slice of the history, at its own size, tagged
-    ``{viz_tag}cNN_``."""
+    ``{viz_tag}cNN_``. Under a profiler the frame is the span
+    ``refine.frame`` (utils/profiling.py), counting the real crops'
+    pixels and the rendered lanes' (``pixels``, ``lane_pixels``), over
+    spans of its inputs, loop, read and labels."""
     if not preps:
         return []
-    bucket, args = batch_inputs(rt, preps)
-    fn = batched_refine.make_batched_refine(
-        rt.decoder, rt.refine_config(), rt.grid_points, bucket,
-        select_decoder=rt.select_decoder, stage2_fn=rt.stage2_fn,
-        with_extents=True, mesh=rt.mesh, device=rt.device)
-    final, hist, ext = fn(*args)
-    # one read for every crop's label inputs: yaw, scale, trans, latent,
-    # the extents and their validity
-    parts = (final.yaw, final.scale, final.trans, final.latent, ext.mn,
-             ext.mx, ext.valid[:, None].float())
-    rows = torch.cat(parts, 1).cpu().numpy()
-    cols = np.cumsum([0] + [t.shape[1] for t in parts])
-    yaw, scale, trans, lat, mn, mx, valid = (
-        rows[:, a:z] for a, z in zip(cols[:-1], cols[1:]))
-    labels = []
-    for i, p in enumerate(preps):
-        if viz_dir is not None and _viz_on(rt.cfg):
-            hist_i = refine_mod.RefineStepOut(
-                *(t[i] for t in hist[:4]),
-                params=refine_mod.RefineParams(*(t[i] for t in
-                                                 hist.params)))
-            render_trajectory(rt, p, sample, hist_i, viz_dir,
-                              tag=f"{viz_tag}c{i:02d}_")
-        label = finish_label(
-            refine_mod.RefineParams(yaw[i], trans[i], scale[i], lat[i]),
-            labels_mod.SurfaceExtents(mn[i], mx[i], valid[i, 0] > 0.5),
-            sample, p["anno"])
-        if label is not None:
-            labels.append(label)
+    with span("refine.frame") as frame:
+        with span("refine.batch_inputs"):
+            bucket, args = batch_inputs(rt, preps)
+        frame.count(pixels=sum(p["crop_hw"][0] * p["crop_hw"][1]
+                               for p in preps),
+                    lane_pixels=len(args[1]) * bucket[0] * bucket[1])
+        fn = batched_refine.make_batched_refine(
+            rt.decoder, rt.refine_config(), rt.grid_points, bucket,
+            select_decoder=rt.select_decoder, stage2_fn=rt.stage2_fn,
+            with_extents=True, mesh=rt.mesh, device=rt.device)
+        with span("refine.loop"):
+            final, hist, ext = fn(*args)
+        # one read for every crop's label inputs: yaw, scale, trans,
+        # latent, the extents and their validity
+        parts = (final.yaw, final.scale, final.trans, final.latent, ext.mn,
+                 ext.mx, ext.valid[:, None].float())
+        with span("refine.read"):
+            rows = torch.cat(parts, 1).cpu().numpy()
+        cols = np.cumsum([0] + [t.shape[1] for t in parts])
+        yaw, scale, trans, lat, mn, mx, valid = (
+            rows[:, a:z] for a, z in zip(cols[:-1], cols[1:]))
+        labels = []
+        with span("refine.labels"):
+            for i, p in enumerate(preps):
+                if viz_dir is not None and _viz_on(rt.cfg):
+                    hist_i = refine_mod.RefineStepOut(
+                        *(t[i] for t in hist[:4]),
+                        params=refine_mod.RefineParams(*(t[i] for t in
+                                                         hist.params)))
+                    render_trajectory(rt, p, sample, hist_i, viz_dir,
+                                      tag=f"{viz_tag}c{i:02d}_")
+                label = finish_label(
+                    refine_mod.RefineParams(yaw[i], trans[i], scale[i],
+                                            lat[i]),
+                    labels_mod.SurfaceExtents(mn[i], mx[i],
+                                              valid[i, 0] > 0.5),
+                    sample, p["anno"])
+                if label is not None:
+                    labels.append(label)
     return labels
 
 

@@ -20,11 +20,17 @@ checkpoints and PNGs. The network lands as
 models/css.py::load_css and the JAX package's ``load_checkpoint`` both
 read; the full train state goes to ``log_dir/ckpt/step_<epoch>.pt``, from
 which a restarted run resumes.
+
+Under a profiler each step is the span ``css.step`` (utils/profiling.py;
+counts ``images``, ``epoch``, ``batch``) over the spans of its host
+records (``css.records``), its device chain (``css.to_device``), the
+train step (``css.train``) and the loss print (``css.log``).
 """
 
 from __future__ import annotations
 
 import configparser
+import contextlib
 import os
 
 import numpy as np
@@ -39,6 +45,7 @@ from sdflabel_tpu_torch.models import css as css_mod
 from sdflabel_tpu_torch.parallel import mesh as mesh_mod
 from sdflabel_tpu_torch.utils import checkpoint as ckpt_mod
 from sdflabel_tpu_torch.utils import flax_msgpack, png
+from sdflabel_tpu_torch.utils.profiling import span
 
 
 def compute_dtype(precision: str) -> torch.dtype:
@@ -100,13 +107,31 @@ def _dump_pngs(state, batch: dict, vis_dir: str, epoch: int) -> None:
               batch["rgb"].cpu().numpy())
 
 
+def _spanned(step_fn):
+    """The train step as the span ``css.train``, inside any step
+    wrapper: the program's forward, losses, backward and Adam only."""
+    def run(state, batch):
+        with span("css.train"):
+            return step_fn(state, batch)
+    return run
+
+
+def _log(epoch: int, seen: int, total: int, metrics: dict) -> None:
+    print("Train Epoch: {} [{}/{}]\tLosses: global - {:.6f}, "
+          "uvw - {:.6f}, mask - {:.6f}, latent - {:.6f}".format(
+              epoch, seen, total, float(metrics["loss"]),
+              float(metrics["loss_uvw"]), float(metrics["loss_mask"]),
+              float(metrics["loss_latent"])))
+
+
 def train_css(cfgp, max_epochs: int | None = None, device="cuda",
               width: int = 64, step_wrapper=None, mesh=None):
     """Train the CSS network (train_css.py:12 entry point) on `device`.
 
     `cfgp`: a ConfigParser of configs/config_train.ini or a TrainCfg.
     `width` is the network width (64: the reference). `step_wrapper`, if
-    given, wraps the train step (e.g. to time or watch it). `mesh`: a
+    given, wraps the train step (e.g. to time or watch it; the span
+    ``css.train`` lies inside it). `mesh`: a
     parallel/mesh.py layout to train data-parallel over (each rank calls
     this on its own device). Returns the engine/css_train.py::TrainState."""
     cfg = (cfgp if isinstance(cfgp, cfg_mod.TrainCfg)
@@ -147,33 +172,41 @@ def train_css(cfgp, max_epochs: int | None = None, device="cuda",
     if mesh is not None:
         step_fn = css_train.shard_train_step(step_fn, mesh).local
         lead = mesh.rank == 0
+    step_fn = _spanned(step_fn)
     if step_wrapper is not None:
         step_fn = step_wrapper(step_fn)
 
     epochs = max_epochs if max_epochs is not None else cfg.epochs
+    steps = -(-len(trainset) // cfg.batch_size)  # the last batch may be short
     last_batch = None
     for epoch in range(start_epoch, epochs):
         trainset.set_epoch(epoch)
-        for batch_idx, batch_np in enumerate(prefetch_iterator(
+        with contextlib.closing(prefetch_iterator(
                 trainset, cfg.batch_size, num_threads=cfg.cpu_threads,
-                queue_size=cfg.queue_size, shuffle=True, seed=epoch)):
-            if mesh is None:
-                batch = trainset.to_device(batch_np, dev)
-            else:  # this rank's share of the global batch
-                cut = mesh_mod.data_slice(len(batch_np["rgb"]), mesh)
-                batch = trainset.to_device(
-                    {k: v[cut] for k, v in batch_np.items()}, dev)
-            metrics = step_fn(state, batch)
-            # float() syncs with the card; log_every keeps steps in flight
-            if (batch_idx + 1) % max(cfg.log_every, 1) == 0:
-                print("Train Epoch: {} [{}/{}]\tLosses: global - {:.6f}, "
-                      "uvw - {:.6f}, mask - {:.6f}, latent - {:.6f}".format(
-                          epoch, batch_idx * len(batch_np["rgb"]),
-                          len(trainset), float(metrics["loss"]),
-                          float(metrics["loss_uvw"]),
-                          float(metrics["loss_mask"]),
-                          float(metrics["loss_latent"])))
-            last_batch = batch_np
+                queue_size=cfg.queue_size, shuffle=True,
+                seed=epoch)) as batches:
+            for batch_idx in range(steps):
+                with span("css.step", epoch=epoch, batch=batch_idx) as step:
+                    with span("css.records"):
+                        batch_np = next(batches)
+                    step.count(images=len(batch_np["rgb"]))
+                    with span("css.to_device"):
+                        if mesh is None:
+                            batch = trainset.to_device(batch_np, dev)
+                        else:  # this rank's share of the global batch
+                            cut = mesh_mod.data_slice(len(batch_np["rgb"]),
+                                                      mesh)
+                            batch = trainset.to_device(
+                                {k: v[cut] for k, v in batch_np.items()},
+                                dev)
+                    metrics = step_fn(state, batch)
+                    # float() syncs with the card; log_every keeps steps
+                    # in flight
+                    if (batch_idx + 1) % max(cfg.log_every, 1) == 0:
+                        with span("css.log"):
+                            _log(epoch, batch_idx * len(batch_np["rgb"]),
+                                 len(trainset), metrics)
+                last_batch = batch_np
 
         if (epoch + 1) % cfg.analyse_epoch == 0 and lead:
             net_dir = os.path.join(cfg.log_dir, "net")

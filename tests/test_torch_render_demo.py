@@ -2,7 +2,7 @@
 stamped-circle primitives and background compositing of the rasterer
 (renderer/rasterer.py, ops/splat.py), the renderer demo
 (pipelines/render_demo.py), the mesh loader (utils/meshio.py) and the
-profiling helpers (utils/profiling.py).
+profiler trace of utils/profiling.py.
 
 Tolerances: each render's images to 1e-5 of JAX's rasterer.render (fp32
 dense matrices on both sides), and the pose gradient of a loss over
@@ -151,22 +151,19 @@ def test_load_obj_matches_jax(tmp_path):
         tmeshio.load_obj(str(tmp_path / "empty.obj"))
 
 
-def test_throughput_meter_and_trace(tmp_path):
-    meter = profiling.ThroughputMeter()
-    meter.tick(rays=1024, crops=2)
-    meter.tick(rays=1024, frames=1)
-    rates = meter.rates()
-    assert (meter.rays, meter.crops, meter.frames) == (2048, 2, 1)
-    dt = rates["elapsed_s"]
-    assert rates["rays_per_s"] == pytest.approx(2048 / dt, rel=1e-3)
-    assert rates["crops_per_hour"] == pytest.approx(2 * 3600 / dt, rel=1e-3)
-    assert rates["frames_per_hour"] == pytest.approx(3600 / dt, rel=1e-3)
-    meter.reset()
-    assert meter.rays == meter.crops == meter.frames == 0
+def test_trace_exports_ops_and_spans(tmp_path):
     with profiling.trace(str(tmp_path / "trace")) as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with profiling.span("demo.block", rows=64):
+            torch.ones(64, 64) @ torch.ones(64, 64)
     names = {e.key for e in prof.key_averages()}
     assert "aten::mm" in names
     with open(tmp_path / "trace" / "trace.json") as f:
         events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "aten::mm" for e in events)
+    mm = [e for e in events if e.get("name") == "aten::mm"]
+    block = [e for e in events if e.get("cat") == "program_span"]
+    assert mm and [e["name"] for e in block] == ["demo.block"]
+    assert block[0]["args"]["rows"] == 64
+    # the span holds the operator on the file's clock and thread
+    b, m = block[0], mm[0]
+    assert b["tid"] == m["tid"]
+    assert b["ts"] <= m["ts"] and m["ts"] + m["dur"] <= b["ts"] + b["dur"]
