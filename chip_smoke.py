@@ -35,7 +35,13 @@ so).
    split forward and backward must hold the first designs' limits (those
    of the dense split designs) and give two bit-equal launches; each is
    timed a call and alone beside its first design, with the window pairs
-   and footprint pairs. Every row prints its share of its bound. Then
+   and footprint pairs. The DeepSDF trainer's bias, ReLU and dropout
+   kernels at 1,048,576 rows of 512 and of 506 columns: y and the
+   gradient of z bit-equal to PyTorch's chain on the same masks (and, at
+   512, to the plain version on the same uniforms), the
+   bias's gradient within its order's fp32 round-off, two launches
+   bit-equal; each direction timed a call and alone beside the plain
+   version and the chain. Every row prints its share of its bound. Then
    the crop axis: kernels 1a, 1b, 2 and 3 each launched once for 4 crops of
    the main path's shapes, held against their plain versions crop by crop
    and bit-equal to 4 single-crop launches, timed alone beside those 4
@@ -201,7 +207,8 @@ so).
 Each kernel's launches are counted on the path that runs it (set to 0
 just before the path, read just after): the dense splat, NN and selection
 kernels in phase 4, the stage-2 kernels in 4c, the binned backward in 4b,
-the bins and the binned forward in 5 and the CE kernels in 6 (and in
+the bins and the binned forward in 5, the bias, ReLU and dropout kernels
+in 8 and the CE kernels in 6 (and in
 6b and 6c, given under ``launches_by_path``, with the bins and 1c on
 phase 10's v1 frames, ``suite_v1``, and the CE kernels on its CSS
 training, ``suite_css``; the bins, 1c and the CE kernels on phase 11's
@@ -261,8 +268,8 @@ from sdflabel_tpu_torch.models import css as css_mod  # noqa: E402
 from sdflabel_tpu_torch.models import css_fused  # noqa: E402
 from sdflabel_tpu_torch.models import deepsdf  # noqa: E402
 from sdflabel_tpu_torch.ops import (  # noqa: E402
-    _cuda, ce_cuda, grid as grid_ops, knn, mlp2_cuda, mlp_cuda, nn_cuda,
-    splat, splat_cuda)
+    _cuda, ce_cuda, dropout_cuda, grid as grid_ops, knn, mlp2_cuda,
+    mlp_cuda, nn_cuda, splat, splat_cuda)
 from sdflabel_tpu_torch.parallel import batched_refine  # noqa: E402
 from sdflabel_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
 from sdflabel_tpu_torch.parallel import rays as rays_mod  # noqa: E402
@@ -316,6 +323,15 @@ KERNELS = {  # wrapper counter, source, the TPU kernel it replaces
     "stage2_bwd": (mlp2_cuda.STAGE2_BWD,
                    "sdflabel_tpu_torch/csrc/stage2_mlp.cu",
                    "sdflabel_tpu/ops/mlp2_pallas.py:197"),
+    # the port's own kernels: JAX computes the train-mode layer's bias,
+    # ReLU and dropout in XLA (sdflabel_tpu/models/deepsdf.py)
+    "brd_fwd": (dropout_cuda.BRD_FWD,
+                "sdflabel_tpu_torch/csrc/bias_relu_dropout.cu",
+                "sdflabel_tpu/models/deepsdf.py:apply_sdf"),
+    "brd_bwd": (_cuda.KernelGroup(bwd=dropout_cuda.BRD_BWD,
+                                  reduce=dropout_cuda.BRD_REDUCE),
+                "sdflabel_tpu_torch/csrc/bias_relu_dropout.cu",
+                "sdflabel_tpu/models/deepsdf.py:apply_sdf"),
 }
 # the path whose run gives each kernel's launches
 PATHS = {"splat_fwd": "full_width", "splat_bwd": "full_width",
@@ -323,7 +339,8 @@ PATHS = {"splat_fwd": "full_width", "splat_bwd": "full_width",
          "splat_bwd_binned": "binned_refine", "splat_fwd_binned": "crops",
          "splat_bins": "crops",
          "ce_fwd": "train", "ce_bwd": "train",
-         "stage2_fwd": "full_width_stage2", "stage2_bwd": "full_width_stage2"}
+         "stage2_fwd": "full_width_stage2", "stage2_bwd": "full_width_stage2",
+         "brd_fwd": "deepsdf_train", "brd_bwd": "deepsdf_train"}
 QUALITY_DSDF = os.path.join(ROOT, "data", "quality_nets",
                             "deepsdf_quality.pt")
 
@@ -368,7 +385,8 @@ def ptxas_report(logs: dict) -> list[str]:
                                    "splat_bwd_binned_split_kernel",
                                    "splat_bins_keys_kernel",
                                    "splat_bins_scatter_kernel",
-                                   "nn_split_kernel"):
+                                   "nn_split_kernel", "brd_fwd_kernel",
+                                   "brd_bwd_kernel", "brd_reduce_kernel"):
                     if plain_name in line:
                         name, key = plain_name, None
                 # the CE kernels as the train towers launch them (int64
@@ -1733,6 +1751,152 @@ def check_ce(dev) -> list[dict]:
                                          "bound_ms", "library_ms",
                                          "first_ms", "first_kernel_ms")}
     return rows[256]
+
+
+def check_bias_relu_dropout(dev, rows: int = 1 << 20,
+                            widths: tuple = (512, 506)) -> list[dict]:
+    """The train-mode hidden layer's bias, ReLU and dropout kernels at
+    DeepSDF's training shape (64 scenes x 16384 rows; 512 columns, and
+    506 before latent_in): y and the gradient of z against PyTorch's chain
+    (relu(z + b), then models/deepsdf.py::_dropout, and autograd's
+    backward) on the same generator's masks, bit for bit, and at the
+    first width against the plain version on the same uniforms; the bias's
+    gradient within its order's fp32 round-off of the float64 column sum;
+    two launches bit-equal. Each direction timed a call and alone at 512
+    columns, beside the plain version on the same uniforms and the chain
+    (its draw included) as the library time. The rows give the 512-column
+    numbers."""
+    keep = 0.8
+    rows_out = {}
+    for cols in widths:
+        gen = torch.Generator(device=dev).manual_seed(cols)
+        z = torch.randn(rows, cols, generator=gen, device=dev)
+        b = torch.randn(cols, generator=gen, device=dev) * 0.3
+        g = torch.randn(rows, cols, generator=gen, device=dev)
+
+        def fused(zz, bb):
+            return dropout_cuda.bias_relu_dropout(
+                zz, bb, keep, torch.Generator(device=dev).manual_seed(1))
+
+        def chain(zz, bb):
+            return deepsdf._dropout(torch.relu(zz + bb), keep,
+                                    torch.Generator(device=dev).manual_seed(1))
+
+        outs = []
+        for fn in (fused, chain, fused):
+            zz = z.clone().requires_grad_(True)
+            bb = b.clone().requires_grad_(True)
+            y = fn(zz, bb)
+            gz, gb = torch.autograd.grad(y, (zz, bb), g)
+            outs.append((y.detach(), gz, gb))
+            del zz, bb, y
+        torch.cuda.synchronize()
+        (y_k, gz_k, gb_k), (y_c, gz_c, gb_c), again = outs
+        del outs
+
+        def bits(t):
+            return t.view(torch.int32)
+
+        def gap(a, w):  # in fp32: exact for close values (Sterbenz)
+            return float((a - w).abs().max())
+
+        y_same = torch.equal(bits(y_k), bits(y_c))
+        gz_same = torch.equal(bits(gz_k), bits(gz_c))
+        # the largest gaps to the chain: y and gz (0 where bit-equal), and
+        # the bias's gradient (its sum runs in another order)
+        fwd_gap, bwd_gap = gap(y_k, y_c), max(gap(gz_k, gz_c),
+                                              gap(gb_k, gb_c))
+        twice = all(torch.equal(bits(a), bits(w))
+                    for a, w in zip((y_k, gz_k, gb_k), again))
+        depth = dropout_cuda.sum_depth(dropout_cuda.plan(rows, cols))
+        exact = gz_k.double().sum(0)
+        allowed = depth * 2.0 ** -24 * gz_k.double().abs().sum(0)
+        gb_err = float(((gb_k.double() - exact).abs() / allowed).max())
+        gb_abs_err = float((gb_k.double() - exact).abs().max())
+        chain_err = float(((gb_c.double() - exact).abs() / allowed).max())
+        kept = float((y_k != 0).float().mean())
+        print(f"bias_relu_dropout C={cols}: y bit-equal to the chain "
+              f"{y_same}, gz {gz_same}; gb at {gb_err:.3g} of its round-off "
+              f"bound (depth {depth}; PyTorch's sum at {chain_err:.3g}; "
+              f"{gb_abs_err:.3g} from the float64 sum, {gap(gb_k, gb_c):.3g} "
+              f"from PyTorch's); two launches bit-equal {twice}; nonzero "
+              f"share {kept:.4f}")
+        assert y_same and gz_same and twice and gb_err <= 1.0
+        del gz_c, gb_c, y_c, again
+        if cols != widths[0]:
+            del z, b, g, y_k, gz_k, gb_k
+            continue
+
+        u = torch.rand(rows, cols, generator=gen, device=dev)
+        y = y_k
+        fwd_b = bound(3 * 4 * rows * cols + 4 * cols, 2 * rows * cols,
+                      FP32_FLOPS)
+        bwd_b = bound(3 * 4 * rows * cols + 4 * cols, 2 * rows * cols,
+                      FP32_FLOPS)
+        zl = z.clone().requires_grad_(True)
+        bl = b.clone().requires_grad_(True)
+        y_chain = chain(zl, bl)
+        zp = z.clone().requires_grad_(True)
+        bp = b.clone().requires_grad_(True)
+        y_plain = dropout_cuda.bias_relu_dropout_plain(zp, bp, u, keep)
+
+        def fwd():
+            return dropout_cuda._fwd(z, b, u, keep)
+
+        def bwd():
+            return dropout_cuda._bwd(g, y, keep)
+
+        # the kernels against the plain version on the same uniforms
+        y_u = fwd()
+        gz_u, _ = dropout_cuda._bwd(g, y_u, keep)
+        gz_plain, _ = torch.autograd.grad(y_plain, (zp, bp), g,
+                                          retain_graph=True)
+        plain_same = (torch.equal(bits(y_u), bits(y_plain.detach()))
+                      and torch.equal(bits(gz_u), bits(gz_plain)))
+        fwd_gap = max(fwd_gap, gap(y_u, y_plain.detach()))
+        bwd_gap = max(bwd_gap, gap(gz_u, gz_plain))
+        print(f"bias_relu_dropout C={cols}: y and gz bit-equal to the plain "
+              f"version on the same uniforms {plain_same}; the largest gaps "
+              f"to the chain and the plain version: forward {fwd_gap:.3g}, "
+              f"backward (gz, gb) {bwd_gap:.3g}")
+        assert plain_same
+        del y_u, gz_u, gz_plain
+
+        with torch.no_grad():
+            r_fwd = dict(
+                name="brd_fwd", ms=time_ms(fwd),
+                kernel_ms=kernel_ms(fwd, "brd_fwd_kernel"),
+                call_with_draw_ms=time_ms(lambda: fused(z, b)),
+                plain_ms=time_ms(lambda: dropout_cuda.bias_relu_dropout_plain(
+                    z, b, u, keep)),
+                library_ms=time_ms(lambda: chain(z, b)),
+                bound_ms=fwd_b[0], bound_by=fwd_b[1], max_abs_err=fwd_gap)
+        r_bwd = dict(
+            name="brd_bwd", ms=time_ms(bwd),
+            kernel_ms=kernel_ms(bwd, "brd_bwd_kernel"),
+            reduce_kernel_ms=kernel_ms(bwd, "brd_reduce_kernel"),
+            plain_ms=time_ms(lambda: torch.autograd.grad(
+                y_plain, (zp, bp), g, retain_graph=True)),
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                y_chain, (zl, bl), g, retain_graph=True)),
+            bound_ms=bwd_b[0], bound_by=bwd_b[1], max_abs_err=bwd_gap,
+            gb_abs_err=gb_abs_err, gb_err_of_bound=gb_err)
+        for r in (r_fwd, r_bwd):
+            r["shape"] = [rows, cols]
+            share = r["bound_ms"] / r["kernel_ms"]
+            print(f"{r['name']} ({rows} x {cols}): {r['ms']:.4f} ms a call, "
+                  f"{r['kernel_ms']:.4f} ms alone ({share:.1%} of the "
+                  f"bound); plain "
+                  f"{r['plain_ms']:.4f} ms, the PyTorch chain "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})"
+                  + (f"; with the draw {r['call_with_draw_ms']:.4f} ms"
+                     if "call_with_draw_ms" in r else
+                     f"; the reduction alone {r['reduce_kernel_ms']:.4f} ms"))
+        rows_out[cols] = [r_fwd, r_bwd]
+        del z, b, g, u, y, y_k, gz_k, gb_k, zl, bl, y_chain, zp, bp, y_plain
+        torch.cuda.empty_cache()
+    return rows_out[widths[0]]
 
 
 # ---------------------------------------------------------------- phase 3
@@ -4402,7 +4566,9 @@ def run_paths(dev, out_dir: str, small: bool = False,
                                                                 crops_dir)
     seconds["6e"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    reset_counts()
     dsdf_handles, dsdf_train = deepsdf_train_phase(dev, out_dir, small=small)
+    dsdf_launched = counts()
     seconds["8"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     data_parallel = dp_phases(dev, out_dir, crops_dir, dsdf_handles,
@@ -4429,6 +4595,7 @@ def run_paths(dev, out_dir: str, small: bool = False,
                 "batched_stage2": b_stage2_launched,
                 "batched_binned": b_binned_launched,
                 "demo_viz": viz_launched, "render_demo": demo9_launched,
+                "deepsdf_train": dsdf_launched,
                 **mesh_launched, **cells_launched, **remake_launched,
                 **assets_launched}
     summary = {"demo_crop": demo, "demo_viz": demo_viz,
@@ -4485,7 +4652,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     rows = (check_splat(dev) + [check_nn(dev), check_select(dev)]
-            + check_splat_binned(dev) + check_ce(dev) + check_stage2(dev))
+            + check_splat_binned(dev) + check_ce(dev) + check_stage2(dev)
+            + check_bias_relu_dropout(dev))
     crop_axes = {**check_crop_axis(dev), **check_crop_axis_stage2_binned(dev)}
     for name, crop_axis in crop_axes.items():
         next(r for r in rows if r["name"] == name)["crop_axis"] = crop_axis

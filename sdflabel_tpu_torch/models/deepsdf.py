@@ -18,6 +18,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from sdflabel_tpu_torch.ops import dropout_cuda
+
 
 @dataclasses.dataclass(frozen=True)
 class DeepSDFConfig:
@@ -102,13 +104,15 @@ def init_params(cfg: DeepSDFConfig, generator: torch.Generator,
     return params
 
 
-def _linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+def _weight(p: dict) -> torch.Tensor:
     if "v" in p:  # weight-norm: w = v * g / ||v|| per output column
         v = p["v"]
-        w = v * (p["g"] / torch.linalg.norm(v, dim=0))[None, :]
-    else:
-        w = p["w"]
-    return x @ w + p["b"]
+        return v * (p["g"] / torch.linalg.norm(v, dim=0))[None, :]
+    return p["w"]
+
+
+def _linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return x @ _weight(p) + p["b"]
 
 
 def _layer_norm(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -123,11 +127,7 @@ def _dropout(x: torch.Tensor, keep_p: float, generator: torch.Generator,
     from `generator`, on x's device) and scaled by 1 / keep_p. With
     `rows` (lo, n), x is rows lo.. of an (n, ...) batch: the mask is drawn
     for the whole batch and x takes its rows of it."""
-    shape = x.shape if rows is None else (rows[1],) + tuple(x.shape[1:])
-    keep = torch.rand(shape, generator=generator, device=x.device) < keep_p
-    if rows is not None:
-        keep = keep[rows[0]:rows[0] + x.shape[0]]
-    return torch.where(keep, x / keep_p, torch.zeros((), device=x.device))
+    return dropout_cuda.dropout(x, keep_p, generator, rows)
 
 
 def apply_sdf(cfg: DeepSDFConfig, params: dict, inputs: torch.Tensor,
@@ -141,7 +141,11 @@ def apply_sdf(cfg: DeepSDFConfig, params: dict, inputs: torch.Tensor,
     ``cfg.latent_dropout``), drawn from it. JAX draws its masks with
     jax.random: the two never draw the same masks. `dropout_rows` (lo, n)
     marks (N, latent+3) inputs as rows lo.. of an n-row batch whose masks
-    are drawn whole (a data-parallel rank's share)."""
+    are drawn whole (a data-parallel rank's share). A dropout layer without
+    LayerNorm on fp32 inputs runs its bias, ReLU and dropout through
+    ops/dropout_cuda.py (on the card one kernel each way; the same masks
+    and values as the chain below); every other layer, and every layer in
+    eval mode, runs the chain."""
     x = inputs
     if (dropout_gen is not None and cfg.latent_dropout
             and inputs.shape[-1] > 3):
@@ -153,11 +157,19 @@ def apply_sdf(cfg: DeepSDFConfig, params: dict, inputs: torch.Tensor,
             x = torch.cat([x, inputs], dim=-1)
         elif l != 0 and cfg.xyz_in_all:
             x = torch.cat([x, inputs[..., -3:]], dim=-1)
+        layer_norm = (not cfg.weight_norm) and l in cfg.norm_layers
+        if (dropout_gen is not None and l < last and l in cfg.dropout
+                and not layer_norm and x.dtype == torch.float32):
+            p = params[f"lin{l}"]
+            x = dropout_cuda.bias_relu_dropout(
+                x @ _weight(p), p["b"], 1.0 - cfg.dropout_prob, dropout_gen,
+                dropout_rows)
+            continue
         x = _linear(params[f"lin{l}"], x)
         if l == last and cfg.use_tanh:
             x = torch.tanh(x)
         if l < last:
-            if (not cfg.weight_norm) and l in cfg.norm_layers:
+            if layer_norm:
                 x = _layer_norm(params[f"ln{l}"], x)
             x = torch.relu(x)
             if dropout_gen is not None and l in cfg.dropout:

@@ -36,7 +36,8 @@ _COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  # no a*b+c -> fma contraction: the kernels repeat the plain
                  # versions' separately rounded products and sums
                  "-fmad=false"]
-SOURCES = ("splat", "splat_bins", "nn", "select_mlp", "ce", "stage2_mlp")
+SOURCES = ("splat", "splat_bins", "nn", "select_mlp", "ce", "stage2_mlp",
+           "bias_relu_dropout")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -190,6 +191,7 @@ class KernelGroup:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 
 
